@@ -1,0 +1,17 @@
+"""The port's device rule: entry points run on the card unless the caller
+asks for another device."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``, and raises when there is no CUDA device;
+    the CPU is used only when the caller passes ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

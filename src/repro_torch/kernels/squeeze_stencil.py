@@ -1,0 +1,321 @@
+"""Block-level Squeeze stencil kernels: the CUDA wrappers and, beside each,
+its plain PyTorch version.
+
+  * ``stencil_step_fused``       (v3) -- one step; replaces the Pallas
+    ``squeeze_stencil.py::stencil_step_fused``.
+  * ``stencil_step_fused_k``     (v4) -- k exact steps per launch on a
+    depth-k window (1 <= k <= rho); replaces ``stencil_step_fused_k``.
+  * ``stencil_step_mxu_batched`` (v5) -- k exact steps of B simulations in
+    one launch, the Moore aggregate as rank-1 banded products over P window
+    slots per CTA; replaces ``stencil_step_mxu_batched``.
+
+The kernels live in ``csrc/squeeze_stencil.cu``. A wrapper runs the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises (a failed build raises ``KernelBuildError``). Each
+wrapper counts its launches in ``LAUNCHES``.
+
+States are ``(B?, C?, n_blocks, rho, rho)``: the channel axis is present
+iff ``workload.n_channels > 1``. ``stencil_step_fused`` and
+``stencil_step_fused_k`` take an optional leading batch axis;
+``stencil_step_mxu_batched`` requires it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.compact import BlockLayout
+from repro_torch.kernels import build
+from repro_torch.workloads.base import StencilWorkload, banded_operators
+from repro_torch.workloads.rules import LIFE
+
+#: kernel name -> launches since the last ``reset_launches``
+LAUNCHES = {"stencil_step_fused": 0, "stencil_step_fused_k": 0,
+            "stencil_step_mxu_batched": 0}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_RULE_ARGS = [_I, _I, _F, _F, _F, _F, _F, _F, _F, _P]
+_SIGNATURES = {
+    # rule, src, dst, nbr, wmask, nb, batch, rho, ...
+    "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
+    "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL, _I, _I, _I]
+    + _RULE_ARGS,
+    # rule, src, dst, nbr, wmask, R, C, n_terms, nb, batch, rho, k, P, ...
+    "sq_stencil_step_mxu": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                            _I] + _RULE_ARGS,
+}
+_MAX_SMEM = 232448  # bytes of shared memory one Hopper CTA can use
+_MAX_CTA_CELLS = 8 * 1024  # window cells of one CTA: 8 per thread
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load_library("squeeze_stencil")
+    for fn, args in _SIGNATURES.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes, f.restype = args, ctypes.c_int
+    return lib
+
+
+# ======================================================================
+# shapes
+# ======================================================================
+def _as_batched(layout: BlockLayout, workload: StencilWorkload,
+                state: torch.Tensor, batched: Optional[bool] = None):
+    """View ``state`` as (B, C, nb, rho, rho); returns the view and
+    whether the input had a batch axis."""
+    rho, nb, nc = layout.rho, layout.n_blocks, workload.n_channels
+    base = 3 + (nc > 1)
+    if batched is None:
+        batched = state.dim() == base + 1
+    if state.dim() != base + batched or \
+            tuple(state.shape[-3:]) != (nb, rho, rho) or \
+            (nc > 1 and state.shape[-4] != nc):
+        want = ("(B, " if batched else "(") + \
+            (f"{nc}, " if nc > 1 else "") + f"{nb}, {rho}, {rho})"
+        raise ValueError(f"state shape {tuple(state.shape)} does not match "
+                         f"{want} for workload {workload.name!r}")
+    s = state if batched else state[None]
+    return (s if nc > 1 else s[:, None]), batched
+
+
+def _unbatch(out5: torch.Tensor, workload: StencilWorkload, batched: bool):
+    out = out5 if workload.n_channels > 1 else out5[:, 0]
+    return out if batched else out[0]
+
+
+# ======================================================================
+# plain PyTorch versions (the CPU path, and the oracle on the card)
+# ======================================================================
+def block_step_k(layout: BlockLayout, x: torch.Tensor,
+                 workload: StencilWorkload, k: int) -> torch.Tensor:
+    """k exact steps of one simulation in plain PyTorch, x (C?, nb, rho,
+    rho), any k >= 1: the ``block`` engine's step and, for k <= rho, the
+    kernels' plain versions."""
+    if k == 1:
+        padded = layout.pad_with_halo(x)
+        mask = layout.device_table("micro_mask", x.device)
+        return workload.tile_rule(x, padded, mask).to(x.dtype)
+    padded = layout.pad_with_halo_k(x, k)
+    hmask = layout.device_table("halo_mask", x.device, k)
+    return workload.tile_rule_k(padded, hmask, k).to(x.dtype)
+
+
+def _plain_batched(layout, state, workload, k, batched=None):
+    s5, batched = _as_batched(layout, workload, state, batched)
+    outs = []
+    for x in s5:
+        x = x if workload.n_channels > 1 else x[0]
+        y = block_step_k(layout, x, workload, k)
+        outs.append(y if workload.n_channels > 1 else y[None])
+    return _unbatch(torch.stack(outs), workload, batched)
+
+
+def stencil_step_fused_plain(layout: BlockLayout, state: torch.Tensor,
+                             workload: StencilWorkload = LIFE):
+    """One step: Moore halo through the neighbor table, then the rule
+    under ``micro_mask``."""
+    return _plain_batched(layout, state, workload, 1)
+
+
+def stencil_step_fused_k_plain(layout: BlockLayout, state: torch.Tensor,
+                               workload: StencilWorkload = LIFE, *,
+                               k: int = 2):
+    """k steps: depth-k halo through ``offset_table(k)``, then
+    ``tile_rule_k`` under ``halo_mask(k)`` (gated at every substep)."""
+    return _plain_batched(layout, state, workload, k)
+
+
+def stencil_step_mxu_batched_plain(layout: BlockLayout, states: torch.Tensor,
+                                   workload: StencilWorkload = LIFE, *,
+                                   k: int = 1, p: Optional[int] = None):
+    """k steps of B simulations; the result does not depend on ``p``."""
+    del p
+    return _plain_batched(layout, states, workload, k, batched=True)
+
+
+# ======================================================================
+# v5 operands
+# ======================================================================
+@functools.lru_cache(maxsize=64)
+def _mxu_operators(workload: StencilWorkload, w: int):
+    """(R, C), each (T, w, w) float32: the banded operators of the rank-1
+    terms of the workload's weights over one w x w slot, so the Moore
+    aggregate of a slot is ``sum_t R[t] @ X @ C[t].T``."""
+    return banded_operators(workload.weight_factors, w, np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _mxu_operators_on(workload: StencilWorkload, w: int, device: str):
+    rm, cm = _mxu_operators(workload, w)
+    return (torch.from_numpy(rm).to(device), torch.from_numpy(cm).to(device))
+
+
+# ======================================================================
+# CUDA launches
+# ======================================================================
+def _rule_args(workload: StencilWorkload, stream: int):
+    """The C arguments after the shapes: born, survive, p0..p3, the ring
+    weights (diagonal, orthogonal, orthogonal - diagonal) and the
+    stream."""
+    params = workload.kernel_params()
+    wd, wo = workload.ring_weights
+    return [params["born"], params["survive"], *params["p"], wd, wo,
+            wo - wd, stream]
+
+
+def _check_cuda(state: torch.Tensor, workload: StencilWorkload,
+                out: Optional[torch.Tensor]) -> torch.Tensor:
+    if state.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got "
+                         f"{state.device}")
+    if state.dtype != workload.dtype:
+        raise TypeError(f"workload {workload.name!r} steps "
+                        f"{workload.dtype} states, got {state.dtype}")
+    if not state.is_contiguous():
+        raise ValueError("state must be contiguous")
+    if out is None:
+        return torch.empty_like(state)
+    _check_out(state, out)
+    return out
+
+
+def _check_out(state: torch.Tensor, out: torch.Tensor) -> None:
+    if out.shape != state.shape or out.dtype != state.dtype or \
+            out.device != state.device or not out.is_contiguous():
+        raise ValueError("out must be a contiguous tensor of the state's "
+                         "shape, dtype and device")
+    if out.data_ptr() == state.data_ptr():
+        raise ValueError("out must not alias the state the kernel reads "
+                         "its halos from")
+
+
+def _finish(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _launch_fused(name, layout, state, workload, k, out):
+    lib = _library()
+    s5, batched = _as_batched(layout, workload, state)
+    out = _check_cuda(state, workload, out)
+    b = s5.shape[0]
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535")
+    dev = state.device
+    nbr = layout.device_table("neighbor_table", dev)
+    wmask = layout.device_table("window_mask", dev, k)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = [_rule(workload), state.data_ptr(), out.data_ptr(),
+                nbr.data_ptr(), wmask.data_ptr(), layout.n_blocks, b,
+                layout.rho]
+        rule_args = _rule_args(workload, stream)
+        if name == "stencil_step_fused":
+            rc = lib.sq_stencil_step_fused(*args, *rule_args)
+        else:
+            rc = lib.sq_stencil_step_fused_k(*args, k, *rule_args)
+    _finish(rc, name)
+    return out
+
+
+def _rule(workload: StencilWorkload) -> int:
+    return workload.kernel_params()["rule"]
+
+
+def _check_k(layout: BlockLayout, k: int, what: str):
+    if not 1 <= k <= layout.rho:
+        raise ValueError(f"{what} needs 1 <= k <= rho={layout.rho}, got "
+                         f"k={k} (use SqueezeBlockEngine.step_k for deeper "
+                         "halos)")
+
+
+def stencil_step_fused(layout: BlockLayout, state: torch.Tensor,
+                       workload: StencilWorkload = LIFE, *,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v3: one step. ``state`` (B?, C?, nb, rho, rho) -> same; ``out``
+    receives the result on the card (it must not alias ``state``)."""
+    if state.device.type == "cpu":
+        return _into(state, stencil_step_fused_plain(layout, state,
+                                                     workload), out)
+    return _launch_fused("stencil_step_fused", layout, state, workload, 1,
+                         out)
+
+
+def stencil_step_fused_k(layout: BlockLayout, state: torch.Tensor,
+                         workload: StencilWorkload = LIFE, *, k: int = 2,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v4: ``k`` exact steps in one launch, 1 <= k <= rho."""
+    _check_k(layout, k, "the fused kernel")
+    if state.device.type == "cpu":
+        return _into(state, stencil_step_fused_k_plain(layout, state,
+                                                       workload, k=k), out)
+    return _launch_fused("stencil_step_fused_k", layout, state, workload, k,
+                         out)
+
+
+def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
+                             workload: StencilWorkload = LIFE, *, k: int = 1,
+                             p: Optional[int] = None,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """v5: ``k`` exact steps of B simulations in one launch over a
+    (n_macro, B) grid; states (B, C?, nb, rho, rho) -> same. ``p``
+    overrides the slots per CTA (None = ``layout.macro_tiles`` default);
+    the result does not depend on it."""
+    _check_k(layout, k, "the mxu kernel")
+    if states.device.type == "cpu":
+        return _into(states, stencil_step_mxu_batched_plain(
+            layout, states, workload, k=k, p=p), out)
+    lib = _library()
+    s5, _ = _as_batched(layout, workload, states, batched=True)
+    out = _check_cuda(states, workload, out)
+    b = s5.shape[0]
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535")
+    p, n_macro, _ = layout.macro_tiles(k, p=p)
+    w = layout.rho + 2 * k
+    dev = states.device
+    rm, cm = _mxu_operators_on(workload, w, str(dev))
+    n_terms = rm.shape[0]
+    smem = ((p * workload.n_channels + 2 * n_terms) * w * w * 4
+            + p * workload.n_channels * w * w * states.element_size()
+            + 16 + p * 36)
+    if smem > _MAX_SMEM or p * w * w > _MAX_CTA_CELLS:
+        raise ValueError(f"P={p} slots of {w}x{w} cells exceed one CTA "
+                         f"({smem} bytes of {_MAX_SMEM} shared, "
+                         f"{p * w * w} cells of {_MAX_CTA_CELLS})")
+    if n_macro >= 2 ** 31:
+        raise ValueError(f"{n_macro} macro-tiles exceed the grid")
+    nbr = layout.device_table("neighbor_table", dev)
+    wmask = layout.device_table("window_mask", dev, k)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sq_stencil_step_mxu(
+            _rule(workload), states.data_ptr(), out.data_ptr(),
+            nbr.data_ptr(), wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(),
+            n_terms, layout.n_blocks, b, layout.rho, k, p,
+            *_rule_args(workload, stream))
+    _finish(rc, "stencil_step_mxu_batched")
+    return out
+
+
+def _into(state: torch.Tensor, result: torch.Tensor,
+          out: Optional[torch.Tensor]):
+    """The CPU path's ``out=``, with the same checks as on the card."""
+    if out is None:
+        return result
+    _check_out(state, out)
+    out.copy_(result)
+    return out

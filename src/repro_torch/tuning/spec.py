@@ -1,0 +1,142 @@
+"""``EngineSpec`` -- the canonical engine-configuration identity of the port.
+
+One frozen, hashable dataclass names a configuration:
+``make_engine(spec)`` builds an engine from it, and the ``BatchedRunner``
+keys its engine cache on ``spec.normalize()``. ``canonical()`` validates
+the kind and zeroes the knobs that do not apply to it; ``normalize()``
+then resolves the tunable knobs left ``None`` by the rule
+
+    explicit argument  >  static heuristic
+
+(no tuning table: the port has no measurements to fill one yet). Two
+configurations share an engine exactly when their normalized specs are
+equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
+
+#: port kind -> the reference kind it is held against (parity tests walk
+#: this one list)
+REFERENCE_KINDS: Dict[str, str] = {
+    "bb": "bb", "lambda": "lambda", "cell": "cell", "block": "block",
+    "cuda-fused": "pallas-fused", "cuda-mxu": "pallas-mxu",
+}
+
+#: every engine kind ``make_engine`` accepts
+KINDS: Tuple[str, ...] = tuple(REFERENCE_KINDS)
+
+#: kinds with block tiles (fusion depth applies)
+BLOCK_KINDS = frozenset({"block", "cuda-fused", "cuda-mxu"})
+
+#: kinds whose kernel packs P blocks per CTA
+MXU_KINDS = frozenset({"cuda-mxu"})
+
+FracId = Union[str, Tuple[Tuple[int, int], ...]]
+
+
+def _frac_identity(frac) -> Tuple[int, FracId]:
+    """(s, name-or-mask): the registry name when the object is that
+    registry entry, else its slot positions."""
+    from repro_torch.core.fractals import REGISTRY
+    positions = tuple(tuple(int(c) for c in p) for p in frac.positions)
+    reg = REGISTRY.get(getattr(frac, "name", None))
+    if reg is not None and reg.s == frac.s and reg.positions == positions:
+        return int(frac.s), frac.name
+    return int(frac.s), positions
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """``frac`` is a registry fractal name or a slot-position mask; ``s``
+    the fractal's scaling factor; ``workload`` a registry workload name.
+    ``fusion_k`` and ``macro_p`` are the tunable knobs (``None`` = the
+    heuristic)."""
+
+    kind: str
+    s: int
+    frac: FracId
+    r: int
+    m: int = 0
+    workload: str = "life"
+    fusion_k: Optional[int] = None
+    macro_p: Optional[int] = None
+
+    @classmethod
+    def from_args(cls, kind: str, frac, r: int, m: int = 0, workload=None,
+                  fusion_k: Optional[int] = None,
+                  macro_p: Optional[int] = None) -> "EngineSpec":
+        """The identity of a fractal object and workload object (or
+        name) plus knobs."""
+        s, ident = _frac_identity(frac)
+        wl = workload if isinstance(workload, str) else (
+            "life" if workload is None else workload.name)
+        return cls(kind=kind, s=s, frac=ident, r=int(r), m=int(m),
+                   workload=wl, fusion_k=fusion_k, macro_p=macro_p)
+
+    @property
+    def is_block(self) -> bool:
+        return self.kind in BLOCK_KINDS
+
+    @property
+    def is_mxu(self) -> bool:
+        return self.kind in MXU_KINDS
+
+    @property
+    def rho(self) -> int:
+        """Block tile side s**m (1 for non-block kinds)."""
+        return self.s ** self.m if self.is_block else 1
+
+    def canonical(self) -> "EngineSpec":
+        """Validated, with the knobs that do not apply zeroed: non-block
+        kinds get ``m = 0`` and ``fusion_k = 1``; ``macro_p`` only stays on
+        the MXU kind."""
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown engine kind {self.kind!r}; known: "
+                             f"{sorted(KINDS)}")
+        if self.fusion_k is not None and self.fusion_k < 1:
+            raise ValueError(f"fusion_k must be >= 1, got {self.fusion_k}")
+        if self.macro_p is not None and self.macro_p < 1:
+            raise ValueError(f"macro_p must be >= 1, got {self.macro_p}")
+        block = self.is_block
+        return dataclasses.replace(
+            self, m=self.m if block else 0,
+            fusion_k=self.fusion_k if block else 1,
+            macro_p=self.macro_p if self.is_mxu else None)
+
+    def normalize(self) -> "EngineSpec":
+        """``canonical()`` with ``fusion_k`` and (MXU kind) ``macro_p``
+        resolved to concrete values, explicit > heuristic; idempotent."""
+        spec = self.canonical()
+        if not spec.is_block:
+            return spec
+        from repro_torch.core.stencil import default_fusion_k
+        k = spec.fusion_k if spec.fusion_k is not None \
+            else default_fusion_k(spec.rho)
+        p = spec.macro_p
+        if spec.is_mxu:
+            from repro_torch.core.compact import BlockLayout
+            layout = BlockLayout(self.build_frac(), spec.r, spec.m)
+            p = layout.macro_tiles(k, p=p)[0]
+        return dataclasses.replace(spec, fusion_k=k, macro_p=p)
+
+    def build_frac(self):
+        """The fractal object this spec names."""
+        from repro_torch.core.fractals import REGISTRY, NBBFractal
+        if isinstance(self.frac, str):
+            frac = REGISTRY.get(self.frac)
+            if frac is None:
+                raise KeyError(f"unknown fractal name {self.frac!r} in "
+                               "EngineSpec")
+            if frac.s != self.s:
+                raise ValueError(f"fractal {self.frac!r} has s={frac.s}, "
+                                 f"spec says s={self.s}")
+            return frac
+        return NBBFractal(f"nbb-s{self.s}-k{len(self.frac)}", self.s,
+                          self.frac)
+
+    def build_workload(self):
+        """The registry workload this spec names."""
+        from repro_torch.workloads.rules import get_workload
+        return get_workload(self.workload)

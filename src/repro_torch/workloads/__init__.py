@@ -1,0 +1,14 @@
+"""Stencil workloads and the batched runner."""
+from repro_torch.workloads.base import StencilWorkload, weighted_moore_agg
+from repro_torch.workloads.rules import (GRAY_SCOTT, HEAT, HIGHLIFE, LIFE,
+                                         SEEDS, WORKLOADS, GrayScott,
+                                         HeatDiffusion, TotalisticCA,
+                                         get_workload)
+from repro_torch.workloads.runner import BatchedRunner, RunnerStats
+
+__all__ = [
+    "StencilWorkload", "weighted_moore_agg", "TotalisticCA",
+    "HeatDiffusion", "GrayScott", "LIFE", "HIGHLIFE", "SEEDS", "HEAT",
+    "GRAY_SCOTT", "WORKLOADS", "get_workload", "BatchedRunner",
+    "RunnerStats",
+]

@@ -1,0 +1,149 @@
+"""Batched simulation runtime: many independent simulations over a small
+set of static configurations.
+
+  * an LRU cache of engines keyed by the NORMALIZED ``EngineSpec`` (the
+    runner's one normalization path), thread-safe, with one build per key
+    even under concurrent misses;
+  * ``run`` takes floor(steps/k) fused k-step launches plus a steps % k
+    single-step remainder over a leading batch axis: 'cuda-mxu' steps the
+    batch natively through the v5 kernel's (B, n_macro) grid, 'cuda-fused'
+    through the v3/v4 kernels' written-out batch grid axis; the plain kinds
+    step each simulation in turn.
+
+Every public method takes an ``EngineSpec`` first -- ``run(spec, states,
+steps)`` -- or the argument list ``run(kind, frac, r, states, steps, ...)``.
+The runner's ``device`` follows the port's rule: ``None`` is the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import OrderedDict
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.tuning.spec import EngineSpec
+from repro_torch.workloads.base import StencilWorkload
+from repro_torch.workloads.rules import LIFE
+
+
+def _steps_batches(engine) -> bool:
+    """True for the kernel engines, which step a leading batch axis in one
+    launch; the plain engines step one simulation at a time."""
+    from repro_torch.core.stencil import SqueezeKernelEngine
+    return isinstance(engine, SqueezeKernelEngine)
+
+
+@dataclasses.dataclass
+class RunnerStats:
+    builds: int = 0     # engines constructed (cache misses)
+    evictions: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Resolved:
+    spec: EngineSpec          # normalized: the cache key
+    frac: object
+    workload: StencilWorkload
+
+
+class BatchedRunner:
+    """LRU cache of engines keyed by normalized ``EngineSpec``; lookups
+    hold a lock, a cold build runs outside it behind a per-key event."""
+
+    def __init__(self, capacity: int = 16, device=None):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.capacity = capacity
+        self.device = resolve_device(device)
+        self.stats = RunnerStats()
+        self._cache: "OrderedDict[EngineSpec, object]" = OrderedDict()
+        self._lock = threading.RLock()
+        self._building: Dict[EngineSpec, threading.Event] = {}
+
+    # ------------------------------------------------------------- cache
+    def _resolve(self, kind, frac=None, r: Optional[int] = None, m: int = 0,
+                 workload: Optional[StencilWorkload] = None,
+                 k: Optional[int] = None,
+                 macro_p: Optional[int] = None) -> _Resolved:
+        if isinstance(kind, EngineSpec):
+            norm = kind.normalize()
+            return _Resolved(
+                norm, frac if frac is not None else norm.build_frac(),
+                workload if workload is not None
+                else norm.build_workload())
+        workload = LIFE if workload is None else workload
+        spec = EngineSpec.from_args(kind, frac, r, m, workload, fusion_k=k,
+                                    macro_p=macro_p)
+        return _Resolved(spec.normalize(), frac, workload)
+
+    def _get(self, res: _Resolved):
+        key = res.spec
+        while True:
+            with self._lock:
+                engine = self._cache.get(key)
+                if engine is not None:
+                    self._cache.move_to_end(key)
+                    return engine
+                ev = self._building.get(key)
+                if ev is None:
+                    self._building[key] = threading.Event()
+                    break
+            ev.wait()
+        try:
+            from repro_torch.core.stencil import make_engine
+            engine = make_engine(key, frac=res.frac, workload=res.workload,
+                                 device=self.device)
+            with self._lock:
+                self._cache[key] = engine
+                self.stats.builds += 1
+                if len(self._cache) > self.capacity:
+                    self._cache.popitem(last=False)
+                    self.stats.evictions += 1
+            return engine
+        finally:
+            with self._lock:
+                self._building.pop(key).set()
+
+    def engine_for(self, kind, frac=None, r=None, m=0, workload=None,
+                   k=None, macro_p=None):
+        """The cached single-simulation engine of this configuration."""
+        return self._get(self._resolve(kind, frac, r, m, workload, k,
+                                       macro_p))
+
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    # ------------------------------------------------------- batched API
+    def init_batch(self, kind, frac=None, r=None, seeds=None, m=0,
+                   workload=None) -> torch.Tensor:
+        """(B, *state_shape) initial states, one per seed.
+        Spec form: ``init_batch(spec, seeds)``."""
+        if isinstance(kind, EngineSpec) and seeds is None:
+            seeds, frac = frac, None
+        engine = self._get(self._resolve(kind, frac, r, m, workload))
+        return torch.stack([engine.init_random(int(s)) for s in seeds])
+
+    def step(self, kind, frac=None, r=None, states=None, m=0,
+             workload=None) -> torch.Tensor:
+        """One step of B simulations. Spec form: ``step(spec, states)``."""
+        if isinstance(kind, EngineSpec) and states is None:
+            states, frac = frac, None
+        engine = self._get(self._resolve(kind, frac, r, m, workload))
+        if _steps_batches(engine):
+            return engine.step(states)
+        return torch.stack([engine.step(s) for s in states])
+
+    def run(self, kind, frac=None, r=None, states=None, steps=None, m=0,
+            workload=None, k=None, macro_p=None) -> torch.Tensor:
+        """``steps`` steps of B simulations (see module docstring).
+        Spec form: ``run(spec, states, steps)``."""
+        if isinstance(kind, EngineSpec) and states is None:
+            states, steps, frac, r = frac, r, None, None
+        engine = self._get(self._resolve(kind, frac, r, m, workload, k,
+                                         macro_p))
+        if _steps_batches(engine):
+            return engine.run(states, int(steps))
+        return torch.stack([engine.run(s, int(steps)) for s in states])

@@ -1,0 +1,62 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports jax or the reference package, and the CPU path
+runs with neither loaded."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and \
+                getattr(node.func, "id", None) == "__import__" and \
+                node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_cpu_path_runs_without_jax_or_reference():
+    code = """
+import sys
+import torch
+from repro_torch.core import SIERPINSKI, make_engine
+from repro_torch.workloads import GRAY_SCOTT, LIFE, BatchedRunner
+for kind in ("cuda-fused", "cuda-mxu", "block", "cell", "bb"):
+    eng = make_engine(kind, SIERPINSKI, 4, 1 if kind != "cell" else 0,
+                      workload=GRAY_SCOTT, device="cpu")
+    s = eng.run(eng.init_random(0), 3)
+    assert torch.isfinite(s).all()
+runner = BatchedRunner(device="cpu")
+states = runner.init_batch("cuda-mxu", SIERPINSKI, 4, [0, 1], m=2)
+assert runner.run("cuda-mxu", SIERPINSKI, 4, states, 5, m=2).shape == \\
+    states.shape
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")
