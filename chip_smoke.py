@@ -9,22 +9,38 @@ jax or the reference package). Phases, each printing one JSON line:
   1. device  -- the card's name and power limit (nvidia-smi), torch/CUDA;
   2. build   -- the kernels built from ``src/repro_torch/kernels/csrc`` by
                 nvcc for sm_90a;
-  3. kernels against their plain PyTorch versions on the card: v3, v4 (k in
-     {2, rho}) and v5 (k in {1, 2}, two packings, B=3) on LIFE, HIGHLIFE,
-     HEAT and GRAY_SCOTT over sierpinski (m=2), carpet and vicsek (m=1) at
-     about 10^6 compact cells or more, <= 8 steps each; CA bit-exact,
-     floats to rtol=1e-5 and atol=1e-5 * min(1, max|plain|), so a field
-     that has decayed is still compared at its own scale;
-  4. the main path at the paper's size (sierpinski r=16, 3^16 cells):
-     ``BatchedRunner.run`` with cuda-mxu (LIFE, B=4, 64 steps) and (HEAT,
-     B=2, 64 steps), ``make_engine('cuda-fused').run`` with LIFE and
-     GRAY_SCOTT for 63 steps (the v3 remainder runs), each held against the
-     plain ``block`` engine on the card, with the kernel launch counts;
-  5. the paper's comparison: the expanded bounding-box engine on the
-     65536^2 grid against cuda-mxu and cuda-fused for LIFE (the same
-     states, checked equal), time per step, speedup, memory;
-  6. a ``kernels`` line: each kernel's launches on the main path, largest
-     error against its plain version, time, plain time and bound.
+  3. kernels against their plain PyTorch versions on the card: v1 and v2
+     (one simulation and B=3), v3, v4 (k in {2, rho}) and v5 (k in {1, 2},
+     two packings, B=3) on LIFE, HIGHLIFE, HEAT and GRAY_SCOTT over
+     sierpinski (m=2), carpet and vicsek (m=1) at about 10^6 compact cells
+     or more, <= 8 steps each; CA bit-exact, floats to rtol=1e-5 and
+     atol=1e-5 * min(1, max|plain|), so a field that has decayed is still
+     compared at its own scale; then nu and lambda, bit-exact, on all five
+     registry fractals at r=3 and at the largest r whose coordinates fit
+     int32, 10^6 coordinates each (nu's past both edges of the grid,
+     lambda's negative and past the compact edges);
+  4. the main path at the paper's size (sierpinski r=16, 3^16 cells), each
+     timed run after one untimed warm-up run: ``BatchedRunner.run`` with
+     cuda-mxu (LIFE, B=4, 64 steps) and (HEAT, B=2, 64 steps),
+     ``make_engine('cuda-fused').run`` with LIFE and GRAY_SCOTT for 63 steps
+     (the v3 remainder runs), ``make_engine('cuda')`` (= cuda-strips, v4
+     plus one v2 remainder) with LIFE for 63 steps, cuda-strips and
+     cuda-blocks with fusion_k=1 (every step v2 or v1) with LIFE and HEAT
+     for 16 steps, each held against the plain ``block`` engine on the
+     card; and the ``cell`` engine (index tensors from one lambda and 8 nu
+     launches) with LIFE for 4 steps, held against cuda-fused through the
+     expanded grid; with the kernel launch counts of the whole phase;
+  5. the paper's comparison (Fig. 12's trio): the expanded bounding-box
+     engine on the 65536^2 grid against the lambda engine, the cell engine,
+     cuda-mxu and cuda-fused for LIFE (the same states, checked equal),
+     time per step with the index build outside the timed window, speedup,
+     memory;
+  6. each kernel at the main path's shapes, with its plain version's time
+     and, for v2, the strip gather's; for the maps over all 3^16 compact
+     cells, also the float32 product form (``*_map_matmul``, Fig. 14's
+     tensor-core form against the scalar kernels); then a ``kernels`` line:
+     each kernel's launches on the main path, largest error against its
+     plain version, time, plain time and bound.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -40,13 +56,25 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 outside the tensor cores. NVIDIA's data sheet gives no
+# scalar integer rate; the integer units are no faster, so the map kernels'
+# integer operations are counted against this rate too, which keeps their
+# bound a lower bound.
+F32_FLOPS = 67e12
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/squeeze_stencil.cu"
-REPLACES = {
-    "stencil_step_fused": "src/repro/kernels/squeeze_stencil.py:294",
-    "stencil_step_fused_k": "src/repro/kernels/squeeze_stencil.py:451",
-    "stencil_step_mxu_batched": "src/repro/kernels/squeeze_stencil.py:620",
+_STENCIL = "src/repro_torch/kernels/csrc/squeeze_stencil.cu"
+_MAPS = "src/repro_torch/kernels/csrc/squeeze_maps.cu"
+_TPU = "src/repro/kernels/"
+#: kernel -> (its source, the TPU kernel's entry it replaces)
+KERNELS = {
+    "stencil_step_blocks": (_STENCIL, _TPU + "squeeze_stencil.py:110"),
+    "stencil_step_strips": (_STENCIL, _TPU + "squeeze_stencil.py:229"),
+    "stencil_step_fused": (_STENCIL, _TPU + "squeeze_stencil.py:294"),
+    "stencil_step_fused_k": (_STENCIL, _TPU + "squeeze_stencil.py:451"),
+    "stencil_step_mxu_batched": (_STENCIL,
+                                 _TPU + "squeeze_stencil.py:620"),
+    "nu_map_tc": (_MAPS, _TPU + "nu_map.py:73"),
+    "lambda_map_tc": (_MAPS, _TPU + "lambda_map.py:53"),
 }
 
 
@@ -129,6 +157,15 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
             def tag(fn, kernel):
                 fn.kernel = kernel
                 return fn
+            for v, fn, plain in (
+                    ("v1", sk.stencil_step_blocks,
+                     sk.stencil_step_blocks_plain),
+                    ("v2", sk.stencil_step_strips,
+                     sk.stencil_step_strips_plain)):
+                for label, state in ((v, x[0]), (f"{v}_b3", x)):
+                    run(label, tag(lambda s, fn=fn: fn(lay, s, wl),
+                                   fn.__name__),
+                        lambda s, plain=plain: plain(lay, s, wl), state, 8)
             run("v3", tag(lambda s: sk.stencil_step_fused(lay, s, wl),
                           "stencil_step_fused"),
                 lambda s: sk.stencil_step_fused_plain(lay, s, wl), x[0], 8)
@@ -153,6 +190,42 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
                  seconds=time.perf_counter() - t0)
 
 
+def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_000):
+    """nu and lambda against their plain (int64) versions, bit-exact."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+
+    def uniform(lo, hi):
+        lo, hi = max(lo, -2 ** 31), min(hi, 2 ** 31)
+        return torch.randint(lo, hi, (n,), generator=g, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+    for frac in F.REGISTRY.values():
+        for r in (3, nm.max_int32_level(frac)):
+            t0 = time.perf_counter()
+            side = frac.side(r)
+            rows, cols = frac.compact_dims(r)
+            spill = side // 8 + 2
+            ex, ey = (uniform(-spill, side + spill) for _ in range(2))
+            cx, cy = uniform(-cols, 2 * cols), uniform(-rows, 2 * rows)
+            for what, got, want in zip(
+                    ("cx", "cy", "valid"), nm.nu_map_tc(frac, r, ex, ey),
+                    nm.nu_map_tc_plain(frac, r, ex, ey)):
+                chk.check(f"maps/{frac.name}/r{r}/nu/{what}", "nu_map_tc",
+                          got.to(torch.int64), want.to(torch.int64), True)
+            for what, got, want in zip(
+                    ("ex", "ey"), lm.lambda_map_tc(frac, r, cx, cy),
+                    lm.lambda_map_tc_plain(frac, r, cx, cy)):
+                chk.check(f"maps/{frac.name}/r{r}/lambda/{what}",
+                          "lambda_map_tc", got, want, True)
+            torch.cuda.synchronize()
+            emit("map_vs_plain", fractal=frac.name, r=r, coordinates=n,
+                 nu_range=[-spill, side + spill],
+                 lambda_range_x=[-cols, 2 * cols], tolerance="exact",
+                 max_err={"nu_map_tc": chk.max_err["nu_map_tc"],
+                          "lambda_map_tc": chk.max_err["lambda_map_tc"]},
+                 seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -163,10 +236,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.core import fractals as F
-    from repro_torch.core.compact import BlockLayout, shared_layout
+    from repro_torch.core import maps as M
+    from repro_torch.core.compact import (BlockLayout, compact_meshgrid,
+                                          expanded_to_compact, shared_layout)
     from repro_torch.core.stencil import default_fusion_k, make_engine
     from repro_torch.kernels import build
+    from repro_torch.kernels import lambda_map as lm
+    from repro_torch.kernels import nu_map as nm
     from repro_torch.kernels import squeeze_stencil as sk
+    from repro_torch.workloads.base import halo_needs
     from repro_torch.workloads import BatchedRunner
     from repro_torch.workloads import rules as R
 
@@ -190,6 +268,7 @@ def main() -> int:
     # 3. kernels against plain ------------------------------------------
     chk = Checker(torch)
     phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk)
+    phase_maps_vs_plain(torch, chk, F, nm, lm)
 
     # 4. the main path at the paper's size --------------------------------
     frac, r, m = F.SIERPINSKI, 16, 2
@@ -207,10 +286,39 @@ def main() -> int:
     fused = {wl.name: make_engine("cuda-fused", frac, r, m, workload=wl)
              for wl in (R.LIFE, R.GRAY_SCOTT)}
     fused_init = {n: e.init_random(6) for n, e in fused.items()}
+    cuda_eng = make_engine("cuda", frac, r, m, workload=R.LIFE)
+    cuda_init = cuda_eng.init_random(7)
+    singles = {(kind, wl.name): make_engine(kind, frac, r, m, workload=wl,
+                                            fusion_k=1)
+               for kind in ("cuda-strips", "cuda-blocks")
+               for wl in (R.LIFE, R.HEAT)}
+    single_init = {n: singles[("cuda-strips", n)].init_random(8)
+                   for n in ("life", "heat")}
+    cell = make_engine("cell", frac, r, workload=R.LIFE)
+    cell_init = expanded_to_compact(frac, r, lay.to_expanded(
+        fused_init["life"]))
     # upload the tables now, so the timed runs below cover stepping only
     lay.device_table("neighbor_table", "cuda")
+    lay.device_table("micro_mask", "cuda")
     for kk in (1, k):
         lay.device_table("window_mask", "cuda", kk)
+
+    timed = [
+        ("runner cuda-mxu life", lambda: runner.run(
+            "cuda-mxu", frac, r, life_states, 64, m=m, workload=R.LIFE),
+         64, 4),
+        ("runner cuda-mxu heat", lambda: runner.run(
+            "cuda-mxu", frac, r, heat_states, 64, m=m, workload=R.HEAT),
+         64, 2)]
+    timed += [(f"cuda-fused {n}", lambda n=n: fused[n].run(
+        fused_init[n], 63), 63, 1) for n in fused]
+    timed.append(("cuda life", lambda: cuda_eng.run(cuda_init, 63), 63, 1))
+    timed += [(f"{kind} k1 {n}", lambda e=e, n=n: e.run(single_init[n], 16),
+               16, 1) for (kind, n), e in singles.items()]
+    # one untimed warm-up run each: the engine's ping-pong buffers and
+    # the runner's batch come from the caching allocator in the timed run
+    for _, fn, _, _ in timed:
+        fn()
     torch.cuda.synchronize()
 
     sk.reset_launches()
@@ -225,16 +333,20 @@ def main() -> int:
                          ms_per_step=1e3 * sec / steps,
                          cells_per_s=batch * frac.volume(r) * steps / sec))
         return out
-    out_mxu_life = drive("runner cuda-mxu life", lambda: runner.run(
-        "cuda-mxu", frac, r, life_states, 64, m=m, workload=R.LIFE), 64, 4)
-    out_mxu_heat = drive("runner cuda-mxu heat", lambda: runner.run(
-        "cuda-mxu", frac, r, heat_states, 64, m=m, workload=R.HEAT), 64, 2)
-    out_fused = {n: drive(f"cuda-fused {n}", lambda n=n: fused[n].run(
-        fused_init[n], 63), 63, 1) for n in fused}
+    outs = {label: drive(label, fn, steps, batch)
+            for label, fn, steps, batch in timed}
+    t = time.perf_counter()
+    _ = cell._gathers   # one lambda and 8 nu launches
+    torch.cuda.synchronize()
+    cell_index_seconds = time.perf_counter() - t
+    out_cell = drive("cell life", lambda: cell.run(cell_init, 4), 4, 1)
     launches = dict(sk.LAUNCHES)
     expect = {"stencil_step_mxu_batched": 64 // k * 2,
-              "stencil_step_fused_k": 63 // k * 2,
-              "stencil_step_fused": 63 % k * 2}
+              "stencil_step_fused_k": 63 // k * 3,
+              "stencil_step_fused": 63 % k * 2,
+              "stencil_step_strips": 63 % k + 16 * 2,
+              "stencil_step_blocks": 16 * 2,
+              "lambda_map_tc": 1, "nu_map_tc": 8}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -242,115 +354,204 @@ def main() -> int:
         eng = make_engine("block", frac, r, m, workload=wl, fusion_k=k)
         return eng.run(state, steps)
     checks = {}
-    want = torch.stack([plain_run(R.LIFE, s, 64) for s in life_states])
-    checks["runner cuda-mxu life"] = chk.check(
-        "main/mxu/life", "stencil_step_mxu_batched", out_mxu_life, want,
-        True)
-    alive = int(out_mxu_life.sum())
     max_abs_plain = {}
-    want = torch.stack([plain_run(R.HEAT, s, 64) for s in heat_states])
-    checks["runner cuda-mxu heat"] = chk.check(
-        "main/mxu/heat", "stencil_step_mxu_batched", out_mxu_heat, want,
-        False)
-    max_abs_plain["runner cuda-mxu heat"] = float(want.abs().max())
+
+    def check(label, kernel, want, exact):
+        checks[label] = chk.check(f"main/{label}", kernel, outs[label],
+                                  want, exact)
+        if not exact:
+            max_abs_plain[label] = float(want.abs().max())
+    check("runner cuda-mxu life", "stencil_step_mxu_batched", torch.stack(
+        [plain_run(R.LIFE, s, 64) for s in life_states]), True)
+    alive = int(outs["runner cuda-mxu life"].sum())
+    check("runner cuda-mxu heat", "stencil_step_mxu_batched", torch.stack(
+        [plain_run(R.HEAT, s, 64) for s in heat_states]), False)
     for n, wl in (("life", R.LIFE), ("gray-scott", R.GRAY_SCOTT)):
-        want = plain_run(wl, fused_init[n], 63)
-        checks[f"cuda-fused {n}"] = chk.check(
-            f"main/fused/{n}", "stencil_step_fused_k", out_fused[n], want,
-            wl.dtype == torch.uint8)
-        max_abs_plain[f"cuda-fused {n}"] = float(want.abs().max())
+        check(f"cuda-fused {n}", "stencil_step_fused_k",
+              plain_run(wl, fused_init[n], 63), wl.dtype == torch.uint8)
+    check("cuda life", "stencil_step_fused_k",
+          plain_run(R.LIFE, cuda_init, 63), True)
+    for (kind, n), e in singles.items():
+        wl = e.workload
+        check(f"{kind} k1 {n}", f"stencil_step_{e.variant}",
+              plain_run(wl, single_init[n], 16), wl.dtype == torch.uint8)
+    # the cell engine against cuda-fused, through the expanded grid
+    want = expanded_to_compact(frac, r, lay.to_expanded(
+        fused["life"].run(fused_init["life"], 4)))
+    checks["cell life"] = chk.check("main/cell", None, out_cell, want, True)
     if alive == 0:
         raise AssertionError("LIFE died out on the main path")
     emit("main_path", fusion_k=k, runs=runs, launches=launches,
          expected_launches=expect, max_err_vs_plain=checks,
-         max_abs_plain=max_abs_plain,
+         max_abs_plain=max_abs_plain, cell_index_seconds=cell_index_seconds,
          live_cells_after_64_steps=alive,
          state_bytes_life_b4=life_states.numel())
-    del out_mxu_life, out_mxu_heat, out_fused, life_states, heat_states
-    del fused_init, want
+    del outs, out_cell, life_states, heat_states, fused_init, cuda_init
+    del single_init, cell_init, want, timed
     torch.cuda.empty_cache()
 
-    # 5. the paper's comparison: BB against Squeeze ------------------------
+    # 5. the paper's comparison: BB, lambda and Squeeze --------------------
     bb = make_engine("bb", frac, r, workload=R.LIFE)
+    lam = make_engine("lambda", frac, r, workload=R.LIFE)
     mxu = make_engine("cuda-mxu", frac, r, m, workload=R.LIFE)
     fu = fused["life"]
+    t = time.perf_counter()
+    _ = lam._coords     # the index build (one lambda launch), untimed below
+    torch.cuda.synchronize()
+    lambda_index_seconds = time.perf_counter() - t
     e0 = bb.init_random(9)
     s0 = lay.from_expanded(e0)
+    c0 = expanded_to_compact(frac, r, e0)
     n_bb = 4
     t = time.perf_counter()
     e1 = bb.run(e0, n_bb)
     torch.cuda.synchronize()
     bb_ms = 1e3 * (time.perf_counter() - t) / n_bb
-    sq_mxu = mxu.run(s0, n_bb)
-    sq_fu = fu.run(s0, n_bb)
     want = lay.from_expanded(e1)
-    chk.check("bb/mxu", None, sq_mxu, want, True)
-    chk.check("bb/fused", None, sq_fu, want, True)
-    del e0, e1, want
+    chk.check("bb/lambda", None, lay.from_expanded(lam.run(e0, n_bb)), want,
+              True)
+    chk.check("bb/cell", None, cell.run(c0, n_bb),
+              expanded_to_compact(frac, r, e1), True)
+    chk.check("bb/mxu", None, mxu.run(s0, n_bb), want, True)
+    chk.check("bb/fused", None, fu.run(s0, n_bb), want, True)
+    del e1, want
+    torch.cuda.empty_cache()
+    lam_ms = cuda_ms(torch, lambda: lam.run(e0, 2), 2) / 2
+    del e0
     torch.cuda.empty_cache()
     n_sq = 32
+    cell_ms = cuda_ms(torch, lambda: cell.run(c0, 8), 2) / 8
     mxu_ms = cuda_ms(torch, lambda: mxu.run(s0, n_sq), 3) / n_sq
     fu_ms = cuda_ms(torch, lambda: fu.run(s0, n_sq), 3) / n_sq
     emit("bb_vs_squeeze", workload="life", expanded_side=frac.side(r),
-         bb_ms_per_step=bb_ms, cuda_mxu_ms_per_step=mxu_ms,
-         cuda_fused_ms_per_step=fu_ms, speedup_mxu=bb_ms / mxu_ms,
-         speedup_fused=bb_ms / fu_ms, bb_bytes=bb.memory_bytes(),
-         squeeze_bytes=lay.memory_bytes(),
+         bb_ms_per_step=bb_ms, lambda_ms_per_step=lam_ms,
+         cell_ms_per_step=cell_ms, cuda_mxu_ms_per_step=mxu_ms,
+         cuda_fused_ms_per_step=fu_ms, speedup_lambda=bb_ms / lam_ms,
+         speedup_cell=bb_ms / cell_ms, speedup_mxu=bb_ms / mxu_ms,
+         speedup_fused=bb_ms / fu_ms,
+         lambda_index_seconds=lambda_index_seconds,
+         bb_bytes=bb.memory_bytes(), lambda_bytes=lam.memory_bytes(),
+         cell_bytes=cell.memory_bytes(), squeeze_bytes=lay.memory_bytes(),
          mrf=bb.memory_bytes() / lay.memory_bytes(), paper_mrf=56.1,
          equal_after_steps=n_bb)
+    del lam, c0, cell
+    torch.cuda.empty_cache()
 
     # 6. kernels at the main path's shapes --------------------------------
     # Bounds count the work the function needs, whatever the algorithm:
-    # each input read and each output written once, and about 12
-    # operations (Moore aggregate and rule) per cell and substep. v5's
-    # halo ring, padding slots and zero band entries are not counted.
+    # each input read and each output written once. A stencil step does
+    # about 12 operations (Moore aggregate and rule) per cell and substep;
+    # v5's halo ring, padding slots and zero band entries are not counted.
+    # The maps run r digit steps per coordinate: nu 7 integer operations a
+    # level (two division/modulus pairs, the code lookup, the membership
+    # test and the multiply-add), lambda 6 (one pair, two lookups, two
+    # multiply-adds).
     s1 = mxu.init_random(3)
     sb = torch.stack([mxu.init_random(i) for i in range(4)])
+    o1, ob = torch.empty_like(s1), torch.empty_like(sb)
     table_bytes = lay.n_blocks * 8 * 4
     state_bytes = s1.numel() * s1.element_size()
+    step_bytes = 2 * state_bytes + table_bytes
     p = lay.macro_tiles(k)[0]
+    needs = halo_needs(R.LIFE.weights2d)
+    strips = sk._gather_halo_strips(lay, s1[None, None], needs)
+    cxm, cym = (c.contiguous() for c in compact_meshgrid(frac, r, "cuda"))
+    ex16, ey16 = lm.lambda_map_tc(frac, r, cxm, cym)
+    n16 = cxm.numel()
     specs = {
+        "stencil_step_blocks": dict(
+            fn=lambda: sk.stencil_step_blocks(lay, s1, R.LIFE, out=o1),
+            plain=lambda: sk.stencil_step_blocks_plain(lay, s1, R.LIFE),
+            shape=s1.shape, k=1, bytes=step_bytes, ops=12 * s1.numel()),
+        "stencil_step_strips": dict(
+            fn=lambda: sk.stencil_step_strips(lay, s1, R.LIFE, out=o1),
+            plain=lambda: sk.stencil_step_strips_plain(lay, s1, R.LIFE),
+            shape=s1.shape, k=1, bytes=step_bytes, ops=12 * s1.numel(),
+            extra=dict(
+                kernel_alone=lambda: sk._launch_step(
+                    "stencil_step_strips", lay, s1, R.LIFE, 1, o1,
+                    strips=strips),
+                gather=lambda: sk._gather_halo_strips(
+                    lay, s1[None, None], needs)),
+            kernel_alone_bytes=2 * state_bytes
+            + strips.numel() * strips.element_size()),
         "stencil_step_fused": dict(
-            fn=lambda o: sk.stencil_step_fused(lay, s1, R.LIFE, out=o),
+            fn=lambda: sk.stencil_step_fused(lay, s1, R.LIFE, out=o1),
             plain=lambda: sk.stencil_step_fused_plain(lay, s1, R.LIFE),
-            like=s1, bytes=2 * state_bytes + table_bytes,
-            ops=12 * s1.numel()),
+            shape=s1.shape, k=1, bytes=step_bytes, ops=12 * s1.numel()),
         "stencil_step_fused_k": dict(
-            fn=lambda o: sk.stencil_step_fused_k(lay, s1, R.LIFE, k=k,
-                                                 out=o),
+            fn=lambda: sk.stencil_step_fused_k(lay, s1, R.LIFE, k=k,
+                                               out=o1),
             plain=lambda: sk.stencil_step_fused_k_plain(lay, s1, R.LIFE,
                                                         k=k),
-            like=s1, bytes=2 * state_bytes + table_bytes,
+            shape=s1.shape, k=k, bytes=step_bytes,
             ops=12 * k * s1.numel()),
         "stencil_step_mxu_batched": dict(
-            fn=lambda o: sk.stencil_step_mxu_batched(lay, sb, R.LIFE, k=k,
-                                                     out=o),
+            fn=lambda: sk.stencil_step_mxu_batched(lay, sb, R.LIFE, k=k,
+                                                   out=ob),
             plain=lambda: sk.stencil_step_mxu_batched_plain(lay, sb, R.LIFE,
                                                             k=k),
-            like=sb, bytes=2 * 4 * state_bytes + table_bytes,
-            ops=12 * k * sb.numel()),
+            shape=sb.shape, k=k, p=p, bytes=2 * 4 * state_bytes
+            + table_bytes, ops=12 * k * sb.numel()),
+        "nu_map_tc": dict(
+            fn=lambda: nm.nu_map_tc(frac, r, ex16, ey16),
+            plain=lambda: nm.nu_map_tc_plain(frac, r, ex16, ey16),
+            shape=ex16.shape, r=r, bytes=17 * n16, ops=7 * r * n16,
+            extra=dict(matmul=lambda: M.nu_map_matmul(frac, r, ex16,
+                                                      ey16))),
+        "lambda_map_tc": dict(
+            fn=lambda: lm.lambda_map_tc(frac, r, cxm, cym),
+            plain=lambda: lm.lambda_map_tc_plain(frac, r, cxm, cym),
+            shape=cxm.shape, r=r, bytes=16 * n16, ops=6 * r * n16,
+            extra=dict(matmul=lambda: M.lambda_map_matmul(frac, r, cxm,
+                                                          cym))),
     }
+
+    def parts(x):
+        """A result as a tuple of numeric tensors (bool as int64)."""
+        xs = x if isinstance(x, tuple) else (x,)
+        return tuple(t.to(torch.int64) if t.dtype == torch.bool else t
+                     for t in xs)
+    # lambda then nu returns every compact cell, all members
+    bx, by, valid = nm.nu_map_tc(frac, r, ex16, ey16)
+    for what, got, want in (("cx", bx, cxm), ("cy", by, cym),
+                            ("valid", parts(valid)[0],
+                             torch.ones_like(bx, dtype=torch.int64))):
+        chk.check(f"roundtrip/{what}", None, got, want, True)
+    del bx, by, valid
     rows = []
     for kname, spec in specs.items():
-        out = torch.empty_like(spec["like"])
-        chk.check(f"timing/{kname}", kname, spec["fn"](out), spec["plain"](),
-                  True)
-        ms = cuda_ms(torch, lambda: spec["fn"](out), 20)
+        want = parts(spec["plain"]())
+        for i, (g, w) in enumerate(zip(parts(spec["fn"]()), want)):
+            chk.check(f"timing/{kname}/{i}", kname, g, w, True)
+        extra_ms = {}
+        for what, fn in spec.get("extra", {}).items():
+            if what == "matmul":   # the float32 form: exact below 2^24
+                for i, g in enumerate(parts(fn())):
+                    chk.check(f"timing/{kname}/matmul/{i}", None, g,
+                              want[i], True)
+            extra_ms[f"{what}_ms"] = cuda_ms(torch, fn,
+                                             3 if what == "matmul" else 20)
+        del want
+        ms = cuda_ms(torch, spec["fn"], 20)
         plain_ms = cuda_ms(torch, spec["plain"], 3)
         bytes_ms = 1e3 * spec["bytes"] / HBM_BYTES_PER_S
         ops_ms = 1e3 * spec["ops"] / F32_FLOPS
+        source, replaces = KERNELS[kname]
         rows.append(dict(
-            name=kname, route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES[kname], launches=launches[kname],
-            max_abs_err=chk.max_err[kname], ms=ms, plain_ms=plain_ms,
-            bound_ms=max(bytes_ms, ops_ms),
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=launches[kname], max_abs_err=chk.max_err[kname], ms=ms,
+            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=None))
-        emit("kernel_timing", name=kname, shape=list(spec["like"].shape),
-             workload="life", k=1 if kname == "stencil_step_fused" else k,
-             p=p if "mxu" in kname else None, ms=ms, plain_ms=plain_ms,
-             bytes=spec["bytes"], bytes_ms=bytes_ms, ops=spec["ops"],
-             ops_ms=ops_ms)
+        if "kernel_alone_bytes" in spec:
+            extra_ms["kernel_alone_bytes_ms"] = \
+                1e3 * spec["kernel_alone_bytes"] / HBM_BYTES_PER_S
+        emit("kernel_timing", name=kname, shape=list(spec["shape"]),
+             workload="life" if "stencil" in kname else None,
+             k=spec.get("k"), p=spec.get("p"), r=spec.get("r"), ms=ms,
+             plain_ms=plain_ms, bytes=spec["bytes"], bytes_ms=bytes_ms,
+             ops=spec["ops"], ops_ms=ops_ms, **extra_ms)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

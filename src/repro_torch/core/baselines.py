@@ -3,12 +3,12 @@
   * ``BBEngine``     -- the expanded bounding-box approach: grid and memory
                         are the full n x n embedding (paper's approach 1).
   * ``LambdaEngine`` -- Navarro et al. [7]: one unit of work per fractal
-                        cell, placed by lambda, over expanded memory
-                        (approach 2).
+                        cell, placed by lambda (the lambda kernel, once per
+                        engine), over expanded memory (approach 2).
 
 Only fractal cells carry state or count as neighbors; multi-channel
-workloads carry a leading channel axis, state (C, n, n). Plain PyTorch,
-as the reference's baselines are plain XLA.
+workloads carry a leading channel axis, state (C, n, n). The steps are
+plain PyTorch, as the reference's baselines are plain XLA.
 """
 from __future__ import annotations
 
@@ -18,9 +18,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import maps
 from repro_torch.core.compact import compact_meshgrid
 from repro_torch.core.fractals import NBBFractal
+from repro_torch.kernels import lambda_map as lm
 from repro_torch.workloads.base import (MOORE_DIRS, StencilWorkload,
                                         check_workload_ndim,
                                         weighted_gather_agg,
@@ -109,8 +109,9 @@ class LambdaEngine:
 
     @functools.cached_property
     def _coords(self):
+        """(ex, ey) of every compact cell: one lambda kernel launch."""
         cx, cy = compact_meshgrid(self.frac, self.r, self.device)
-        ex, ey = maps.lambda_map(self.frac, self.r, cx, cy)
+        ex, ey = lm.lambda_map_tc(self.frac, self.r, cx, cy)
         return ex.long(), ey.long()
 
     def step(self, state: torch.Tensor) -> torch.Tensor:

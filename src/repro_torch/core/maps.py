@@ -15,7 +15,12 @@ Two implementations per map:
     and return the same kind they were given.
 
 ``nu_weight_matrix`` and ``lambda_weight_matrix`` are the constant operands
-of the paper's tensor-core encoding of the maps (Eqs. 15-16).
+of the paper's tensor-core encoding of the maps (Eqs. 15-16), and
+``nu_map_matmul`` / ``lambda_map_matmul`` that encoding as one float32
+product (the reference's "MXU form"): exact while every result is below
+2**24. The CUDA map kernels (``kernels/nu_map.py``, ``kernels/lambda_map.py``)
+sum in integers instead and are held to ``nu_with_membership`` and
+``lambda_map``.
 """
 from __future__ import annotations
 
@@ -196,3 +201,48 @@ def lambda_weight_matrix(frac: NBBFractal, r: int) -> np.ndarray:
         w[mu - 1, 0] = float(frac.s ** (mu - 1))
         w[r + mu - 1, 1] = float(frac.s ** (mu - 1))
     return w
+
+
+def _matmul_ints(codes, w: np.ndarray):
+    """(codes (..., L) float32) @ (w (L, 2)) -> two int32 arrays."""
+    if isinstance(codes, torch.Tensor):
+        out = codes @ torch.from_numpy(w).to(codes.device)
+        return out[..., 0].to(torch.int32), out[..., 1].to(torch.int32)
+    out = codes @ w
+    return out[..., 0].astype(np.int32), out[..., 1].astype(np.int32)
+
+
+def _stack_f32(cols):
+    if isinstance(cols[0], torch.Tensor):
+        return torch.stack(cols, dim=-1).to(torch.float32)
+    return np.stack(cols, axis=-1).astype(np.float32)
+
+
+def nu_map_matmul(frac: NBBFractal, r: int, ex, ey):
+    """nu(w) as one float32 product: replica codes (..., r), holes as 0,
+    @ ``nu_weight_matrix`` (r, 2) -> int32 (cx, cy). No clipping, as in
+    the reference; exact while cx, cy < 2**24."""
+    codes = [c * (c >= 0) for c in _nu_digits(frac, r, ex, ey)]
+    return _matmul_ints(_stack_f32(codes), nu_weight_matrix(frac, r))
+
+
+def lambda_codes(frac: NBBFractal, r: int, cx, cy):
+    """(..., 2r) float32: the per-level tau_x offsets of beta_mu, then the
+    tau_y ones."""
+    h = _lut(frac.h_lambda, cx)  # (k, 2)
+    cx, cy = _as_int(cx), _as_int(cy)
+    tx, ty = [], []
+    for mu in range(1, r + 1):
+        w = cx if (mu % 2 == 1) else cy
+        beta = (w // (frac.k ** ((mu - 1) // 2))) % frac.k
+        tx.append(h[beta, 0])
+        ty.append(h[beta, 1])
+    return _stack_f32(tx + ty)
+
+
+def lambda_map_matmul(frac: NBBFractal, r: int, cx, cy):
+    """lambda(w) as one float32 product: ``lambda_codes`` (..., 2r) @
+    ``lambda_weight_matrix`` (2r, 2) -> int32 (ex, ey); exact while ex,
+    ey < 2**24."""
+    return _matmul_ints(lambda_codes(frac, r, cx, cy),
+                        lambda_weight_matrix(frac, r))

@@ -2,14 +2,16 @@
 Sections 3.2-3.5).
 
   * ``SqueezeCellEngine``   -- per-cell Squeeze: one lambda per cell, one nu
-    + membership per neighbor (index tensors built once per engine).
+    + membership per neighbor (index tensors built once per engine by the
+    map kernels).
   * ``SqueezeBlockEngine``  -- block-level Squeeze in plain PyTorch (the
     ``block`` kind): halo gather through the layout's tables, then the
     dense in-tile rule. ``step_k`` takes any k >= 1, deeper than rho too.
   * ``SqueezeKernelEngine`` -- block-level Squeeze stepped by the CUDA
-    kernels: variant ``fused`` (v3 ``step``, v4 ``step_k``; kind
-    ``cuda-fused``) or ``mxu`` (v5 for both and for native batches; kind
-    ``cuda-mxu``).
+    kernels: variant ``blocks``, ``strips`` or ``fused`` (``step`` is v1,
+    v2 or v3, ``step_k`` v4; kinds ``cuda-blocks``, ``cuda-strips`` (alias
+    ``cuda``) and ``cuda-fused``) or ``mxu`` (v5 for both and for native
+    batches; kind ``cuda-mxu``).
 
 Every engine takes a ``StencilWorkload``; multi-channel workloads carry a
 leading channel axis (cell state (C, rows, cols), block state (C,
@@ -27,12 +29,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import maps
 from repro_torch.core.baselines import BBEngine, LambdaEngine, _generator
 from repro_torch.core.compact import (BlockLayout, compact_meshgrid,
                                       compact_to_expanded, shared_layout)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.fractals import NBBFractal
+from repro_torch.kernels import lambda_map as lm
+from repro_torch.kernels import nu_map as nm
 from repro_torch.kernels import squeeze_stencil as sk
 from repro_torch.tuning.spec import KINDS, REFERENCE_KINDS, EngineSpec
 from repro_torch.workloads.base import (MOORE_DIRS, StencilWorkload,
@@ -77,13 +80,13 @@ class SqueezeCellEngine:
     def _gathers(self):
         """Per Moore direction: (ny, nx, valid) of every compact cell's
         neighbor -- one lambda per cell, one fused nu + membership per
-        neighbor, computed once."""
+        neighbor, computed once (one lambda and 8 nu kernel launches)."""
         cx, cy = compact_meshgrid(self.frac, self.r, self.device)
-        ex, ey = maps.lambda_map(self.frac, self.r, cx, cy)
+        ex, ey = lm.lambda_map_tc(self.frac, self.r, cx, cy)
         out = {}
         for d in MOORE_DIRS:
-            nx, ny, valid = maps.nu_with_membership(
-                self.frac, self.r, ex + d[0], ey + d[1])
+            nx, ny, valid = nm.nu_map_tc(self.frac, self.r, ex + d[0],
+                                         ey + d[1])
             out[d] = (ny.long(), nx.long(), valid)
         return out
 
@@ -179,13 +182,20 @@ class SqueezeBlockEngine(_BlockEngine):
         return state
 
 
+#: kernel-engine variant -> its one-step kernel (v1, v2, v3)
+_SINGLE_STEP = {"blocks": sk.stencil_step_blocks,
+                "strips": sk.stencil_step_strips,
+                "fused": sk.stencil_step_fused}
+
+
 @dataclasses.dataclass(frozen=True)
 class SqueezeKernelEngine(_BlockEngine):
     """Block-level Squeeze stepped by the CUDA kernels (CPU tensors take
-    the kernels' plain versions). ``variant`` 'fused': ``step`` is v3 and
-    ``step_k`` v4; 'mxu': v5 for both, and native batches over its (B,
-    n_macro) grid. ``fusion_k`` must stay <= rho (one block ring);
-    ``macro_p`` overrides the v5 slots per CTA."""
+    the kernels' plain versions). ``variant`` 'blocks', 'strips' or
+    'fused': ``step`` is v1, v2 or v3 and ``step_k`` v4; 'mxu': v5 for
+    both, and native batches over its (B, n_macro) grid. ``fusion_k`` must
+    stay <= rho (one block ring); ``macro_p`` overrides the v5 slots per
+    CTA."""
 
     layout: BlockLayout
     workload: StencilWorkload = LIFE
@@ -195,7 +205,7 @@ class SqueezeKernelEngine(_BlockEngine):
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.variant not in ("fused", "mxu"):
+        if self.variant not in _SINGLE_STEP and self.variant != "mxu":
             raise ValueError(f"unknown kernel variant {self.variant!r}")
         check_workload_ndim(self.workload, 2)
         if self.fusion_k is not None and not (
@@ -211,8 +221,8 @@ class SqueezeKernelEngine(_BlockEngine):
         return self.step_k(state, 1, out=out)
 
     def step_k(self, state, k: int, out=None):
-        """k exact steps in one launch (k <= rho): v5 for 'mxu'; v3 for
-        k = 1 and v4 otherwise for 'fused'."""
+        """k exact steps in one launch (k <= rho): v5 for 'mxu'; otherwise
+        the variant's single-step kernel for k = 1 and v4 for k > 1."""
         if self.variant == "mxu":
             single = state.dim() == 3 + (self.workload.n_channels > 1)
             if single:
@@ -221,8 +231,8 @@ class SqueezeKernelEngine(_BlockEngine):
                     else out[None])[0]
             return self.step_k_batched(state, k, out=out)
         if k == 1:
-            return sk.stencil_step_fused(self.layout, state, self.workload,
-                                         out=out)
+            return _SINGLE_STEP[self.variant](self.layout, state,
+                                              self.workload, out=out)
         return sk.stencil_step_fused_k(self.layout, state, self.workload,
                                        k=k, out=out)
 
@@ -267,11 +277,12 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
     """Engine factory: ``make_engine(spec)`` with an ``EngineSpec``, or
     ``make_engine(kind, frac, r, m=..., workload=...)``.
 
-    kind: 'bb' | 'lambda' | 'cell' | 'block' | 'cuda-fused' | 'cuda-mxu'
-    (``REFERENCE_KINDS`` names the reference kind of each). The spec is
-    normalized first (fusion depth and MXU packing resolved, explicit >
-    heuristic). ``frac``/``workload`` objects may be passed with a spec
-    to supply custom ones. ``device=None`` means the card, and raises
+    kind: 'bb' | 'lambda' | 'cell' | 'block' | 'cuda-blocks' |
+    'cuda-strips' | 'cuda-fused' | 'cuda-mxu', and the alias 'cuda' =
+    'cuda-strips' (``REFERENCE_KINDS`` names the reference kind of each).
+    The spec is normalized first (alias rewritten, fusion depth and MXU
+    packing resolved, explicit > heuristic). ``frac``/``workload``
+    objects may be passed with a spec to supply custom ones. ``device=None`` means the card, and raises
     when CUDA is missing; pass ``device="cpu"`` for the CPU.
     """
     if isinstance(kind, EngineSpec):

@@ -6,7 +6,7 @@ root of the checkout (the hash covers the source and the flags, so an edit
 rebuilds). Sources expose a plain C interface, so a build takes seconds:
 nothing here includes PyTorch's headers. ``build_all`` starts one ``nvcc``
 per source, all together. Nothing is imported or compiled when this module
-is imported.
+is imported. ``LAUNCHES`` counts the launches of every kernel wrapper.
 """
 from __future__ import annotations
 
@@ -29,6 +29,11 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: kernel name -> launches since the last ``reset_launches``. Each wrapper
+#: module registers its kernels' names; ``finish_launch`` adds one where a
+#: kernel launched, and nowhere else.
+LAUNCHES: Dict[str, int] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -118,3 +123,26 @@ def load_library(name: str) -> ctypes.CDLL:
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
             _LIBS[name] = lib
         return lib
+
+
+def c_function(lib_name: str, fn_name: str, argtypes):
+    """``fn_name`` of the library of ``csrc/<lib_name>.cu`` (built at first
+    use), with its argument types declared and an int (CUDA error code)
+    result."""
+    f = getattr(load_library(lib_name), fn_name)
+    if f.argtypes is None:
+        f.argtypes, f.restype = argtypes, ctypes.c_int
+    return f
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def finish_launch(rc: int, name: str) -> None:
+    """Raise on a C entry point's nonzero CUDA error code, else count one
+    launch of ``name``."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1

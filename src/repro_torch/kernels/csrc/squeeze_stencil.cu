@@ -1,6 +1,8 @@
 // Block-level Squeeze stencil kernels for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU (Pallas) kernels of src/repro/kernels/squeeze_stencil.py:
+//   * stencil_step_blocks       (v1, _blocks_kernel)   -> sq_stencil_step_blocks
+//   * stencil_step_strips       (v2, _strips_kernel)   -> sq_stencil_step_strips
 //   * stencil_step_fused        (v3, _fused_kernel)    -> sq_stencil_step_fused
 //   * stencil_step_fused_k      (v4, _fused_k_kernel)  -> sq_stencil_step_fused_k
 //   * stencil_step_mxu_batched  (v5, _mxu_kernel)      -> sq_stencil_step_mxu
@@ -12,9 +14,10 @@
 // A neighbor "exists" iff its id != nb, which is how existence_table is
 // defined, so the kernels read the neighbor table alone.
 //
-// What bounds them on this card: v3/v4 do a few integer or float operations
+// What bounds them on this card: v1-v4 do a few integer or float operations
 // per cell and step, so they are bound by device-memory bytes: each launch
-// reads the state and the neighbor table once and writes the state once.
+// needs to read the state and the neighbor table once and write the state
+// once.
 // The design keeps everything else on chip: one CTA stages G compact blocks
 // as (rho+2k)^2 windows in shared memory, read straight through the
 // neighbor table (no halo tensor in device memory), builds the per-block
@@ -23,6 +26,14 @@
 // bytes per simulated step fall by ~k. G packs several small blocks per CTA
 // (rho is 3..9 for the shipped fractals; one block per CTA would leave most
 // threads idle); its threads stride over the live cells of each substep.
+//
+// v1 and v2 are the same one-step kernel with other halo staging. v1, the
+// paper's per-block scheme, stages the center block and its 8 Moore-neighbor
+// blocks whole (9 rho^2 cells read for rho^2 written, ~9x the v3 reads) and
+// assembles the (rho+2)^2 window from them in shared memory. v2 reads the
+// center and its row of a (B, C, nb, 4, rho+2) strip tensor gathered before
+// the launch (outside the kernel, as XLA gathers it outside the Pallas call);
+// it needs no neighbor table. Both step under micro_mask.
 //
 // v5 computes the Moore aggregate as sum_t (R_t @ X) @ C_t^T, the rank-1
 // banded products of the SVD of the 3x3 weights, over P window slots per
@@ -36,18 +47,19 @@
 // index arithmetic runs once per launch) and keeps the cell's aggregate in
 // registers; the v3/v4 kernel loops instead, which measured faster there.
 //
-// Compiled with -fmad=false so v3/v4 round each operation as the plain
+// Compiled with -fmad=false so v1-v4 round each operation as the plain
 // PyTorch version does; v5 uses explicit fmaf.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;           // threads of one v3/v4 CTA
-constexpr int kCellsPerCta = 1024;      // window cells one v3/v4 CTA holds
+constexpr int kThreads = 256;           // threads of one v1-v4 CTA
+constexpr int kCellsPerCta = 1024;      // window cells one v1-v4 CTA holds
 constexpr int kMaxThreads = 1024;       // threads of one v5 CTA
 constexpr int kMaxCellsPerThread = 8;   // window cells one v5 thread owns
 constexpr int kMaxTerms = 3;
+constexpr size_t kMaxSmem = 232448;     // shared bytes one Hopper CTA can use
 
 struct RuleArgs {
   int born, survive;       // 9-bit neighbor-count masks (totalistic)
@@ -214,15 +226,81 @@ __device__ void store_centers(const typename Rule::T* buf, const int* ids,
   }
 }
 
-// v3 / v4: grid (ceil(nb / G), B); G compact blocks per CTA; k substeps on
-// a shrinking window between two shared buffers.
+// How a CTA fills its windows: v3/v4 read the depth-k windows straight
+// through the neighbor table, v1 stages the nine blocks whole, v2 reads the
+// pre-gathered strips (v1 and v2 take k == 1).
+enum Halo { kInKernel = 0, kWholeBlocks = 1, kStrips = 2 };
+
+// v1: the center and its 8 Moore-neighbor blocks of each slot, whole, into
+// `nine` (slots, 9, C, rho^2), a ghost as a zero block; then each
+// (rho+2)^2 window is assembled from them.
 template <class Rule>
+__device__ void load_blocks(const typename Rule::T* __restrict__ src,
+                            typename Rule::T* nine, typename Rule::T* buf,
+                            const int* ids, int slots, long long nb, int b,
+                            int rho) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C;
+  const int w = rho + 2, ww = w * w, cells = rho * rho;
+  for (int t = threadIdx.x; t < slots * 9 * C * cells; t += blockDim.x) {
+    int cell = t % cells, rest = t / cells;
+    int c = rest % C, gd = rest / C;  // gd = g * 9 + d
+    long long id = ids[gd];
+    nine[t] = id < nb ? src[((long long)b * C + c) * nb * cells +
+                            id * cells + cell]
+                      : (T)0;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < slots * ww; t += blockDim.x) {
+    int g = t / ww, cell = t - g * ww, y = cell / w, x = cell - y * w;
+    int ry, rx;
+    int d = region(y, x, rho, 1, &ry, &rx);
+    int sy = y - 1 - (ry - 1) * rho, sx = x - 1 - (rx - 1) * rho;
+    for (int c = 0; c < C; ++c)
+      buf[(g * C + c) * ww + cell] =
+          nine[((g * 9 + d) * C + c) * cells + sy * rho + sx];
+  }
+}
+
+// v2: each (rho+2)^2 window from the center block and its strips
+// (B, C, nb, 4, rho+2): row 0 the top row with both corners, row 1 the
+// bottom row, rows 2 and 3 the west and east columns (first rho entries).
+template <class Rule>
+__device__ void load_strips(const typename Rule::T* __restrict__ src,
+                            const typename Rule::T* __restrict__ strips,
+                            typename Rule::T* buf, int slots, long long blk0,
+                            long long nb, int b, int rho) {
+  constexpr int C = Rule::C;
+  const int w = rho + 2, ww = w * w;
+  const long long cells = (long long)rho * rho;
+  for (int t = threadIdx.x; t < slots * ww; t += blockDim.x) {
+    int g = t / ww, cell = t - g * ww, y = cell / w, x = cell - y * w;
+    long long blk = blk0 + g;
+    for (int c = 0; c < C; ++c) {
+      long long sc = ((long long)b * C + c) * nb + blk;
+      const typename Rule::T* st = strips + sc * 4 * w;
+      typename Rule::T v;
+      if (y == 0) v = st[x];
+      else if (y == w - 1) v = st[w + x];
+      else if (x == 0) v = st[2 * w + y - 1];
+      else if (x == w - 1) v = st[3 * w + y - 1];
+      else v = src[sc * cells + (y - 1) * rho + (x - 1)];
+      buf[(g * C + c) * ww + cell] = v;
+    }
+  }
+}
+
+// v1-v4: grid (ceil(nb / G), B); G compact blocks per CTA; k substeps on a
+// shrinking window between two shared buffers. `mask` is window_mask(k)
+// for v3/v4 and micro_mask (rho, rho) for v1/v2, placed at the window's
+// center (k == 1 updates only the center).
+template <class Rule, int H>
 __global__ void __launch_bounds__(kThreads)
-fused_k_kernel(const typename Rule::T* __restrict__ src,
-               typename Rule::T* __restrict__ dst,
-               const int* __restrict__ nbr,
-               const uint8_t* __restrict__ wmask, long long nb, int rho,
-               int k, int G, RuleArgs ra) {
+step_kernel(const typename Rule::T* __restrict__ src,
+            typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
+            const typename Rule::T* __restrict__ strips,
+            const uint8_t* __restrict__ mask, long long nb, int rho, int k,
+            int G, RuleArgs ra) {
   using T = typename Rule::T;
   using A = typename Rule::A;
   constexpr int C = Rule::C;
@@ -230,17 +308,32 @@ fused_k_kernel(const typename Rule::T* __restrict__ src,
   extern __shared__ __align__(16) unsigned char smem[];
   T* buf0 = reinterpret_cast<T*>(smem);
   T* buf1 = buf0 + (size_t)G * C * ww;
-  int* ids = reinterpret_cast<int*>(
-      smem + (((size_t)2 * G * C * ww * sizeof(T) + 15) & ~(size_t)15));
+  T* nine = buf1 + (size_t)G * C * ww;  // v1 only
+  const size_t tiles = (size_t)G * C *
+      (2 * ww + (H == kWholeBlocks ? 9 * rho * rho : 0)) * sizeof(T);
+  int* ids = reinterpret_cast<int*>(smem + ((tiles + 15) & ~(size_t)15));
   uint8_t* wm = reinterpret_cast<uint8_t*>(ids + G * 9);
 
   const long long blk0 = (long long)blockIdx.x * G;
   const int b = blockIdx.y;
   const int slots = (int)min((long long)G, nb - blk0);
-  load_ids(nbr, ids, slots, blk0, nb);
-  for (int t = threadIdx.x; t < ww; t += blockDim.x) wm[t] = wmask[t];
+  if constexpr (H != kStrips) load_ids(nbr, ids, slots, blk0, nb);
+  for (int t = threadIdx.x; t < ww; t += blockDim.x) {
+    if constexpr (H == kInKernel) {
+      wm[t] = mask[t];
+    } else {
+      int y = t / w - 1, x = t % w - 1;
+      wm[t] = (y >= 0 && y < rho && x >= 0 && x < rho) ? mask[y * rho + x]
+                                                       : 0;
+    }
+  }
   __syncthreads();
-  load_windows<Rule>(src, buf0, ids, slots, nb, b, rho, k);
+  if constexpr (H == kInKernel)
+    load_windows<Rule>(src, buf0, ids, slots, nb, b, rho, k);
+  else if constexpr (H == kWholeBlocks)
+    load_blocks<Rule>(src, nine, buf0, ids, slots, nb, b, rho);
+  else
+    load_strips<Rule>(src, strips, buf0, slots, blk0, nb, b, rho);
   __syncthreads();
 
   T* cur = buf0;
@@ -433,24 +526,28 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <class Rule>
-int launch_fused(const void* src, void* dst, const int* nbr,
-                 const uint8_t* wmask, long long nb, int batch, int rho,
-                 int k, const RuleArgs& ra, cudaStream_t stream) {
+template <class Rule, int H>
+int launch_step(const void* src, void* dst, const int* nbr,
+                const void* strips, const uint8_t* mask, long long nb,
+                int batch, int rho, int k, const RuleArgs& ra,
+                cudaStream_t stream) {
   using T = typename Rule::T;
   const int w = rho + 2 * k, ww = w * w;
   int G = kCellsPerCta / ww;
   if (G < 1) G = 1;
   if (G > nb) G = (int)nb;
-  size_t smem = (((size_t)2 * G * Rule::C * ww * sizeof(T) + 15) &
-                 ~(size_t)15) + (size_t)G * 9 * sizeof(int) + ww;
-  auto kernel = fused_k_kernel<Rule>;
+  size_t tiles = (size_t)G * Rule::C *
+      (2 * ww + (H == kWholeBlocks ? 9 * rho * rho : 0)) * sizeof(T);
+  size_t smem = ((tiles + 15) & ~(size_t)15) + (size_t)G * 9 * sizeof(int) +
+                ww;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = step_kernel<Rule, H>;
   int rc = set_smem(kernel, smem);
   if (rc) return rc;
   dim3 grid((unsigned)((nb + G - 1) / G), (unsigned)batch);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(src), static_cast<T*>(dst), nbr, wmask, nb, rho,
-      k, G, ra);
+      static_cast<const T*>(src), static_cast<T*>(dst), nbr,
+      static_cast<const T*>(strips), mask, nb, rho, k, G, ra);
   return (int)cudaGetLastError();
 }
 
@@ -513,19 +610,21 @@ int launch_mxu(const void* src, void* dst, const int* nbr,
   }
 }
 
-int fused_entry(int rule, const void* src, void* dst, const int* nbr,
-                const uint8_t* wmask, long long nb, int batch, int rho,
-                int k, int born, int survive, float p0, float p1, float p2,
-                float p3, float wd, float wo, float wc, void* stream) {
+template <int H>
+int step_entry(int rule, const void* src, void* dst, const int* nbr,
+               const void* strips, const uint8_t* mask, long long nb,
+               int batch, int rho, int k, int born, int survive, float p0,
+               float p1, float p2, float p3, float wd, float wo, float wc,
+               void* stream) {
   RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rule) {
-    case 0: return launch_fused<Totalistic>(src, dst, nbr, wmask, nb, batch,
-                                            rho, k, ra, s);
-    case 1: return launch_fused<Heat>(src, dst, nbr, wmask, nb, batch, rho,
-                                      k, ra, s);
-    case 2: return launch_fused<GrayScott>(src, dst, nbr, wmask, nb, batch,
-                                           rho, k, ra, s);
+    case 0: return launch_step<Totalistic, H>(src, dst, nbr, strips, mask, nb,
+                                              batch, rho, k, ra, s);
+    case 1: return launch_step<Heat, H>(src, dst, nbr, strips, mask, nb,
+                                        batch, rho, k, ra, s);
+    case 2: return launch_step<GrayScott, H>(src, dst, nbr, strips, mask, nb,
+                                             batch, rho, k, ra, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -534,14 +633,39 @@ int fused_entry(int rule, const void* src, void* dst, const int* nbr,
 
 extern "C" {
 
+// v1: one step, the center and its 8 neighbor blocks staged whole.
+int sq_stencil_step_blocks(int rule, const void* src, void* dst,
+                           const int* nbr, const uint8_t* micro,
+                           long long nb, int batch, int rho, int born,
+                           int survive, float p0, float p1, float p2,
+                           float p3, float wd, float wo, float wc,
+                           void* stream) {
+  return step_entry<kWholeBlocks>(rule, src, dst, nbr, nullptr, micro, nb,
+                                  batch, rho, 1, born, survive, p0, p1, p2,
+                                  p3, wd, wo, wc, stream);
+}
+
+// v2: one step from the center and its pre-gathered strips.
+int sq_stencil_step_strips(int rule, const void* src, void* dst,
+                           const void* strips, const uint8_t* micro,
+                           long long nb, int batch, int rho, int born,
+                           int survive, float p0, float p1, float p2,
+                           float p3, float wd, float wo, float wc,
+                           void* stream) {
+  return step_entry<kStrips>(rule, src, dst, nullptr, strips, micro, nb,
+                             batch, rho, 1, born, survive, p0, p1, p2, p3,
+                             wd, wo, wc, stream);
+}
+
 // v3: one step (k = 1 instance of the fused kernel).
 int sq_stencil_step_fused(int rule, const void* src, void* dst,
                           const int* nbr, const uint8_t* wmask, long long nb,
                           int batch, int rho, int born, int survive,
                           float p0, float p1, float p2, float p3, float wd,
                           float wo, float wc, void* stream) {
-  return fused_entry(rule, src, dst, nbr, wmask, nb, batch, rho, 1, born,
-                     survive, p0, p1, p2, p3, wd, wo, wc, stream);
+  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, nb, batch,
+                               rho, 1, born, survive, p0, p1, p2, p3, wd, wo,
+                               wc, stream);
 }
 
 // v4: k exact steps per launch, 1 <= k <= rho.
@@ -551,8 +675,9 @@ int sq_stencil_step_fused_k(int rule, const void* src, void* dst,
                             int born, int survive, float p0, float p1,
                             float p2, float p3, float wd, float wo, float wc,
                             void* stream) {
-  return fused_entry(rule, src, dst, nbr, wmask, nb, batch, rho, k, born,
-                     survive, p0, p1, p2, p3, wd, wo, wc, stream);
+  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, nb, batch,
+                               rho, k, born, survive, p0, p1, p2, p3, wd, wo,
+                               wc, stream);
 }
 
 // v5: k exact steps per launch over a (n_macro, B) grid of P-slot CTAs.

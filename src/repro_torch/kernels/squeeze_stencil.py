@@ -1,8 +1,14 @@
 """Block-level Squeeze stencil kernels: the CUDA wrappers and, beside each,
 its plain PyTorch version.
 
-  * ``stencil_step_fused``       (v3) -- one step; replaces the Pallas
-    ``squeeze_stencil.py::stencil_step_fused``.
+  * ``stencil_step_blocks``      (v1) -- one step; the center and its 8
+    Moore-neighbor blocks staged whole; replaces the Pallas
+    ``squeeze_stencil.py::stencil_step_blocks``.
+  * ``stencil_step_strips``      (v2) -- one step from the center and its
+    halo strips, gathered before the launch (``gather_halo_strips``);
+    replaces ``stencil_step_strips``.
+  * ``stencil_step_fused``       (v3) -- one step; replaces
+    ``stencil_step_fused``.
   * ``stencil_step_fused_k``     (v4) -- k exact steps per launch on a
     depth-k window (1 <= k <= rho); replaces ``stencil_step_fused_k``.
   * ``stencil_step_mxu_batched`` (v5) -- k exact steps of B simulations in
@@ -15,9 +21,8 @@ kernel or raises (a failed build raises ``KernelBuildError``). Each
 wrapper counts its launches in ``LAUNCHES``.
 
 States are ``(B?, C?, n_blocks, rho, rho)``: the channel axis is present
-iff ``workload.n_channels > 1``. ``stencil_step_fused`` and
-``stencil_step_fused_k`` take an optional leading batch axis;
-``stencil_step_mxu_batched`` requires it.
+iff ``workload.n_channels > 1``. v1-v4 take an optional leading batch
+axis; ``stencil_step_mxu_batched`` requires it.
 """
 from __future__ import annotations
 
@@ -30,18 +35,25 @@ import torch
 
 from repro_torch.core.compact import BlockLayout
 from repro_torch.kernels import build
-from repro_torch.workloads.base import StencilWorkload, banded_operators
+from repro_torch.workloads.base import (StencilWorkload, banded_operators,
+                                        halo_needs)
 from repro_torch.workloads.rules import LIFE
 
-#: kernel name -> launches since the last ``reset_launches``
-LAUNCHES = {"stencil_step_fused": 0, "stencil_step_fused_k": 0,
-            "stencil_step_mxu_batched": 0}
+#: kernel name -> launches since the last ``reset_launches`` (shared by
+#: every kernel wrapper module)
+LAUNCHES = build.LAUNCHES
+LAUNCHES.update(dict.fromkeys(
+    ("stencil_step_blocks", "stencil_step_strips", "stencil_step_fused",
+     "stencil_step_fused_k", "stencil_step_mxu_batched"), 0))
+reset_launches = build.reset_launches
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _RULE_ARGS = [_I, _I, _F, _F, _F, _F, _F, _F, _F, _P]
 _SIGNATURES = {
-    # rule, src, dst, nbr, wmask, nb, batch, rho, ...
+    # rule, src, dst, nbr (v2: strips), mask, nb, batch, rho, ...
+    "sq_stencil_step_blocks": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
+    "sq_stencil_step_strips": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
     "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
     "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL, _I, _I, _I]
     + _RULE_ARGS,
@@ -53,18 +65,8 @@ _MAX_SMEM = 232448  # bytes of shared memory one Hopper CTA can use
 _MAX_CTA_CELLS = 8 * 1024  # window cells of one CTA: 8 per thread
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load_library("squeeze_stencil")
-    for fn, args in _SIGNATURES.items():
-        f = getattr(lib, fn)
-        if f.argtypes is None:
-            f.argtypes, f.restype = args, ctypes.c_int
-    return lib
+def _c_function(fn: str):
+    return build.c_function("squeeze_stencil", fn, _SIGNATURES[fn])
 
 
 # ======================================================================
@@ -128,6 +130,12 @@ def stencil_step_fused_plain(layout: BlockLayout, state: torch.Tensor,
     return _plain_batched(layout, state, workload, 1)
 
 
+#: v1 and v2 compute v3's function (the strips v2 leaves as zeros have
+#: weight 0), so they share its plain version
+stencil_step_blocks_plain = stencil_step_fused_plain
+stencil_step_strips_plain = stencil_step_fused_plain
+
+
 def stencil_step_fused_k_plain(layout: BlockLayout, state: torch.Tensor,
                                workload: StencilWorkload = LIFE, *,
                                k: int = 2):
@@ -142,6 +150,48 @@ def stencil_step_mxu_batched_plain(layout: BlockLayout, states: torch.Tensor,
     """k steps of B simulations; the result does not depend on ``p``."""
     del p
     return _plain_batched(layout, states, workload, k, batched=True)
+
+
+# ======================================================================
+# v2 halo strips (PyTorch indexing; XLA's gathers in the reference)
+# ======================================================================
+def _gather_halo_strips(layout: BlockLayout, s: torch.Tensor,
+                        needs=None) -> torch.Tensor:
+    """(..., C, nb, 4, rho+2) halo strips of ``s`` (..., C, nb, rho, rho)
+    by strip-level gathers through the neighbor table. Rows: 0 the top
+    (NW's SE cell, N's bottom row, NE's SW cell), 1 the bottom (SW's NE
+    cell, S's top row, SE's NW cell), 2 W's east column and 3 E's west
+    column (the last two entries of rows 2-3 pad). ``needs`` (a
+    ``halo_needs`` tuple) leaves the directions the workload never reads
+    as zeros, ungathered."""
+    need_n, need_s, need_w, need_e, need_nw, need_ne, need_sw, need_se = \
+        needs if needs is not None else (True,) * 8
+    table = layout.device_table("neighbor_table", s.device)  # ghost = nb
+
+    def take(piece, d, need):
+        """piece (..., nb, L) of every block, gathered at direction d's
+        neighbors; a ghost reads the appended zero row."""
+        if not need:
+            return piece.new_zeros(piece.shape)
+        padded = torch.cat([piece, piece.new_zeros(
+            piece.shape[:-2] + (1, piece.shape[-1]))], dim=-2)
+        return padded.index_select(-2, table[:, d])
+
+    row_top = torch.cat([take(s[..., -1, -1:], 0, need_nw),
+                         take(s[..., -1, :], 1, need_n),
+                         take(s[..., -1, :1], 2, need_ne)], dim=-1)
+    row_bot = torch.cat([take(s[..., 0, -1:], 5, need_sw),
+                         take(s[..., 0, :], 6, need_s),
+                         take(s[..., 0, :1], 7, need_se)], dim=-1)
+    col_w = torch.nn.functional.pad(take(s[..., :, -1], 3, need_w), (0, 2))
+    col_e = torch.nn.functional.pad(take(s[..., :, 0], 4, need_e), (0, 2))
+    return torch.stack([row_top, row_bot, col_w, col_e], dim=-2)
+
+
+def gather_halo_strips(layout: BlockLayout, state: torch.Tensor
+                       ) -> torch.Tensor:
+    """Single-channel entry point: (nb, rho, rho) -> (nb, 4, rho+2)."""
+    return _gather_halo_strips(layout, state[None])[0]
 
 
 # ======================================================================
@@ -200,33 +250,39 @@ def _check_out(state: torch.Tensor, out: torch.Tensor) -> None:
                          "its halos from")
 
 
-def _finish(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
-
-
-def _launch_fused(name, layout, state, workload, k, out):
-    lib = _library()
-    s5, batched = _as_batched(layout, workload, state)
+def _launch_step(name, layout, state, workload, k, out, strips=None):
+    """Launch v1 ('stencil_step_blocks'), v2 ('stencil_step_strips'; the
+    strips are gathered here unless given), v3 or v4 on ``state``."""
+    fn = _c_function("sq_" + name)
+    s5, _ = _as_batched(layout, workload, state)
     out = _check_cuda(state, workload, out)
     b = s5.shape[0]
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's 65535")
     dev = state.device
-    nbr = layout.device_table("neighbor_table", dev)
-    wmask = layout.device_table("window_mask", dev, k)
+    if name == "stencil_step_strips":
+        if strips is None:
+            strips = _gather_halo_strips(layout, s5,
+                                         halo_needs(workload.weights2d))
+        want = s5.shape[:3] + (4, layout.rho + 2)
+        if strips.shape != want or strips.dtype != state.dtype or \
+                strips.device != dev or not strips.is_contiguous():
+            raise ValueError(f"strips must be a contiguous {tuple(want)} "
+                             "tensor of the state's dtype and device")
+        halo = strips
+    else:
+        halo = layout.device_table("neighbor_table", dev)
+    if name.startswith("stencil_step_fused"):
+        mask = layout.device_table("window_mask", dev, k)
+    else:
+        mask = layout.device_table("micro_mask", dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = [_rule(workload), state.data_ptr(), out.data_ptr(),
-                nbr.data_ptr(), wmask.data_ptr(), layout.n_blocks, b,
-                layout.rho]
-        rule_args = _rule_args(workload, stream)
-        if name == "stencil_step_fused":
-            rc = lib.sq_stencil_step_fused(*args, *rule_args)
-        else:
-            rc = lib.sq_stencil_step_fused_k(*args, k, *rule_args)
-    _finish(rc, name)
+                halo.data_ptr(), mask.data_ptr(), layout.n_blocks, b,
+                layout.rho] + ([k] if name == "stencil_step_fused_k" else [])
+        rc = fn(*args, *_rule_args(workload, stream))
+    build.finish_launch(rc, name)
     return out
 
 
@@ -241,6 +297,42 @@ def _check_k(layout: BlockLayout, k: int, what: str):
                          "halos)")
 
 
+def stencil_step_blocks(layout: BlockLayout, state: torch.Tensor,
+                        workload: StencilWorkload = LIFE, *,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v1: one step, the center and its 8 Moore-neighbor blocks staged
+    whole. ``state`` (B?, C?, nb, rho, rho) -> same; ``out`` as for v3."""
+    if state.device.type == "cpu":
+        return _into(state, stencil_step_blocks_plain(layout, state,
+                                                      workload), out)
+    return _launch_step("stencil_step_blocks", layout, state, workload, 1,
+                        out)
+
+
+def stencil_step_strips(layout: BlockLayout, state: torch.Tensor,
+                        workload: StencilWorkload = LIFE, *,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v2: one step from the center and its halo strips; the strips the
+    workload reads (``halo_needs``) are gathered on the card first."""
+    if state.device.type == "cpu":
+        return _into(state, stencil_step_strips_plain(layout, state,
+                                                      workload), out)
+    return _launch_step("stencil_step_strips", layout, state, workload, 1,
+                        out)
+
+
+def life_step_blocks(layout: BlockLayout, state: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v1 game-of-life step."""
+    return stencil_step_blocks(layout, state, LIFE, out=out)
+
+
+def life_step_strips(layout: BlockLayout, state: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v2 game-of-life step."""
+    return stencil_step_strips(layout, state, LIFE, out=out)
+
+
 def stencil_step_fused(layout: BlockLayout, state: torch.Tensor,
                        workload: StencilWorkload = LIFE, *,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -249,8 +341,7 @@ def stencil_step_fused(layout: BlockLayout, state: torch.Tensor,
     if state.device.type == "cpu":
         return _into(state, stencil_step_fused_plain(layout, state,
                                                      workload), out)
-    return _launch_fused("stencil_step_fused", layout, state, workload, 1,
-                         out)
+    return _launch_step("stencil_step_fused", layout, state, workload, 1, out)
 
 
 def stencil_step_fused_k(layout: BlockLayout, state: torch.Tensor,
@@ -261,8 +352,8 @@ def stencil_step_fused_k(layout: BlockLayout, state: torch.Tensor,
     if state.device.type == "cpu":
         return _into(state, stencil_step_fused_k_plain(layout, state,
                                                        workload, k=k), out)
-    return _launch_fused("stencil_step_fused_k", layout, state, workload, k,
-                         out)
+    return _launch_step("stencil_step_fused_k", layout, state, workload, k,
+                        out)
 
 
 def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
@@ -278,7 +369,7 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
     if states.device.type == "cpu":
         return _into(states, stencil_step_mxu_batched_plain(
             layout, states, workload, k=k, p=p), out)
-    lib = _library()
+    fn = _c_function("sq_stencil_step_mxu")
     s5, _ = _as_batched(layout, workload, states, batched=True)
     out = _check_cuda(states, workload, out)
     b = s5.shape[0]
@@ -302,12 +393,12 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
     wmask = layout.device_table("window_mask", dev, k)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sq_stencil_step_mxu(
+        rc = fn(
             _rule(workload), states.data_ptr(), out.data_ptr(),
             nbr.data_ptr(), wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(),
             n_terms, layout.n_blocks, b, layout.rho, k, p,
             *_rule_args(workload, stream))
-    _finish(rc, "stencil_step_mxu_batched")
+    build.finish_launch(rc, "stencil_step_mxu_batched")
     return out
 
 

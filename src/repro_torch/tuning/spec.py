@@ -3,7 +3,8 @@
 One frozen, hashable dataclass names a configuration:
 ``make_engine(spec)`` builds an engine from it, and the ``BatchedRunner``
 keys its engine cache on ``spec.normalize()``. ``canonical()`` validates
-the kind and zeroes the knobs that do not apply to it; ``normalize()``
+the kind, rewrites an alias (``KIND_ALIASES``) and zeroes the knobs that do
+not apply to it; ``normalize()``
 then resolves the tunable knobs left ``None`` by the rule
 
     explicit argument  >  static heuristic
@@ -21,14 +22,20 @@ from typing import Dict, Optional, Tuple, Union
 #: this one list)
 REFERENCE_KINDS: Dict[str, str] = {
     "bb": "bb", "lambda": "lambda", "cell": "cell", "block": "block",
+    "cuda-blocks": "pallas-blocks", "cuda-strips": "pallas-strips",
     "cuda-fused": "pallas-fused", "cuda-mxu": "pallas-mxu",
 }
 
-#: every engine kind ``make_engine`` accepts
+#: every engine kind ``make_engine`` accepts, after alias rewriting
 KINDS: Tuple[str, ...] = tuple(REFERENCE_KINDS)
 
+#: kind aliases, rewritten by ``canonical()`` (as the reference rewrites
+#: 'pallas' to 'pallas-strips'), so an alias and its kind share one engine
+KIND_ALIASES: Dict[str, str] = {"cuda": "cuda-strips"}
+
 #: kinds with block tiles (fusion depth applies)
-BLOCK_KINDS = frozenset({"block", "cuda-fused", "cuda-mxu"})
+BLOCK_KINDS = frozenset({"block", "cuda-blocks", "cuda-strips",
+                         "cuda-fused", "cuda-mxu"})
 
 #: kinds whose kernel packs P blocks per CTA
 MXU_KINDS = frozenset({"cuda-mxu"})
@@ -89,12 +96,16 @@ class EngineSpec:
         return self.s ** self.m if self.is_block else 1
 
     def canonical(self) -> "EngineSpec":
-        """Validated, with the knobs that do not apply zeroed: non-block
-        kinds get ``m = 0`` and ``fusion_k = 1``; ``macro_p`` only stays on
-        the MXU kind."""
-        if self.kind not in KINDS:
+        """Validated, with the alias rewritten ('cuda' -> 'cuda-strips')
+        and the knobs that do not apply zeroed: non-block kinds get
+        ``m = 0`` and ``fusion_k = 1``; ``macro_p`` only stays on the MXU
+        kind."""
+        kind = KIND_ALIASES.get(self.kind, self.kind)
+        if kind not in KINDS:
             raise ValueError(f"unknown engine kind {self.kind!r}; known: "
-                             f"{sorted(KINDS)}")
+                             f"{sorted(KINDS + tuple(KIND_ALIASES))}")
+        if kind != self.kind:
+            return dataclasses.replace(self, kind=kind).canonical()
         if self.fusion_k is not None and self.fusion_k < 1:
             raise ValueError(f"fusion_k must be >= 1, got {self.fusion_k}")
         if self.macro_p is not None and self.macro_p < 1:

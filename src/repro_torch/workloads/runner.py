@@ -6,9 +6,9 @@ set of static configurations.
     even under concurrent misses;
   * ``run`` takes floor(steps/k) fused k-step launches plus a steps % k
     single-step remainder over a leading batch axis: 'cuda-mxu' steps the
-    batch natively through the v5 kernel's (B, n_macro) grid, 'cuda-fused'
-    through the v3/v4 kernels' written-out batch grid axis; the plain kinds
-    step each simulation in turn.
+    batch natively through the v5 kernel's (B, n_macro) grid, the other
+    kernel kinds through the v1-v4 kernels' written-out batch grid axis; the
+    plain kinds step each simulation in turn.
 
 Every public method takes an ``EngineSpec`` first -- ``run(spec, states,
 steps)`` -- or the argument list ``run(kind, frac, r, states, steps, ...)``.

@@ -7,7 +7,8 @@ on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
 CA results are bit-exact; floats agree to rtol=atol=1e-5 (v5 sums the
-banded products in another order than the plain aggregate).
+banded products in another order than the plain aggregate); the lambda/nu
+maps are bit-exact.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ import torch
 from repro_torch.core import fractals as tf
 from repro_torch.core.compact import BlockLayout
 from repro_torch.core.stencil import make_engine
+from repro_torch.kernels import lambda_map as lm
+from repro_torch.kernels import nu_map as nm
 from repro_torch.kernels import squeeze_stencil as sk
 from repro_torch.workloads import BatchedRunner
 from repro_torch.workloads import rules as trules
@@ -71,8 +74,72 @@ def test_cuda_kernels_match_plain(cuda, wl_name):
                        wl)
 
 
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+def test_cuda_single_step_kernels_match_plain(cuda, wl_name):
+    """v1 and v2, one simulation and a batch of 3, 4 steps each."""
+    wl = trules.WORKLOADS[wl_name]
+    for frac, r, m in CASES:
+        lay = BlockLayout(frac, r, m)
+        x = _state(lay, wl, 3).to(cuda)
+        for fn, plain in ((sk.stencil_step_blocks,
+                           sk.stencil_step_blocks_plain),
+                          (sk.stencil_step_strips,
+                           sk.stencil_step_strips_plain)):
+            for s in (x[0], x):
+                got, want = s, s
+                for _ in range(4):
+                    got, want = fn(lay, got, wl), plain(lay, want, wl)
+                _close(got, want, wl)
+
+
+@pytest.mark.parametrize("name", sorted(tf.REGISTRY))
+def test_cuda_maps_match_plain(cuda, name):
+    """nu over coordinates past both edges, lambda over negative and
+    past-the-edge compact coordinates, at small r and at the largest r
+    whose coordinates fit int32: bit-exact."""
+    frac = tf.REGISTRY[name]
+    rng = np.random.default_rng(7)
+    for r in (1, 3, nm.max_int32_level(frac)):
+        n = frac.side(r)
+        rows, cols = frac.compact_dims(r)
+        ex, ey = (torch.from_numpy(rng.integers(
+            -3, n + 3, size=(3, 1000)).astype(np.int32)) for _ in range(2))
+        cx, cy = (torch.from_numpy(rng.integers(
+            max(-2 * side, -2 ** 31), min(2 * side, 2 ** 31), size=3000)
+            .astype(np.int32)) for side in (cols, rows))
+        for got, want in zip(nm.nu_map_tc(frac, r, ex.to(cuda), ey.to(cuda)),
+                             nm.nu_map_tc_plain(frac, r, ex, ey)):
+            assert torch.equal(got.cpu(), want)
+        for got, want in zip(lm.lambda_map_tc(frac, r, cx.to(cuda),
+                                              cy.to(cuda)),
+                             lm.lambda_map_tc_plain(frac, r, cx, cy)):
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["cell", "lambda"])
+def test_cuda_map_engines_match_cpu(cuda, kind):
+    """The cell and lambda engines build their index tensors with the map
+    kernels: 1 + 8 launches for cell, 1 for lambda."""
+    on_card = make_engine(kind, tf.CARPET, 3, workload=trules.HIGHLIFE)
+    on_cpu = make_engine(kind, tf.CARPET, 3, workload=trules.HIGHLIFE,
+                         device="cpu")
+    x = on_cpu.init_random(seed=2)
+    sk.reset_launches()
+    got = on_card.run(x.to(cuda), 3)
+    assert (sk.LAUNCHES["lambda_map_tc"], sk.LAUNCHES["nu_map_tc"]) == \
+        ((1, 8) if kind == "cell" else (1, 0))
+    _close(got, on_cpu.run(x, 3), trules.HIGHLIFE)
+
+
+#: kernel kind -> the kernel its single steps launch
+_SINGLE = {"cuda-fused": "stencil_step_fused",
+           "cuda-blocks": "stencil_step_blocks",
+           "cuda-strips": "stencil_step_strips"}
+
+
 @pytest.mark.parametrize("wl_name", ["life", "gray-scott"])
-@pytest.mark.parametrize("kind", ["cuda-fused", "cuda-mxu"])
+@pytest.mark.parametrize("kind", ["cuda-fused", "cuda-mxu", "cuda-blocks",
+                                  "cuda-strips"])
 def test_cuda_engine_run_matches_cpu(cuda, kind, wl_name):
     """run(7) on the card equals the CPU path; every launch is counted.
     The state comes from the workload's own distribution: uniform (u, v)
@@ -89,14 +156,14 @@ def test_cuda_engine_run_matches_cpu(cuda, kind, wl_name):
     want = on_cpu.run(x, 7)
     _close(got, want, wl)
     k = on_card.effective_fusion_k
-    if kind == "cuda-fused":
+    if kind in _SINGLE:
         assert sk.LAUNCHES["stencil_step_fused_k"] == 7 // k
-        assert sk.LAUNCHES["stencil_step_fused"] == 7 % k
+        assert sk.LAUNCHES[_SINGLE[kind]] == 7 % k
     else:
         assert sk.LAUNCHES["stencil_step_mxu_batched"] == 7 // k + 7 % k
 
 
-@pytest.mark.parametrize("kind", ["cuda-fused", "cuda-mxu"])
+@pytest.mark.parametrize("kind", ["cuda-fused", "cuda-mxu", "cuda"])
 def test_cuda_runner_batch_matches_cpu(cuda, kind):
     wl = trules.HEAT
     runner = BatchedRunner()
@@ -117,3 +184,32 @@ def test_cuda_wrapper_refuses_bad_inputs(cuda):
         sk.stencil_step_fused(lay, x.transpose(-1, -2), trules.LIFE)
     with pytest.raises(ValueError, match="alias"):
         sk.stencil_step_fused_k(lay, x, trules.LIFE, k=2, out=x)
+
+
+def test_cuda_new_wrappers_refuse_bad_inputs(cuda):
+    lay = BlockLayout(tf.SIERPINSKI, 5, 2)
+    x = _state(lay, trules.LIFE, 2).to(cuda)
+    for fn in (sk.stencil_step_blocks, sk.stencil_step_strips):
+        with pytest.raises(TypeError):
+            fn(lay, x.float(), trules.LIFE)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(lay, x.transpose(-1, -2), trules.LIFE)
+        with pytest.raises(ValueError, match="alias"):
+            fn(lay, x, trules.LIFE, out=x)
+    with pytest.raises(ValueError, match="strips"):
+        sk._launch_step("stencil_step_strips", lay, x, trules.LIFE, 1, None,
+                        strips=torch.zeros((2, 1, lay.n_blocks, 4, 5),
+                                           dtype=torch.uint8, device=cuda))
+    c = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        nm.nu_map_tc(tf.CARPET, 3, c.long(), c.long())
+    with pytest.raises(ValueError, match="shapes"):
+        lm.lambda_map_tc(tf.CARPET, 3, c, c[:5])
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        lm.lambda_map_tc(tf.CARPET, 3, c, c.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        nm.nu_map_tc(tf.CARPET, 20, c, c)
+    before = dict(sk.LAUNCHES)
+    cx, cy, valid = nm.nu_map_tc(tf.CARPET, 3, c[:0], c[:0])
+    assert cx.shape == (0,) and valid.dtype == torch.bool
+    assert sk.LAUNCHES == before

@@ -24,7 +24,7 @@ from repro_torch.core import fractals as tf
 from repro_torch.core.stencil import (KINDS, REFERENCE_KINDS,
                                       SqueezeKernelEngine, default_fusion_k,
                                       make_engine)
-from repro_torch.tuning.spec import EngineSpec
+from repro_torch.tuning.spec import KIND_ALIASES, EngineSpec
 from repro_torch.workloads import BatchedRunner
 from repro_torch.workloads import rules as trules
 
@@ -50,17 +50,19 @@ def _expanded(wl_name, seed=0, r=R, name=FRAC):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_block(wl_name):
-    return RefBlockEngine(RefLayout(rf.REGISTRY[FRAC], R, M),
+def _ref_block(wl_name, case=(FRAC, R, M)):
+    name, r, m = case
+    return RefBlockEngine(RefLayout(rf.REGISTRY[name], r, m),
                           rrules.WORKLOADS[wl_name])
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_expanded_run(wl_name, steps, seed=0):
+def _ref_expanded_run(wl_name, steps, seed=0, case=(FRAC, R, M)):
     """The reference block engine's expanded state after ``steps`` single
     steps from ``_expanded`` (its k-step fusion gives the same)."""
-    eng = _ref_block(wl_name)
-    s = eng.layout.from_expanded(jnp.asarray(_expanded(wl_name, seed)))
+    eng = _ref_block(wl_name, case)
+    s = eng.layout.from_expanded(jnp.asarray(
+        _expanded(wl_name, seed, r=case[1], name=case[0])))
     for _ in range(steps):
         s = eng.step(s)
     return np.asarray(eng.to_expanded(s))
@@ -77,6 +79,47 @@ def test_kind_table_names_reference_kinds():
     assert set(REFERENCE_KINDS.values()) <= set(REF_KINDS)
     assert REFERENCE_KINDS["cuda-fused"] == "pallas-fused"
     assert REFERENCE_KINDS["cuda-mxu"] == "pallas-mxu"
+
+
+def test_cuda_alias_is_strips_and_shares_one_engine():
+    """'cuda' is 'cuda-strips', as the reference's 'pallas' is
+    'pallas-strips' (v2 is the reference's default kernel)."""
+    from repro.tuning.spec import KIND_ALIASES as REF_ALIASES
+    assert REFERENCE_KINDS[KIND_ALIASES["cuda"]] == REF_ALIASES["pallas"]
+    spec = EngineSpec("cuda", 2, "sierpinski", R, M).normalize()
+    assert spec.kind == "cuda-strips" and spec.fusion_k == 2
+    eng = make_engine("cuda", tf.SIERPINSKI, R, M, device="cpu")
+    assert isinstance(eng, SqueezeKernelEngine) and eng.variant == "strips"
+    runner = BatchedRunner(device="cpu")
+    assert runner.engine_for("cuda", tf.SIERPINSKI, R, m=M) is \
+        runner.engine_for("cuda-strips", tf.SIERPINSKI, R, m=M)
+    assert runner.stats.builds == 1 and runner.cache_size() == 1
+    with pytest.raises(ValueError, match="'cuda'"):
+        EngineSpec("cuda-warp", 2, "sierpinski", R).canonical()
+
+
+#: (fractal, r, m) of the single-step kind checks
+SINGLE_CASES = [(FRAC, R, M), ("carpet", 3, 1), ("vicsek", 3, 1)]
+
+
+@pytest.mark.parametrize("case", SINGLE_CASES,
+                         ids=[f"{f}-r{r}-m{m}" for f, r, m in SINGLE_CASES])
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+@pytest.mark.parametrize("kind", ["cuda-blocks", "cuda-strips", "cuda"])
+def test_single_step_kinds_match_reference(kind, wl_name, case):
+    """run(7) with fusion_k=1 (every step v1 or v2) and at the default k
+    (v4 launches plus a v1/v2 remainder) equals the reference."""
+    name, r, m = case
+    wl = trules.WORKLOADS[wl_name]
+    want = _ref_expanded_run(wl_name, STEPS, case=case)
+    for k in (1, None):
+        eng = make_engine(kind, tf.REGISTRY[name], r, m, workload=wl,
+                          fusion_k=k, device="cpu")
+        x = eng.layout.from_expanded(torch.from_numpy(
+            _expanded(wl_name, r=r, name=name)))
+        out = eng.run(x, STEPS)
+        np.testing.assert_allclose(eng.to_expanded(out).numpy(), want,
+                                   **_tol(wl))
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])

@@ -41,7 +41,8 @@ import sys
 import torch
 from repro_torch.core import SIERPINSKI, make_engine
 from repro_torch.workloads import GRAY_SCOTT, LIFE, BatchedRunner
-for kind in ("cuda-fused", "cuda-mxu", "block", "cell", "bb"):
+for kind in ("cuda-fused", "cuda-mxu", "cuda", "cuda-blocks", "block",
+             "cell", "lambda", "bb"):
     eng = make_engine(kind, SIERPINSKI, 4, 1 if kind != "cell" else 0,
                       workload=GRAY_SCOTT, device="cpu")
     s = eng.run(eng.init_random(0), 3)

@@ -1,7 +1,8 @@
 """The port's stencil kernels: each plain PyTorch version against the JAX
 reference ``block`` engine (bit-exact for CA, rtol=atol=1e-5 for floats),
-one case each against the reference Pallas kernels in interpret mode, and
-the wrappers' refusal to fall back. The CUDA kernels themselves are held
+one case each against the reference Pallas kernels in interpret mode, the
+v2 strip gather against the reference's, and the wrappers' refusal to fall
+back. The CUDA kernels themselves are held
 against these plain versions in ``test_torch_cuda.py``."""
 import functools
 from unittest import mock
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import fractals as rf
@@ -17,11 +19,13 @@ from repro.core.compact import BlockLayout as RefLayout
 from repro.core.stencil import SqueezeBlockEngine as RefBlockEngine
 from repro.kernels import squeeze_stencil as rsk
 from repro.workloads import rules as rrules
+from repro.workloads.base import halo_needs as ref_halo_needs
 from repro_torch.core import fractals as tf
 from repro_torch.core.compact import BlockLayout
 from repro_torch.kernels import build
 from repro_torch.kernels import squeeze_stencil as sk
 from repro_torch.workloads import rules as trules
+from repro_torch.workloads.base import halo_needs
 
 WORKLOADS = ["life", "highlife", "heat", "gray-scott"]
 CASES = [("sierpinski", 5, 2), ("carpet", 3, 1)]
@@ -103,7 +107,68 @@ def test_mxu_plain_matches_reference_block(case, wl_name, k):
                                **_tol(wl))
 
 
+@pytest.mark.parametrize("variant", ["blocks", "strips"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+def test_single_step_plain_matches_reference_block(case, wl_name, variant):
+    """v1's and v2's plain versions, batch of 2."""
+    wl = trules.WORKLOADS[wl_name]
+    plain = getattr(sk, f"stencil_step_{variant}_plain")
+    x = torch.from_numpy(_state(*case, wl, batch=2))
+    np.testing.assert_allclose(plain(_layout(*case), x, wl).numpy(),
+                               _reference(*case, wl_name, 1, batch=2),
+                               **_tol(wl))
+
+
+@pytest.mark.parametrize("case,wl_name", [
+    (CASES[0], "life"), (CASES[1], "heat"), (CASES[0], "gray-scott")],
+    ids=["sierpinski-life", "carpet-heat", "sierpinski-gray-scott"])
+def test_gather_halo_strips_matches_reference(case, wl_name):
+    """(C, nb, 4, rho+2) strips with the workload's dead directions zero,
+    and with a leading batch axis; the single-channel entry point too."""
+    wl = trules.WORKLOADS[wl_name]
+    ref_lay = _ref_engine(*case, wl_name).layout  # tables shared
+    x = _state(*case, wl, batch=2)
+    x5 = x if wl.n_channels > 1 else x[:, None]
+    gather = jax.jit(rsk._gather_halo_strips, static_argnums=(0, 2))
+    want = np.stack([np.asarray(gather(
+        ref_lay, jnp.asarray(s), ref_halo_needs(
+            rrules.WORKLOADS[wl_name].weights2d))) for s in x5])
+    got = sk._gather_halo_strips(_layout(*case), torch.from_numpy(x5),
+                                 halo_needs(wl.weights2d))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if wl.n_channels == 1:
+        np.testing.assert_array_equal(
+            sk.gather_halo_strips(_layout(*case),
+                                  torch.from_numpy(x[0])).numpy(),
+            np.asarray(gather(ref_lay, jnp.asarray(x[0])[None]))[0])
+
+
 # ---------------------------------------- the reference Pallas kernels
+def test_blocks_matches_reference_pallas_v1():
+    case, wl = ("carpet", 3, 1), trules.GRAY_SCOTT
+    x = _state(*case, wl, seed=1)
+    want = rsk.stencil_step_blocks(RefLayout(rf.CARPET, 3, 1),
+                                   jnp.asarray(x), rrules.GRAY_SCOTT,
+                                   interpret=True)
+    got = sk.stencil_step_blocks(_layout(*case), torch.from_numpy(x), wl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(wl))
+
+
+def test_strips_matches_reference_pallas_v2():
+    case, wl = ("sierpinski", 5, 2), trules.HEAT
+    x = _state(*case, wl, seed=2)
+    want = rsk.stencil_step_strips(RefLayout(rf.SIERPINSKI, 5, 2),
+                                   jnp.asarray(x), rrules.HEAT,
+                                   interpret=True)
+    got = sk.stencil_step_strips(_layout(*case), torch.from_numpy(x), wl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(wl))
+    np.testing.assert_array_equal(
+        sk.life_step_strips(_layout(*case), torch.from_numpy(
+            _state(*case, trules.LIFE))).numpy(),
+        _reference(*case, "life", 1))
+
+
 def test_fused_matches_reference_pallas_v3():
     case, wl = ("carpet", 3, 1), trules.HIGHLIFE
     x = _state(*case, wl, seed=3)
@@ -159,6 +224,10 @@ def _kernel_calls():
     return [
         ("stencil_step_fused_plain",
          lambda: sk.stencil_step_fused(lay, meta[0], trules.LIFE)),
+        ("stencil_step_blocks_plain",
+         lambda: sk.life_step_blocks(lay, meta)),
+        ("stencil_step_strips_plain",
+         lambda: sk.stencil_step_strips(lay, meta[0], trules.LIFE)),
         ("stencil_step_fused_k_plain",
          lambda: sk.stencil_step_fused_k(lay, meta[0], trules.LIFE, k=2)),
         ("stencil_step_mxu_batched_plain",
@@ -166,8 +235,8 @@ def _kernel_calls():
     ]
 
 
-@pytest.mark.parametrize("idx", [0, 1, 2],
-                         ids=["v3", "v4", "v5"])
+@pytest.mark.parametrize("idx", [0, 1, 2, 3, 4],
+                         ids=["v3", "v1", "v2", "v4", "v5"])
 def test_wrapper_raises_when_the_build_fails(idx):
     """A tensor off the CPU goes to the kernel: a failed build raises and
     the plain version is never called."""
@@ -180,7 +249,8 @@ def test_wrapper_raises_when_the_build_fails(idx):
             call()
 
 
-@pytest.mark.parametrize("idx", [0, 1, 2], ids=["v3", "v4", "v5"])
+@pytest.mark.parametrize("idx", [0, 1, 2, 3, 4],
+                         ids=["v3", "v1", "v2", "v4", "v5"])
 def test_wrapper_refuses_a_non_cuda_device(idx):
     _, call = _kernel_calls()[idx]
     before = dict(sk.LAUNCHES)
