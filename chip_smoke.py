@@ -40,7 +40,26 @@ jax or the reference package). Phases, each printing one JSON line:
      cells, also the float32 product form (``*_map_matmul``, Fig. 14's
      tensor-core form against the scalar kernels); then a ``kernels`` line:
      each kernel's launches on the main path, largest error against its
-     plain version, time, plain time and bound.
+     plain version, time, plain time and bound;
+  7. the 3D kernels (cuda-3d's fused kernel, cuda-3d-mxu's z-slab banded
+     kernel) against their plain versions on the Menger sponge (r=5 at m=1
+     and m=2) and the Sierpinski tetrahedron (r=10, m=2): LIFE3D, HEAT3D
+     and the 2D rule LIFE, k in {1, 2, rho}, two packings of the mxu kernel
+     for k <= 2, one simulation and B=3, <= 8 steps, at phase 3's bar;
+  8. the 3D main path at full size, the Menger sponge r=6, m=2 (160,000
+     blocks of 9^3, 64,000,000 cells), each timed run after a warm-up:
+     ``make_engine('cuda-3d')`` with LIFE3D and HEAT3D for 31 steps,
+     ``make_engine('cuda-3d-mxu')`` with both for 16 steps,
+     ``BatchedRunner.run('cuda-3d')`` with LIFE3D, B=2, 16 steps, each held
+     against the plain ``block3d`` engine on the card, and ``cell3d`` with
+     LIFE3D for 2 steps, held against cuda-3d through the expanded volume;
+     with the phase's launch counts, asserted to floor(steps/k) + steps % k;
+  9. Fig. 12 in 3D: ``bb3d`` on the 729^3 volume against cell3d, cuda-3d
+     and cuda-3d-mxu for LIFE3D from the same state (checked equal), time
+     per step, speedup and memory;
+ 10. both 3D kernels at the main path's shapes (LIFE3D and HEAT3D), with
+     their plain versions' times and bounds; their rows join the
+     ``kernels`` line.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -64,6 +83,7 @@ F32_FLOPS = 67e12
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
 _STENCIL = "src/repro_torch/kernels/csrc/squeeze_stencil.cu"
 _MAPS = "src/repro_torch/kernels/csrc/squeeze_maps.cu"
+_STENCIL3D = "src/repro_torch/kernels/csrc/squeeze_stencil3d.cu"
 _TPU = "src/repro/kernels/"
 #: kernel -> (its source, the TPU kernel's entry it replaces)
 KERNELS = {
@@ -75,7 +95,15 @@ KERNELS = {
                                  _TPU + "squeeze_stencil.py:620"),
     "nu_map_tc": (_MAPS, _TPU + "nu_map.py:73"),
     "lambda_map_tc": (_MAPS, _TPU + "lambda_map.py:53"),
+    "stencil3d_step_fused_k": (_STENCIL3D,
+                               _TPU + "squeeze_stencil3d.py:136"),
+    "stencil3d_step_mxu_k": (_STENCIL3D, _TPU + "squeeze_stencil3d.py:298"),
 }
+#: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
+#: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
+MAIN3D = ("menger", 6, 2)
+#: (fractal, r, m) of the 3D kernel checks
+CHECK3D = [("menger", 5, 1), ("menger", 5, 2), ("sierpinski3d", 10, 2)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -226,6 +254,235 @@ def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_000):
                  seconds=time.perf_counter() - t0)
 
 
+def _init3d(torch, lay, wl, batch, seed):
+    """``batch`` states of the workload's distribution, holes zeroed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    shape = (lay.n_blocks,) + (lay.rho,) * 3
+    x = torch.stack([wl.init(g, shape, "cuda") for _ in range(batch)])
+    return (x * lay.device_table("micro_mask", "cuda").to(x.dtype)) \
+        .contiguous()
+
+
+def phase_3d_kernels_vs_plain(torch, chk, F3, R, BlockLayout3D, k3):
+    for name, r, m in CHECK3D:
+        frac = F3.REGISTRY3D[name]
+        lay = BlockLayout3D(frac, r, m)
+        for wl in (R.LIFE3D, R.HEAT3D, R.LIFE):
+            t0 = time.perf_counter()
+            exact = wl.dtype == torch.uint8
+            x = _init3d(torch, lay, wl, 3, 13)
+            errs = {}
+            for k in sorted({1, 2, lay.rho}):
+                runs = [("fused", k3.stencil3d_step_fused_k,
+                         k3.stencil3d_step_fused_k_plain, {})]
+                runs += [(f"mxu_p{lay.macro_tiles(k, p)[0]}",
+                          k3.stencil3d_step_mxu_k,
+                          k3.stencil3d_step_mxu_k_plain, {"p": p})
+                         for p in ((None, 2) if k <= 2 else (None,))]
+                for label, fn, plain, kw in runs:
+                    for tag, state in (("", x[0]), ("_b3", x)):
+                        got, want = state, state
+                        for _ in range(8 // k):
+                            got = fn(lay, got, wl, k=k, **kw)
+                            want = plain(lay, want, wl, k=k)
+                        what = f"{label}_k{k}{tag}"
+                        errs[what] = chk.check(
+                            f"3d/{name}/{wl.name}/{what}", fn.__name__, got,
+                            want, exact)
+            torch.cuda.synchronize()
+            emit("kernel3d_vs_plain", fractal=name, r=r, m=m,
+                 n_blocks=lay.n_blocks, compact_cells=frac.volume(r),
+                 workload=wl.name,
+                 tolerance="exact" if exact else FLOAT_TOL, max_err=errs,
+                 seconds=time.perf_counter() - t0)
+
+
+def phase_3d_main(torch, chk, F3, R, make_engine, default_fusion_k,
+                  shared_layout3d, BatchedRunner, k3, c3):
+    """The 3D main path; returns its launch counts."""
+    name, r, m = MAIN3D
+    frac = F3.REGISTRY3D[name]
+    t0 = time.perf_counter()
+    lay = shared_layout3d(frac, r, m)
+    k = default_fusion_k(lay.rho)
+    _ = lay.neighbor_table, lay.window_mask(k), lay.window_mask(1)
+    host_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lay.device_table("halo_mask", "cuda", k)   # read by block3d only
+    emit("layout3d", fractal=name, r=r, m=m, rho=lay.rho,
+         n_blocks=lay.n_blocks, compact_cells=frac.volume(r),
+         expanded_cells=frac.side(r) ** 3, host_seconds=host_seconds,
+         halo_mask_seconds=time.perf_counter() - t0,
+         halo_mask_bytes=lay.n_blocks * (lay.rho + 2 * k) ** 3)
+    wls = (R.LIFE3D, R.HEAT3D)
+    engines = {(kind, wl.name): make_engine(kind, frac, r, m, workload=wl)
+               for kind in ("cuda-3d", "cuda-3d-mxu") for wl in wls}
+    init = {wl.name: _init3d(torch, lay, wl, 1, 31 + i)[0]
+            for i, wl in enumerate(wls)}
+    runner = BatchedRunner()
+    batch = _init3d(torch, lay, R.LIFE3D, 2, 33)
+    cell = make_engine("cell3d", frac, r, workload=R.LIFE3D)
+    cell_init = c3.expanded_to_compact3(frac, r,
+                                        lay.to_expanded(init["life3d"]))
+    for table, kk in (("neighbor_table", None), ("micro_mask", None),
+                      ("window_mask", 1), ("window_mask", k)):
+        lay.device_table(table, "cuda", *(() if kk is None else (kk,)))
+    steps = {"cuda-3d": 31, "cuda-3d-mxu": 16}
+    timed = [(f"{kind} {n}", lambda e=e, n=n, t=steps[kind]: e.run(init[n], t),
+              steps[kind], 1) for (kind, n), e in engines.items()]
+    timed.append(("runner cuda-3d life3d", lambda: runner.run(
+        "cuda-3d", frac, r, batch, 16, m=m, workload=R.LIFE3D), 16, 2))
+    for _, fn, _, _ in timed:   # warm-up: buffers, caches, index tensors
+        fn()
+    t = time.perf_counter()
+    _ = cell._gathers
+    torch.cuda.synchronize()
+    cell_index_seconds = time.perf_counter() - t
+    cell.run(cell_init, 1)
+    torch.cuda.synchronize()
+
+    k3.reset_launches()
+    runs = []
+
+    def drive(label, fn, n, b):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        runs.append(dict(run=label, steps=n, batch=b, seconds=sec,
+                         ms_per_step=1e3 * sec / n,
+                         cells_per_s=b * frac.volume(r) * n / sec))
+        return out
+    outs = {label: drive(label, fn, n, b) for label, fn, n, b in timed}
+    out_cell = drive("cell3d life3d", lambda: cell.run(cell_init, 2), 2, 1)
+    launches = dict(k3.LAUNCHES)
+
+    def per_run(n):
+        return n // k + n % k
+    expect = dict.fromkeys(launches, 0)
+    expect["stencil3d_step_fused_k"] = 2 * per_run(31) + per_run(16)
+    expect["stencil3d_step_mxu_k"] = 2 * per_run(16)
+    if launches != expect:
+        raise AssertionError(f"3D launches {launches}, expected {expect}")
+
+    checks, max_abs_plain = {}, {}
+    for (kind, n), e in engines.items():
+        wl = e.workload
+        plain = make_engine("block3d", frac, r, m, workload=wl, fusion_k=k)
+        want = plain.run(init[n], steps[kind])
+        label = f"{kind} {n}"
+        kernel = "stencil3d_step_mxu_k" if kind.endswith("mxu") \
+            else "stencil3d_step_fused_k"
+        checks[label] = chk.check(f"main3d/{label}", kernel, outs[label],
+                                  want, wl.dtype == torch.uint8)
+        if wl.dtype != torch.uint8:
+            max_abs_plain[label] = float(want.abs().max())
+    plain = make_engine("block3d", frac, r, m, workload=R.LIFE3D, fusion_k=k)
+    checks["runner cuda-3d life3d"] = chk.check(
+        "main3d/runner", "stencil3d_step_fused_k",
+        outs["runner cuda-3d life3d"],
+        torch.stack([plain.run(s, 16) for s in batch]), True)
+    alive = int(outs["cuda-3d life3d"].sum())
+    want = c3.expanded_to_compact3(frac, r, lay.to_expanded(
+        engines[("cuda-3d", "life3d")].run(init["life3d"], 2)))
+    checks["cell3d life3d"] = chk.check("main3d/cell3d", None, out_cell,
+                                        want, True)
+    if alive == 0:
+        raise AssertionError("LIFE3D died out on the 3D main path")
+    emit("main_path_3d", fractal=name, r=r, m=m, fusion_k=k, runs=runs,
+         launches={n: v for n, v in launches.items() if "3d" in n},
+         expected_launches={n: v for n, v in expect.items() if "3d" in n},
+         max_err_vs_plain=checks, max_abs_plain=max_abs_plain,
+         cell_index_seconds=cell_index_seconds,
+         live_cells_after_31_steps=alive,
+         state_bytes={"life3d": init["life3d"].numel(),
+                      "heat3d": 4 * init["heat3d"].numel()})
+    return launches, lay, engines
+
+
+def phase_3d_bb(torch, chk, F3, R, make_engine, lay, engines, c3):
+    """Fig. 12 in 3D: bb3d against cell3d, cuda-3d and cuda-3d-mxu."""
+    name, r, m = MAIN3D
+    frac = F3.REGISTRY3D[name]
+    bb = make_engine("bb3d", frac, r, workload=R.LIFE3D)
+    cell = make_engine("cell3d", frac, r, workload=R.LIFE3D)
+    fu = engines[("cuda-3d", "life3d")]
+    mx = engines[("cuda-3d-mxu", "life3d")]
+    e0 = bb.init_random(41)
+    s0 = lay.from_expanded(e0)
+    c0 = c3.expanded_to_compact3(frac, r, e0)
+    n_eq = 4
+    e1 = bb.run(e0, n_eq)
+    want = lay.from_expanded(e1)
+    chk.check("bb3d/fused", None, fu.run(s0, n_eq), want, True)
+    chk.check("bb3d/mxu", None, mx.run(s0, n_eq), want, True)
+    chk.check("bb3d/cell3d", None, cell.run(c0, n_eq),
+              c3.expanded_to_compact3(frac, r, e1), True)
+    alive = int(e1.sum())
+    del e1, want
+    torch.cuda.empty_cache()
+    bb_ms = cuda_ms(torch, lambda: bb.run(e0, 3), 2) / 3
+    cell_ms = cuda_ms(torch, lambda: cell.run(c0, 3), 2) / 3
+    fu_ms = cuda_ms(torch, lambda: fu.run(s0, 30), 3) / 30
+    mx_ms = cuda_ms(torch, lambda: mx.run(s0, 30), 3) / 30
+    bb_bytes, sq_bytes = bb.memory_bytes(), lay.memory_bytes()
+    emit("bb3d_vs_squeeze", workload="life3d", expanded_side=frac.side(r),
+         bb3d_ms_per_step=bb_ms, cell3d_ms_per_step=cell_ms,
+         cuda_3d_ms_per_step=fu_ms, cuda_3d_mxu_ms_per_step=mx_ms,
+         speedup_cell3d=bb_ms / cell_ms, speedup_cuda_3d=bb_ms / fu_ms,
+         speedup_cuda_3d_mxu=bb_ms / mx_ms, bb3d_bytes=bb_bytes,
+         squeeze_block_bytes=sq_bytes, fractal_cells=frac.volume(r),
+         cell3d_bytes=cell.memory_bytes(), mrf=bb_bytes / frac.volume(r),
+         block_mrf=bb_bytes / sq_bytes, equal_after_steps=n_eq,
+         live_cells_after_4_steps=alive)
+
+
+def phase_3d_timing(torch, chk, R, lay, k, launches, k3):
+    """Both 3D kernels at the main path's shapes; returns their rows.
+    Bounds: the state read and written once and the neighbor table read
+    once; about 10 operations a cell and substep (the separable 26-cell
+    sum: 6 adds and the center, then the rule)."""
+    rows = []
+    for kname, fn, plain in (
+            ("stencil3d_step_fused_k", k3.stencil3d_step_fused_k,
+             k3.stencil3d_step_fused_k_plain),
+            ("stencil3d_step_mxu_k", k3.stencil3d_step_mxu_k,
+             k3.stencil3d_step_mxu_k_plain)):
+        per_wl = {}
+        for wl in (R.LIFE3D, R.HEAT3D):
+            s1 = _init3d(torch, lay, wl, 1, 51)[0]
+            o1 = torch.empty_like(s1)
+            chk.check(f"timing3d/{kname}/{wl.name}", kname,
+                      fn(lay, s1, wl, k=k), plain(lay, s1, wl, k=k),
+                      wl.dtype == torch.uint8)
+            state_bytes = s1.numel() * s1.element_size()
+            nbytes = 2 * state_bytes + lay.n_blocks * 26 * 4
+            ops = 10 * k * s1.numel()
+            ms = cuda_ms(torch, lambda: fn(lay, s1, wl, k=k, out=o1), 20)
+            plain_ms = cuda_ms(torch, lambda: plain(lay, s1, wl, k=k), 3)
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            ops_ms = 1e3 * ops / F32_FLOPS
+            per_wl[wl.name] = dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=max(bytes_ms, ops_ms),
+                                   bound_by="bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+            emit("kernel_timing", name=kname, shape=list(s1.shape),
+                 workload=wl.name, k=k,
+                 p=lay.macro_tiles(k)[0] if "mxu" in kname else None,
+                 ms=ms, plain_ms=plain_ms, bytes=nbytes, bytes_ms=bytes_ms,
+                 ops=ops, ops_ms=ops_ms)
+            del s1, o1
+        source, replaces = KERNELS[kname]
+        row = per_wl["life3d"]
+        rows.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=launches[kname], max_abs_err=chk.max_err[kname],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -237,6 +494,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.core import fractals as F
     from repro_torch.core import maps as M
+    from repro_torch.core import fractals3d as F3
+    from repro_torch.core import compact3d as c3
     from repro_torch.core.compact import (BlockLayout, compact_meshgrid,
                                           expanded_to_compact, shared_layout)
     from repro_torch.core.stencil import default_fusion_k, make_engine
@@ -244,6 +503,7 @@ def main() -> int:
     from repro_torch.kernels import lambda_map as lm
     from repro_torch.kernels import nu_map as nm
     from repro_torch.kernels import squeeze_stencil as sk
+    from repro_torch.kernels import squeeze_stencil3d as k3
     from repro_torch.workloads.base import halo_needs
     from repro_torch.workloads import BatchedRunner
     from repro_torch.workloads import rules as R
@@ -346,7 +606,8 @@ def main() -> int:
               "stencil_step_fused": 63 % k * 2,
               "stencil_step_strips": 63 % k + 16 * 2,
               "stencil_step_blocks": 16 * 2,
-              "lambda_map_tc": 1, "nu_map_tc": 8}
+              "lambda_map_tc": 1, "nu_map_tc": 8,
+              "stencil3d_step_fused_k": 0, "stencil3d_step_mxu_k": 0}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -552,6 +813,20 @@ def main() -> int:
              k=spec.get("k"), p=spec.get("p"), r=spec.get("r"), ms=ms,
              plain_ms=plain_ms, bytes=spec["bytes"], bytes_ms=bytes_ms,
              ops=spec["ops"], ops_ms=ops_ms, **extra_ms)
+    del specs, s1, sb, o1, ob, strips, cxm, cym, ex16, ey16, mxu, fu
+    del fused, runner, lay, bb, s0
+    torch.cuda.empty_cache()
+
+    # 7-10. the 3D slice --------------------------------------------------
+    phase_3d_kernels_vs_plain(torch, chk, F3, R, c3.BlockLayout3D, k3)
+    launches3, lay3, engines3 = phase_3d_main(
+        torch, chk, F3, R, make_engine, default_fusion_k, c3.shared_layout3d,
+        BatchedRunner, k3, c3)
+    torch.cuda.empty_cache()
+    phase_3d_bb(torch, chk, F3, R, make_engine, lay3, engines3, c3)
+    torch.cuda.empty_cache()
+    rows += phase_3d_timing(torch, chk, R, lay3, default_fusion_k(lay3.rho),
+                            launches3, k3)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -70,8 +70,35 @@ def expanded_to_compact(frac: NBBFractal, r: int, state_e: torch.Tensor):
     return state_e[..., ey.long(), ex.long()]
 
 
+class LayoutTables:
+    """The memo the 2D and 3D block layouts keep their depth-k host tables
+    and device copies in (dies with the layout, so the runner's LRU can
+    free it)."""
+
+    @functools.cached_property
+    def _cache(self) -> dict:
+        return {}
+
+    def _memo(self, key, build):
+        cache = self._cache
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+    def device_table(self, name: str, device, *args) -> torch.Tensor:
+        """The host table ``name`` (an attribute, or a method called with
+        ``args``) uploaded once per device and cached on the layout."""
+        device = torch.device(device)
+
+        def build():
+            host = getattr(self, name)
+            host = host(*args) if callable(host) else host
+            return torch.from_numpy(np.ascontiguousarray(host)).to(device)
+        return self._memo(("device", name, args, str(device)), build)
+
+
 @dataclasses.dataclass(frozen=True)
-class BlockLayout:
+class BlockLayout(LayoutTables):
     """Static geometry of a block-level Squeeze decomposition."""
 
     frac: NBBFractal
@@ -105,18 +132,6 @@ class BlockLayout:
         return self.n_blocks
 
     # ------------------------------------------------------- host tables
-    @functools.cached_property
-    def _cache(self) -> dict:
-        """Per-instance memo of the depth-k host tables and the device
-        copies (dies with the layout, so the runner's LRU can free it)."""
-        return {}
-
-    def _memo(self, key, build):
-        cache = self._cache
-        if key not in cache:
-            cache[key] = build()
-        return cache[key]
-
     @functools.cached_property
     def micro_mask(self) -> np.ndarray:
         """(rho, rho) uint8 occupancy of the level-m micro-fractal."""
@@ -260,18 +275,6 @@ class BlockLayout:
             pad = np.zeros((nb_pad - self.n_blocks, 8), np.int32)
             return np.concatenate([self.existence_table, pad], axis=0)
         return self._memo(("existence_padded", k, p), build)
-
-    # ---------------------------------------------------- device copies
-    def device_table(self, name: str, device, *args) -> torch.Tensor:
-        """The host table ``name`` (an attribute, or a method called with
-        ``args``) uploaded once per device and cached on the layout."""
-        device = torch.device(device)
-
-        def build():
-            host = getattr(self, name)
-            host = host(*args) if callable(host) else host
-            return torch.from_numpy(np.ascontiguousarray(host)).to(device)
-        return self._memo(("device", name, args, str(device)), build)
 
     # ------------------------------------------------------ conversions
     def _cell_coords(self, device):

@@ -115,12 +115,13 @@ class SqueezeCellEngine:
 
 
 class _BlockEngine:
-    """What the block engines share: the layout, the init, conversions and
-    the fusion depth. Hosts define ``layout``, ``workload``, ``fusion_k``
-    and ``device``."""
+    """What the block engines (2D and 3D) share: the layout, the init,
+    conversions, the fusion depth and the plain ``run``. Hosts define
+    ``layout``, ``workload``, ``fusion_k``, ``device``, ``step`` and
+    ``step_k``."""
 
     @property
-    def frac(self) -> NBBFractal:
+    def frac(self):
         return self.layout.frac
 
     @property
@@ -138,7 +139,7 @@ class _BlockEngine:
         holes zeroed."""
         lay = self.layout
         field = self.workload.init(_generator(seed, self.device),
-                                   (lay.n_blocks, lay.rho, lay.rho),
+                                   (lay.n_blocks,) + lay.micro_mask.shape,
                                    self.device)
         mask = lay.device_table("micro_mask", self.device)
         return field * mask.to(field.dtype)
@@ -148,6 +149,40 @@ class _BlockEngine:
 
     def memory_bytes(self, dtype_size: int = 1) -> int:
         return self.workload.n_channels * self.layout.memory_bytes(dtype_size)
+
+    def run(self, state: torch.Tensor, steps: int) -> torch.Tensor:
+        """floor(steps/k) fused k-step calls plus steps % k single
+        steps."""
+        k = self.effective_fusion_k
+        if k > 1:
+            for _ in range(steps // k):
+                state = self.step_k(state, k)
+            steps %= k
+        for _ in range(steps):
+            state = self.step(state)
+        return state
+
+
+class _KernelEngine(_BlockEngine):
+    """What the kernel engines (2D and 3D) share: ``step`` is the k = 1
+    launch of ``step_k(state, k, out)``, and ``run`` ping-pongs."""
+
+    def step(self, state, out=None):
+        """One step (of one simulation or of a leading batch axis)."""
+        return self.step_k(state, 1, out=out)
+
+    def run(self, state, steps: int):
+        """floor(steps/k) k-step launches plus steps % k single steps,
+        ping-ponging between two engine-owned buffers; ``state`` is never
+        written. A leading batch axis is stepped natively."""
+        k = self.effective_fusion_k
+        if steps == 0:
+            return state
+        bufs = (torch.empty_like(state), torch.empty_like(state))
+        cur = state
+        for i, kk in enumerate([k] * (steps // k) + [1] * (steps % k)):
+            cur = self.step_k(cur, kk, out=bufs[i % 2])
+        return cur
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,16 +206,6 @@ class SqueezeBlockEngine(_BlockEngine):
         """k exact steps from one depth-k halo (any k >= 1)."""
         return sk.block_step_k(self.layout, state, self.workload, k)
 
-    def run(self, state: torch.Tensor, steps: int) -> torch.Tensor:
-        k = self.effective_fusion_k
-        if k > 1:
-            for _ in range(steps // k):
-                state = self.step_k(state, k)
-            steps %= k
-        for _ in range(steps):
-            state = self.step(state)
-        return state
-
 
 #: kernel-engine variant -> its one-step kernel (v1, v2, v3)
 _SINGLE_STEP = {"blocks": sk.stencil_step_blocks,
@@ -189,7 +214,7 @@ _SINGLE_STEP = {"blocks": sk.stencil_step_blocks,
 
 
 @dataclasses.dataclass(frozen=True)
-class SqueezeKernelEngine(_BlockEngine):
+class SqueezeKernelEngine(_KernelEngine):
     """Block-level Squeeze stepped by the CUDA kernels (CPU tensors take
     the kernels' plain versions). ``variant`` 'blocks', 'strips' or
     'fused': ``step`` is v1, v2 or v3 and ``step_k`` v4; 'mxu': v5 for
@@ -215,10 +240,6 @@ class SqueezeKernelEngine(_BlockEngine):
                 f"got {self.fusion_k}")
         if self.macro_p is not None and self.variant != "mxu":
             raise ValueError("macro_p only applies to the 'mxu' variant")
-
-    def step(self, state, out=None):
-        """One step of one simulation (or of a leading batch axis)."""
-        return self.step_k(state, 1, out=out)
 
     def step_k(self, state, k: int, out=None):
         """k exact steps in one launch (k <= rho): v5 for 'mxu'; otherwise
@@ -254,21 +275,6 @@ class SqueezeKernelEngine(_BlockEngine):
                                            self.workload, k=k,
                                            p=self.macro_p, out=out)
 
-    def run(self, state, steps: int):
-        """floor(steps/k) k-step launches plus steps % k single steps,
-        ping-ponging between two engine-owned buffers; ``state`` is never
-        written. A leading batch axis is stepped natively by both
-        variants."""
-        k = self.effective_fusion_k
-        n_fused, n_single = (steps // k, steps % k) if k > 1 else (0, steps)
-        if steps == 0:
-            return state
-        bufs = (torch.empty_like(state), torch.empty_like(state))
-        cur = state
-        for i, kk in enumerate([k] * n_fused + [1] * n_single):
-            cur = self.step_k(cur, kk, out=bufs[i % 2])
-        return cur
-
 
 def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
                 workload: Optional[StencilWorkload] = None,
@@ -279,7 +285,11 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
 
     kind: 'bb' | 'lambda' | 'cell' | 'block' | 'cuda-blocks' |
     'cuda-strips' | 'cuda-fused' | 'cuda-mxu', and the alias 'cuda' =
-    'cuda-strips' (``REFERENCE_KINDS`` names the reference kind of each).
+    'cuda-strips' (``REFERENCE_KINDS`` names the reference kind of each);
+    in 3D, with an ``NBBFractal3D`` and a single-channel 3D workload
+    (LIFE3D, HEAT3D, or a totalistic rule): 'bb3d' | 'cell3d' | 'block3d'
+    | 'cuda-3d' (the fused 3D kernel) | 'cuda-3d-mxu' (the z-slab banded
+    3D kernel).
     The spec is normalized first (alias rewritten, fusion depth and MXU
     packing resolved, explicit > heuristic). ``frac``/``workload``
     objects may be passed with a spec to supply custom ones. ``device=None`` means the card, and raises
@@ -298,6 +308,21 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
     frac = frac if frac is not None else norm.build_frac()
     workload = workload if workload is not None else norm.build_workload()
     kind, r, m = norm.kind, norm.r, norm.m
+    if norm.is_3d:
+        from repro_torch.core import stencil3d as s3
+        from repro_torch.core.compact3d import shared_layout3d
+        if kind == "bb3d":
+            return s3.BB3DEngine(frac, r, workload, dev)
+        if kind == "cell3d":
+            return s3.Squeeze3DEngine(frac, r, workload, dev)
+        if kind == "block3d":
+            return s3.Squeeze3DBlockEngine(shared_layout3d(frac, r, m),
+                                           workload, fusion_k=norm.fusion_k,
+                                           device=dev)
+        return s3.Squeeze3DKernelEngine(
+            shared_layout3d(frac, r, m), workload,
+            variant="mxu" if norm.is_mxu else "fused",
+            fusion_k=norm.fusion_k, macro_p=norm.macro_p, device=dev)
     if kind == "bb":
         return BBEngine(frac, r, workload, dev)
     if kind == "lambda":

@@ -4,11 +4,13 @@ The system has no weights; what crosses over is simulation state and
 workload parameters:
 
   * ``state_from_numpy`` / ``state_to_numpy`` move a state in the shared
-    ``(B?, C?, n_blocks, rho, rho)`` layout (or any other engine layout)
-    between numpy and a torch tensor on a device;
+    ``(B?, C?, n_blocks, rho, rho)`` layout, the 3D ``(B?, n_blocks, rho,
+    rho, rho)`` one, or any other engine layout, between numpy and a torch
+    tensor on a device;
   * ``workload_from_fields(kind, **fields)`` builds the port's twin of a
     reference ``TotalisticCA``, ``HeatDiffusion`` or ``GrayScott`` from its
-    dataclass fields (``dataclasses.asdict`` of the reference object).
+    dataclass fields (``dataclasses.asdict`` of the reference object),
+    the 3D ``LIFE3D`` and ``HEAT3D`` included.
 """
 from __future__ import annotations
 

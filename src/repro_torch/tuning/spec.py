@@ -24,6 +24,8 @@ REFERENCE_KINDS: Dict[str, str] = {
     "bb": "bb", "lambda": "lambda", "cell": "cell", "block": "block",
     "cuda-blocks": "pallas-blocks", "cuda-strips": "pallas-strips",
     "cuda-fused": "pallas-fused", "cuda-mxu": "pallas-mxu",
+    "bb3d": "bb3d", "cell3d": "cell3d", "block3d": "block3d",
+    "cuda-3d": "pallas-3d", "cuda-3d-mxu": "pallas-3d-mxu",
 }
 
 #: every engine kind ``make_engine`` accepts, after alias rewriting
@@ -35,20 +37,27 @@ KIND_ALIASES: Dict[str, str] = {"cuda": "cuda-strips"}
 
 #: kinds with block tiles (fusion depth applies)
 BLOCK_KINDS = frozenset({"block", "cuda-blocks", "cuda-strips",
-                         "cuda-fused", "cuda-mxu"})
+                         "cuda-fused", "cuda-mxu", "block3d", "cuda-3d",
+                         "cuda-3d-mxu"})
 
 #: kinds whose kernel packs P blocks per CTA
-MXU_KINDS = frozenset({"cuda-mxu"})
+MXU_KINDS = frozenset({"cuda-mxu", "cuda-3d-mxu"})
 
-FracId = Union[str, Tuple[Tuple[int, int], ...]]
+#: kinds of the 3D engines (an ``NBBFractal3D``, 3D workloads)
+KINDS_3D = frozenset({"bb3d", "cell3d", "block3d", "cuda-3d",
+                      "cuda-3d-mxu"})
+
+FracId = Union[str, Tuple[Tuple[int, ...], ...]]
 
 
 def _frac_identity(frac) -> Tuple[int, FracId]:
     """(s, name-or-mask): the registry name when the object is that
-    registry entry, else its slot positions."""
+    registry entry (2D or 3D), else its slot positions."""
     from repro_torch.core.fractals import REGISTRY
+    from repro_torch.core.fractals3d import REGISTRY3D
     positions = tuple(tuple(int(c) for c in p) for p in frac.positions)
-    reg = REGISTRY.get(getattr(frac, "name", None))
+    name = getattr(frac, "name", None)
+    reg = REGISTRY.get(name) or REGISTRY3D.get(name)
     if reg is not None and reg.s == frac.s and reg.positions == positions:
         return int(frac.s), frac.name
     return int(frac.s), positions
@@ -56,8 +65,9 @@ def _frac_identity(frac) -> Tuple[int, FracId]:
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """``frac`` is a registry fractal name or a slot-position mask; ``s``
-    the fractal's scaling factor; ``workload`` a registry workload name.
+    """``frac`` is a registry fractal name or a slot-position mask ((x, y)
+    or (x, y, z) slots); ``s`` the fractal's scaling factor; ``workload``
+    a registry workload name.
     ``fusion_k`` and ``macro_p`` are the tunable knobs (``None`` = the
     heuristic)."""
 
@@ -89,6 +99,10 @@ class EngineSpec:
     @property
     def is_mxu(self) -> bool:
         return self.kind in MXU_KINDS
+
+    @property
+    def is_3d(self) -> bool:
+        return self.kind in KINDS_3D
 
     @property
     def rho(self) -> int:
@@ -128,15 +142,18 @@ class EngineSpec:
         p = spec.macro_p
         if spec.is_mxu:
             from repro_torch.core.compact import BlockLayout
-            layout = BlockLayout(self.build_frac(), spec.r, spec.m)
+            from repro_torch.core.compact3d import BlockLayout3D
+            layout = (BlockLayout3D if spec.is_3d else BlockLayout)(
+                self.build_frac(), spec.r, spec.m)
             p = layout.macro_tiles(k, p=p)[0]
         return dataclasses.replace(spec, fusion_k=k, macro_p=p)
 
     def build_frac(self):
         """The fractal object this spec names."""
         from repro_torch.core.fractals import REGISTRY, NBBFractal
+        from repro_torch.core.fractals3d import REGISTRY3D, NBBFractal3D
         if isinstance(self.frac, str):
-            frac = REGISTRY.get(self.frac)
+            frac = REGISTRY.get(self.frac) or REGISTRY3D.get(self.frac)
             if frac is None:
                 raise KeyError(f"unknown fractal name {self.frac!r} in "
                                "EngineSpec")
@@ -144,10 +161,13 @@ class EngineSpec:
                 raise ValueError(f"fractal {self.frac!r} has s={frac.s}, "
                                  f"spec says s={self.s}")
             return frac
+        if len(self.frac[0]) == 3:
+            return NBBFractal3D(f"nbb3d-s{self.s}-k{len(self.frac)}", self.s,
+                                self.frac)
         return NBBFractal(f"nbb-s{self.s}-k{len(self.frac)}", self.s,
                           self.frac)
 
     def build_workload(self):
-        """The registry workload this spec names."""
+        """The registry workload this spec names (2D or 3D)."""
         from repro_torch.workloads.rules import get_workload
         return get_workload(self.workload)

@@ -1,7 +1,8 @@
 """Stencil workloads and the batched runner."""
 from repro_torch.workloads.base import StencilWorkload, weighted_moore_agg
-from repro_torch.workloads.rules import (GRAY_SCOTT, HEAT, HIGHLIFE, LIFE,
-                                         SEEDS, WORKLOADS, GrayScott,
+from repro_torch.workloads.rules import (GRAY_SCOTT, HEAT, HEAT3D, HIGHLIFE,
+                                         LIFE, LIFE3D, SEEDS, WORKLOADS,
+                                         WORKLOADS3D, GrayScott,
                                          HeatDiffusion, TotalisticCA,
                                          get_workload)
 from repro_torch.workloads.runner import BatchedRunner, RunnerStats
@@ -9,6 +10,7 @@ from repro_torch.workloads.runner import BatchedRunner, RunnerStats
 __all__ = [
     "StencilWorkload", "weighted_moore_agg", "TotalisticCA",
     "HeatDiffusion", "GrayScott", "LIFE", "HIGHLIFE", "SEEDS", "HEAT",
-    "GRAY_SCOTT", "WORKLOADS", "get_workload", "BatchedRunner",
+    "GRAY_SCOTT", "LIFE3D", "HEAT3D", "WORKLOADS", "WORKLOADS3D",
+    "get_workload", "BatchedRunner",
     "RunnerStats",
 ]

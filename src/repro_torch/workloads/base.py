@@ -1,4 +1,5 @@
-"""The ``StencilWorkload`` abstraction: what the engines simulate (2D).
+"""The ``StencilWorkload`` abstraction: what the engines simulate (2D and
+3D).
 
 A workload bundles everything rule-specific so that the engines and the
 CUDA kernels stay rule-agnostic:
@@ -7,8 +8,9 @@ CUDA kernels stay rule-agnostic:
   * ``n_channels``             -- 1 (scalar field) or C (Gray-Scott's
                                  (U, V) pair); multi-channel states carry a
                                  leading channel axis: (C, *spatial);
-  * ``weight(offset)``         -- per-direction neighbor weight; a 0
-                                 weight means the direction is never read;
+  * ``weight(offset)``         -- per-direction neighbor weight, (dx, dy)
+                                 or (dx, dy, dz); a 0 weight means the
+                                 direction is never read;
   * ``apply(center, agg, mask)`` -- the update rule, given the weighted
                                  neighbor aggregate; ``mask`` is the {0,1}
                                  occupancy or None when every cell is real;
@@ -32,6 +34,14 @@ MOORE_DIRS: Tuple[Tuple[int, int], ...] = (
     (-1, 0), (1, 0),
     (-1, 1), (0, 1), (1, 1),
 )
+
+#: 3D Moore neighborhood (dx, dy, dz), raster-ordered (dz slowest, dx
+#: fastest), so the 26 directions line up with the 3D halo regions as
+#: MOORE_DIRS does with the 2D ones.
+MOORE3_DIRS: Tuple[Tuple[int, int, int], ...] = tuple(
+    (dx, dy, dz)
+    for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+    if (dx, dy, dz) != (0, 0, 0))
 
 
 class StencilWorkload:
@@ -73,6 +83,29 @@ class StencilWorkload:
         return w
 
     @property
+    def weights3d(self):
+        """Weights over the 26 3D Moore directions, MOORE3_DIRS order."""
+        return tuple(self.weight(d) for d in MOORE3_DIRS)
+
+    @property
+    def weights3x3x3(self) -> np.ndarray:
+        """The 3D neighbor weights as a (3, 3, 3) float64 tensor indexed
+        ``[dz+1, dy+1, dx+1]`` (center weight 0)."""
+        w = np.zeros((3, 3, 3), np.float64)
+        for dx, dy, dz in MOORE3_DIRS:
+            w[dz + 1, dy + 1, dx + 1] = self.weight((dx, dy, dz))
+        return w
+
+    @functools.cached_property
+    def weight_factors3(self):
+        """Per z-plane (dz = -1, 0, +1) rank-1 decompositions of
+        ``weights3x3x3`` (empty for an all-zero plane): the operands of the
+        3D mxu kernel, whose aggregate of slab z is
+        ``sum_dz sum_t R_t(dz) @ X[z+dz] @ C_t(dz)^T``."""
+        return tuple(svd_rank1_terms(plane) if plane.any() else ()
+                     for plane in self.weights3x3x3)
+
+    @property
     def ring_weights(self) -> Tuple[float, float]:
         """(w_diag, w_orth) of a ring-uniform weight set -- the form the
         CUDA kernels take; raises for any other set."""
@@ -96,18 +129,22 @@ class StencilWorkload:
         agg = weighted_moore_agg(padded, self.weights2d, self.agg_dtype)
         return self.apply(center, agg, mask)
 
-    def tile_rule_k(self, padded, halo_mask, k: int):
+    def tile_rule_k(self, padded, halo_mask, k: int, ndim: int = 2):
         """``k`` fused updates on a depth-``k`` padded tile: each substep
         updates the current window's interior and the window shrinks by one
         ring, so the (C?, h, w) core advances ``k`` exact steps.
         ``halo_mask`` (trailing (h+2k, w+2k) axes) is re-applied at every
         substep on a matching shrinking crop, so holes and ghost cells of
-        the halo stay zero mid-flight, not only at the final write."""
-        crop = (Ellipsis, slice(1, -1), slice(1, -1))
+        the halo stay zero mid-flight, not only at the final write.
+        ``ndim=3`` runs the same discipline on a (d+2k, h+2k, w+2k) volume
+        over the 26-direction aggregate."""
+        crop = (Ellipsis,) + (slice(1, -1),) * ndim
+        agg_of = weighted_moore_agg if ndim == 2 else weighted_moore_agg3
+        weights = self.weights2d if ndim == 2 else self.weights3d
         cur = padded
         for _ in range(k):
             center = cur[crop]
-            agg = weighted_moore_agg(cur, self.weights2d, self.agg_dtype)
+            agg = agg_of(cur, weights, self.agg_dtype)
             if halo_mask is not None:
                 halo_mask = halo_mask[crop]
             cur = self.apply(center, agg, halo_mask)
@@ -242,5 +279,38 @@ def weighted_moore_agg(padded, weights, agg_dtype):
         if wt == 0:
             continue
         sl = padded[..., 1 + dy:h + 1 + dy, 1 + dx:w + 1 + dx]
+        agg = agg + _scaled(sl.to(agg_dtype), wt, agg_dtype)
+    return agg
+
+
+def weighted_moore_agg3(padded, weights, agg_dtype):
+    """Weighted 26-neighbor aggregate from a (+1)-padded 3D tensor: (...,
+    D+2, H+2, W+2) -> (..., D, H, W); leading axes broadcast through.
+
+    A uniform nonzero weight set (the totalistic rules) takes the separable
+    path, in the reference's order: the z pass, then the y pass over the
+    padded x extent, then the x pass, minus the center, then the weight.
+    Every other set (HEAT3D's 6-point Laplacian) sums the nonzero
+    directions in MOORE3_DIRS order from zero.
+    """
+    d, h, w = (padded.shape[-3] - 2, padded.shape[-2] - 2,
+               padded.shape[-1] - 2)
+    uniq = set(weights)
+    if len(uniq) == 1 and 0 not in uniq:
+        x = padded.to(agg_dtype)
+        slabs = x[..., 0:d, :, :] + x[..., 1:d + 1, :, :] \
+            + x[..., 2:d + 2, :, :]
+        rows = slabs[..., 0:h, :] + slabs[..., 1:h + 1, :] \
+            + slabs[..., 2:h + 2, :]
+        sum27 = rows[..., 0:w] + rows[..., 1:w + 1] + rows[..., 2:w + 2]
+        return _scaled(sum27 - x[..., 1:d + 1, 1:h + 1, 1:w + 1],
+                       uniq.pop(), agg_dtype)
+    agg = torch.zeros(padded.shape[:-3] + (d, h, w), dtype=agg_dtype,
+                      device=padded.device)
+    for (dx, dy, dz), wt in zip(MOORE3_DIRS, weights):
+        if wt == 0:
+            continue
+        sl = padded[..., 1 + dz:d + 1 + dz, 1 + dy:h + 1 + dy,
+                    1 + dx:w + 1 + dx]
         agg = agg + _scaled(sl.to(agg_dtype), wt, agg_dtype)
     return agg

@@ -1,14 +1,17 @@
-"""Concrete 2D stencil workloads.
+"""Concrete stencil workloads.
 
-  * ``TotalisticCA``  -- outer-totalistic CA with born/survive count sets;
-                        ``LIFE`` (B3/S23), ``HIGHLIFE`` (B36/S23), ``SEEDS``.
+  * ``TotalisticCA``  -- outer-totalistic CA with born/survive count sets,
+                        over the Moore neighborhood of any dimension;
+                        ``LIFE`` (B3/S23), ``HIGHLIFE`` (B36/S23), ``SEEDS``,
+                        and ``LIFE3D`` (B6/S5-7) for the 3D engines.
   * ``HeatDiffusion`` -- float32 Jacobi iteration of the heat equation with
-                        Dirichlet-0 holes (orthogonal Laplacian).
+                        Dirichlet-0 holes (orthogonal Laplacian); ``HEAT``
+                        in 2D, ``HEAT3D`` (degree 6) in 3D.
   * ``GrayScott``     -- 2-channel float32 Gray-Scott reaction-diffusion
                         (normalized 9-point Laplacian).
 
 Each rule exports the plain parameters its CUDA kernel takes
-(``kernel_params``): the born/survive sets as 9-bit masks, ``alpha`` and
+(``kernel_params``): the born/survive sets as 27-bit masks, ``alpha`` and
 ``degree`` for Heat, ``du``, ``dv``, ``feed`` and ``kill`` for Gray-Scott,
 and the ring weights of ``weights3x3``. Frozen dataclasses: hashable, so a
 workload keys the runner's engine cache.
@@ -30,11 +33,15 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+#: the largest Moore neighbor count: 26 in 3D (8 in 2D)
+MAX_COUNT = 26
+
+
 def count_mask(counts: FrozenSet[int]) -> int:
-    """A neighbor-count set as a 9-bit mask (bit c set iff c in counts)."""
-    if any(not 0 <= c <= 8 for c in counts):
-        raise ValueError(f"Moore neighbor counts lie in [0, 8], got "
-                         f"{sorted(counts)}")
+    """A neighbor-count set as a 27-bit mask (bit c set iff c in counts)."""
+    if any(not 0 <= c <= MAX_COUNT for c in counts):
+        raise ValueError(f"Moore neighbor counts lie in [0, {MAX_COUNT}], "
+                         f"got {sorted(counts)}")
     return sum(1 << c for c in counts)
 
 
@@ -46,8 +53,6 @@ class TotalisticCA(StencilWorkload):
     name: str = "life"
     born: FrozenSet[int] = frozenset({3})
     survive: FrozenSet[int] = frozenset({2, 3})
-
-    ndim = 2
 
     @property
     def born_mask(self) -> int:
@@ -162,14 +167,22 @@ SEEDS = TotalisticCA(name="seeds", born=frozenset({2}),
                      survive=frozenset())
 HEAT = HeatDiffusion()
 GRAY_SCOTT = GrayScott()
+LIFE3D = TotalisticCA(name="life3d", born=frozenset({6}),
+                      survive=frozenset({5, 6, 7}))
+HEAT3D = HeatDiffusion(name="heat3d", alpha=0.125, degree=6)
 
-#: name -> workload registry
+#: name -> workload registry of the 2D engines
 WORKLOADS = {w.name: w for w in (LIFE, HIGHLIFE, SEEDS, HEAT, GRAY_SCOTT)}
+
+#: name -> the 3D-only workloads (the 3D engines also take the totalistic
+#: rules of ``WORKLOADS``)
+WORKLOADS3D = {w.name: w for w in (LIFE3D, HEAT3D)}
 
 
 def get_workload(name: str) -> StencilWorkload:
-    try:
-        return WORKLOADS[name]
-    except KeyError:
+    """The registry workload of this name, 2D or 3D."""
+    wl = WORKLOADS.get(name) or WORKLOADS3D.get(name)
+    if wl is None:
         raise KeyError(f"unknown workload {name!r}; "
-                       f"have {sorted(WORKLOADS)}") from None
+                       f"have {sorted(WORKLOADS) + sorted(WORKLOADS3D)}")
+    return wl

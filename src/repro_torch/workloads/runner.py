@@ -7,8 +7,14 @@ set of static configurations.
   * ``run`` takes floor(steps/k) fused k-step launches plus a steps % k
     single-step remainder over a leading batch axis: 'cuda-mxu' steps the
     batch natively through the v5 kernel's (B, n_macro) grid, the other
-    kernel kinds through the v1-v4 kernels' written-out batch grid axis; the
-    plain kinds step each simulation in turn.
+    kernel kinds (the 3D ones too) through their kernels' batch grid axis;
+    the plain kinds step each simulation in turn.
+
+The runner is dimension-agnostic: the 3D kinds ('bb3d', 'cell3d',
+'block3d', 'cuda-3d', 'cuda-3d-mxu') take states with 3D trailing axes --
+(B, nz, ny, nx) cell states, (B, n_blocks, rho, rho, rho) block states,
+(B, n, n, n) BB states -- and their fusion depth is part of the cache key,
+as in 2D.
 
 Every public method takes an ``EngineSpec`` first -- ``run(spec, states,
 steps)`` -- or the argument list ``run(kind, frac, r, states, steps, ...)``.
@@ -30,10 +36,11 @@ from repro_torch.workloads.rules import LIFE
 
 
 def _steps_batches(engine) -> bool:
-    """True for the kernel engines, which step a leading batch axis in one
-    launch; the plain engines step one simulation at a time."""
+    """True for the kernel engines (2D and 3D), which step a leading batch
+    axis in one launch; the plain engines step one simulation at a time."""
     from repro_torch.core.stencil import SqueezeKernelEngine
-    return isinstance(engine, SqueezeKernelEngine)
+    from repro_torch.core.stencil3d import Squeeze3DKernelEngine
+    return isinstance(engine, (SqueezeKernelEngine, Squeeze3DKernelEngine))
 
 
 @dataclasses.dataclass
@@ -147,3 +154,14 @@ class BatchedRunner:
         if _steps_batches(engine):
             return engine.run(states, int(steps))
         return torch.stack([engine.run(s, int(steps)) for s in states])
+
+    def to_expanded(self, kind, frac=None, r=None, states=None, m=0,
+                    workload=None) -> torch.Tensor:
+        """(B, C?, n, n) or (B, n, n, n) expanded embedding of B states.
+        Spec form: ``to_expanded(spec, states)``."""
+        if isinstance(kind, EngineSpec) and states is None:
+            states, frac = frac, None
+        engine = self._get(self._resolve(kind, frac, r, m, workload))
+        if not hasattr(engine, "to_expanded"):
+            return states  # BB and lambda states are already expanded
+        return torch.stack([engine.to_expanded(s) for s in states])

@@ -8,18 +8,24 @@ on a machine that has only the port's dependencies:
 
 CA results are bit-exact; floats agree to rtol=atol=1e-5 (v5 sums the
 banded products in another order than the plain aggregate); the lambda/nu
-maps are bit-exact.
+maps are bit-exact. The 3D kernels (cuda-3d, cuda-3d-mxu) are held the same
+way on the Menger sponge and the Sierpinski tetrahedron.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import fractals as tf
+from repro_torch.core import fractals3d as tf3
 from repro_torch.core.compact import BlockLayout
+from repro_torch.core.compact3d import BlockLayout3D
 from repro_torch.core.stencil import make_engine
 from repro_torch.kernels import lambda_map as lm
 from repro_torch.kernels import nu_map as nm
 from repro_torch.kernels import squeeze_stencil as sk
+from repro_torch.kernels import squeeze_stencil3d as k3
 from repro_torch.workloads import BatchedRunner
 from repro_torch.workloads import rules as trules
 
@@ -213,3 +219,101 @@ def test_cuda_new_wrappers_refuse_bad_inputs(cuda):
     cx, cy, valid = nm.nu_map_tc(tf.CARPET, 3, c[:0], c[:0])
     assert cx.shape == (0,) and valid.dtype == torch.bool
     assert sk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------- 3D
+WORKLOADS3D = ["life3d", "heat3d", "life"]
+CASES3D = [(tf3.MENGER, 3, 1), (tf3.SIERPINSKI3D, 6, 2), (tf3.MENGER, 4, 2)]
+
+
+def _state3(lay, wl, batch, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (batch, lay.n_blocks) + (lay.rho,) * 3
+    x = rng.integers(0, 2, shape).astype(np.uint8) \
+        if wl.dtype == torch.uint8 else rng.random(shape).astype(np.float32)
+    return torch.from_numpy(x * lay.micro_mask)
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS3D)
+def test_cuda_3d_kernels_match_plain(cuda, wl_name):
+    """Both 3D kernels, k in {1, 2, rho}, one simulation and a batch of 3,
+    two packings of the mxu kernel for k <= 2."""
+    wl = trules.get_workload(wl_name)
+    for frac, r, m in CASES3D:
+        lay = BlockLayout3D(frac, r, m)
+        x = _state3(lay, wl, 3).to(cuda)
+        for k in sorted({1, 2, lay.rho}):
+            for s in (x[0], x):
+                _close(k3.stencil3d_step_fused_k(lay, s, wl, k=k),
+                       k3.stencil3d_step_fused_k_plain(lay, s, wl, k=k), wl)
+                for p in ((None, 2) if k <= 2 else (None,)):
+                    _close(k3.stencil3d_step_mxu_k(lay, s, wl, k=k, p=p),
+                           k3.stencil3d_step_mxu_k_plain(lay, s, wl, k=k),
+                           wl)
+
+
+@pytest.mark.parametrize("wl_name", ["life3d", "heat3d"])
+@pytest.mark.parametrize("kind", ["cuda-3d", "cuda-3d-mxu"])
+def test_cuda_3d_engine_run_matches_cpu(cuda, kind, wl_name):
+    """run(7) on the card equals the CPU path, floor(7/k) + 7 % k launches
+    of the kind's kernel and none of the other."""
+    wl = trules.get_workload(wl_name)
+    on_card = make_engine(kind, tf3.MENGER, 4, 2, workload=wl)
+    on_cpu = make_engine(kind, tf3.MENGER, 4, 2, workload=wl, device="cpu")
+    x = on_cpu.init_random(seed=1)
+    k3.reset_launches()
+    got = on_card.run(x.to(cuda), 7)
+    _close(got, on_cpu.run(x, 7), wl)
+    k = on_card.effective_fusion_k
+    name = "stencil3d_step_mxu_k" if kind.endswith("mxu") else \
+        "stencil3d_step_fused_k"
+    other = "stencil3d_step_fused_k" if kind.endswith("mxu") else \
+        "stencil3d_step_mxu_k"
+    assert (k3.LAUNCHES[name], k3.LAUNCHES[other]) == (7 // k + 7 % k, 0)
+
+
+@pytest.mark.parametrize("kind", ["bb3d", "cell3d", "block3d"])
+def test_cuda_3d_plain_engines_match_cpu(cuda, kind):
+    """The plain 3D engines default to the card and equal the CPU path."""
+    wl = trules.LIFE3D
+    on_card = make_engine(kind, tf3.MENGER, 3, 1, workload=wl)
+    on_cpu = make_engine(kind, tf3.MENGER, 3, 1, workload=wl, device="cpu")
+    x = on_cpu.init_random(seed=2)
+    _close(on_card.run(x.to(cuda), 4), on_cpu.run(x, 4), wl)
+
+
+@pytest.mark.parametrize("kind", ["cuda-3d", "cuda-3d-mxu"])
+def test_cuda_3d_runner_batch_matches_cpu(cuda, kind):
+    wl = trules.HEAT3D
+    states = _state3(BlockLayout3D(tf3.MENGER, 3, 1), wl, 3)
+    got = BatchedRunner().run(kind, tf3.MENGER, 3, states.to(cuda), 5, m=1,
+                              workload=wl)
+    want = BatchedRunner(device="cpu").run(kind, tf3.MENGER, 3, states, 5,
+                                           m=1, workload=wl)
+    _close(got, want, wl)
+
+
+def test_cuda_3d_wrappers_refuse_bad_inputs(cuda):
+    """An over-limit window, k > rho, a wrong dtype, a strided state and
+    an aliased output raise on the card; nothing falls back to the plain
+    version and nothing is counted."""
+    lay = BlockLayout3D(tf3.MENGER, 4, 2)
+    x = _state3(lay, trules.LIFE3D, 1)[0].to(cuda)
+    big = BlockLayout3D(tf3.MENGER, 3, 3)  # rho = 27, one block
+    hot = torch.zeros((1, 27, 27, 27), dtype=torch.float32, device=cuda)
+    before = dict(k3.LAUNCHES)
+    for kernel in ("fused", "mxu"):
+        fn = getattr(k3, f"stencil3d_step_{kernel}_k")
+        with mock.patch.object(k3, f"stencil3d_step_{kernel}_k_plain",
+                               side_effect=AssertionError("fell back")):
+            with pytest.raises(ValueError, match="shared memory"):
+                fn(big, hot, trules.HEAT3D, k=2)
+            with pytest.raises(ValueError, match="k <= rho"):
+                fn(lay, x, trules.LIFE3D, k=10)
+            with pytest.raises(TypeError):
+                fn(lay, x.float(), trules.LIFE3D, k=1)
+            with pytest.raises(ValueError, match="contiguous"):
+                fn(lay, x.transpose(-1, -2), trules.LIFE3D, k=1)
+            with pytest.raises(ValueError, match="alias"):
+                fn(lay, x, trules.LIFE3D, k=1, out=x)
+    assert k3.LAUNCHES == before

@@ -47,6 +47,11 @@ for kind in ("cuda-fused", "cuda-mxu", "cuda", "cuda-blocks", "block",
                       workload=GRAY_SCOTT, device="cpu")
     s = eng.run(eng.init_random(0), 3)
     assert torch.isfinite(s).all()
+from repro_torch.core import MENGER
+from repro_torch.workloads import HEAT3D
+for kind in ("cuda-3d", "cuda-3d-mxu", "block3d", "cell3d", "bb3d"):
+    eng = make_engine(kind, MENGER, 2, 1, workload=HEAT3D, device="cpu")
+    assert torch.isfinite(eng.run(eng.init_random(0), 3)).all()
 runner = BatchedRunner(device="cpu")
 states = runner.init_batch("cuda-mxu", SIERPINSKI, 4, [0, 1], m=2)
 assert runner.run("cuda-mxu", SIERPINSKI, 4, states, 5, m=2).shape == \\

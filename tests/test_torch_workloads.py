@@ -118,7 +118,7 @@ def test_kernel_params():
     assert trules.GRAY_SCOTT.ring_weights == (0.05, 0.2)
     assert trules.HEAT.ring_weights == (0, 1)
     with pytest.raises(ValueError):
-        trules.TotalisticCA(name="x", born=frozenset({9})).born_mask
+        trules.TotalisticCA(name="x", born=frozenset({27})).born_mask
 
 
 def test_state_round_trip():
