@@ -59,7 +59,29 @@ jax or the reference package). Phases, each printing one JSON line:
      per step, speedup and memory;
  10. both 3D kernels at the main path's shapes (LIFE3D and HEAT3D), with
      their plain versions' times and bounds; their rows join the
-     ``kernels`` line.
+     ``kernels`` line;
+ 11. the shard-local kernels (kernels 6 and 7: v4 and v5 over one shard's
+     blocks from halo pieces and an existence table) against their plain
+     versions on the card, on every call the distributed engine makes:
+     phase 3's shapes sharded over 1, 3 and 8 shards (all on cuda:0), both
+     exchanges, k in {1, 2, rho}, B=1 and 3, two packings for v5, LIFE,
+     HIGHLIFE, HEAT and GRAY_SCOTT; each run's result also against the
+     single-device cuda-fused or cuda-mxu engine;
+ 12. the distributed main path at the paper's size, sierpinski r=16 (4
+     shards, all on cuda:0 on one card), each timed run after a warm-up:
+     ``make_engine('dist-fused')`` LIFE and GRAY_SCOTT with the p2p
+     exchange and LIFE with the gather exchange for 63 steps,
+     ``BatchedRunner.run`` with
+     dist-mxu LIFE (B=4, 64 steps) and dist-block LIFE for 4 steps, each
+     against the single-device run of its kind (cuda-fused, cuda-mxu or
+     plain block) on the same state, with ms per step beside that run's,
+     the launch counts (two per shard for a p2p launch, one for a gather
+     launch), the exchange accounting against the byte model, the kernels'
+     share of a launch on CUDA events, the decomposition's build seconds
+     and the wire bytes per device for 2, 4 and 8 shards;
+ 13. kernels 6 and 7 at phase 12's per-shard shapes (LIFE, k=2, B=4 for
+     v5), with their plain versions' times and bounds; their rows join the
+     ``kernels`` line (eleven rows).
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -67,6 +89,7 @@ without a CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -98,7 +121,18 @@ KERNELS = {
     "stencil3d_step_fused_k": (_STENCIL3D,
                                _TPU + "squeeze_stencil3d.py:136"),
     "stencil3d_step_mxu_k": (_STENCIL3D, _TPU + "squeeze_stencil3d.py:298"),
+    "stencil_step_fused_k_local": (_STENCIL,
+                                   _TPU + "squeeze_stencil.py:744"),
+    "stencil_step_mxu_k_local": (_STENCIL, _TPU + "squeeze_stencil.py:780"),
 }
+#: the shard-local kernels (6 and 7), each checked against its plain version
+LOCAL = ("stencil_step_fused_k_local", "stencil_step_mxu_k_local")
+#: (fractal, r, m) of the shard-local kernel checks (phase 3's shapes)
+DIST_CHECK = [("sierpinski", 13, 2), ("carpet", 7, 1), ("vicsek", 9, 1)]
+#: the distributed main path: sierpinski r=16 m=2 over 4 shards (round the
+#: visible cards: all on cuda:0 on one card)
+DIST_MAIN = ("sierpinski", 16, 2)
+DIST_SHARDS = 4
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -483,6 +517,347 @@ def phase_3d_timing(torch, chk, R, lay, k, launches, k3):
     return rows
 
 
+@contextlib.contextmanager
+def checked_local_kernels(chk, sk, what, errs):
+    """Every call of kernels 6 and 7 inside the block is held against its
+    plain version on the same inputs; the largest error per kernel goes to
+    ``errs``."""
+    orig = {name: getattr(sk, name) for name in LOCAL}
+
+    def wrap(name):
+        fn, plain = orig[name], getattr(sk, name + "_plain")
+
+        def call(layout, s, halo, existence, wl, **kw):
+            want = plain(layout, s, halo, existence, wl, k=kw["k"])
+            got = fn(layout, s, halo, existence, wl, **kw)
+            err = chk.check(f"{what}/{name}", name, got, want,
+                            str(wl.dtype) == "torch.uint8")
+            errs[name] = max(errs.get(name, 0.0), err)
+            return got
+        return call
+    for name in LOCAL:
+        setattr(sk, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(sk, name, fn)
+
+
+def phase_dist_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk,
+                                make_engine, make_distributed_engine):
+    """Kernels 6 and 7 on every call of the distributed engine, at phase
+    3's shapes sharded 1, 3 and 8 ways on cuda:0."""
+    for name, r, m in DIST_CHECK:
+        frac = F.REGISTRY[name]
+        lay = BlockLayout(frac, r, m)
+        for wl in (R.LIFE, R.HIGHLIFE, R.HEAT, R.GRAY_SCOTT):
+            t0 = time.perf_counter()
+            exact = wl.dtype == torch.uint8
+            errs, runs = {}, []
+            single = {kind: make_engine(kind, frac, r, m, workload=wl)
+                      for kind in ("cuda-fused", "cuda-mxu")}
+            x1 = single["cuda-fused"].init_random(21)
+            x3 = torch.stack([single["cuda-fused"].init_random(22 + i)
+                              for i in range(3)])
+            for ns in (1, 3, 8):
+                # ns=3 runs k=rho then one k=1 launch, the others k=2 and
+                # one k=1; ns=8 steps a batch of 3
+                k = lay.rho if ns == 3 else 2
+                x = x3 if ns == 8 else x1
+                for exchange in ("p2p", "gather"):
+                    for compute in ("fused", "mxu"):
+                        p = 7 if compute == "mxu" and exchange == "gather" \
+                            else None
+                        eng = make_distributed_engine(
+                            lay, n_shards=ns, device="cuda:0", workload=wl,
+                            compute=compute, fusion_k=k, exchange=exchange,
+                            macro_p=p)
+                        label = f"ns{ns}/{exchange}/{compute}/k{k}/" \
+                            f"b{3 if ns == 8 else 1}/p{p}"
+                        with checked_local_kernels(
+                                chk, sk, f"dist/{frac.name}/{wl.name}/"
+                                f"{label}", errs):
+                            got = eng.to_dense(eng.run(eng.from_dense(x),
+                                                       k + 1))
+                        want = single[f"cuda-{compute}"].run(x, k + 1)
+                        runs.append(label)
+                        chk.check(f"dist/{frac.name}/{wl.name}/{label}/"
+                                  "engine", None, got, want, exact)
+            torch.cuda.synchronize()
+            emit("dist_kernel_vs_plain", fractal=frac.name, r=r, m=m,
+                 compact_cells=frac.volume(r), workload=wl.name,
+                 tolerance="exact" if exact else FLOAT_TOL, runs=len(runs),
+                 max_err=errs, seconds=time.perf_counter() - t0)
+
+
+def _cuda_events_around(torch, sk, spans):
+    """Wrap kernels 6 and 7 so each call records a CUDA event pair into
+    ``spans``; returns the restore function."""
+    orig = {name: getattr(sk, name) for name in LOCAL}
+
+    def wrap(fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans.append((start, end))
+            return out
+        return call
+    for name, fn in orig.items():
+        setattr(sk, name, wrap(fn))
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(sk, name, fn)
+    return restore
+
+
+def phase_dist_main(torch, chk, F, R, sk, make_engine, shared_layout,
+                    default_fusion_k, BatchedRunner, EngineSpec,
+                    make_distributed_engine):
+    """The distributed main path at r=16 over 4 shards (all on cuda:0 on
+    one card); returns its launch counts, the layout and the engines (for
+    phase 13)."""
+    name, r, m = DIST_MAIN
+    frac, ns = F.REGISTRY[name], DIST_SHARDS
+    lay = shared_layout(frac, r, m)
+    k = default_fusion_k(lay.rho)
+    t0 = time.perf_counter()
+    decomp = lay.strip_decomposition(ns)
+    decomp_seconds = time.perf_counter() - t0
+    wire = {}
+    for n in (2, 4, 8):
+        t = time.perf_counter()
+        lay.strip_decomposition(n)
+        wire[n] = {ex: make_distributed_engine(
+            lay, n_shards=n, device="cuda:0", compute="fused",
+            exchange=ex).wire_bytes_per_device(k)
+            for ex in ("p2p", "gather")}
+        wire[n]["decomposition_seconds"] = time.perf_counter() - t
+    emit("dist_layout", fractal=frac.name, r=r, m=m, n_blocks=lay.n_blocks,
+         n_shards=ns, decomposition_seconds=decomp_seconds,
+         nb_local=decomp.nb_local, ms_prev=decomp.ms_prev,
+         ms_next=decomp.ms_next, n_boundary=decomp.n_boundary.tolist(),
+         wire_bytes_per_device_life_k2=wire)
+
+    def dist(kind, wl, exchange="auto"):
+        return make_engine(kind, frac, r, m, workload=wl, n_shards=ns,
+                           exchange=exchange)
+    engines = {
+        "dist-fused life p2p": dist("dist-fused", R.LIFE, "p2p"),
+        "dist-fused gray-scott p2p": dist("dist-fused", R.GRAY_SCOTT, "p2p"),
+        "dist-fused life gather": dist("dist-fused", R.LIFE, "gather"),
+        "dist-block life": dist("dist-block", R.LIFE),
+    }
+    singles = {
+        "dist-fused life p2p": make_engine("cuda-fused", frac, r, m,
+                                           workload=R.LIFE),
+        "dist-fused gray-scott p2p": make_engine(
+            "cuda-fused", frac, r, m, workload=R.GRAY_SCOTT),
+        "dist-block life": make_engine("block", frac, r, m, workload=R.LIFE,
+                                       fusion_k=k),
+    }
+    singles["dist-fused life gather"] = singles["dist-fused life p2p"]
+    steps = {"dist-fused life p2p": 63, "dist-fused gray-scott p2p": 63,
+             "dist-fused life gather": 63, "dist-block life": 4}
+    dense0 = {label: singles[label].init_random(60 + i)
+              for i, label in enumerate(engines)}
+    init = {label: e.from_dense(dense0[label]) for label, e in
+            engines.items()}
+    runner = BatchedRunner()
+    mxu_spec = EngineSpec.from_args("dist-mxu", frac, r, m, R.LIFE,
+                                    n_shards=ns)
+    mxu_states = runner.init_batch(mxu_spec, [64, 65, 66, 67])
+    mxu_eng = runner.engine_for(mxu_spec)
+    timed = [(label, lambda e=e, label=label: e.run(init[label],
+                                                    steps[label]),
+              steps[label], 1) for label, e in engines.items()]
+    timed.append(("runner dist-mxu life", lambda: runner.run(
+        mxu_spec, mxu_states, 64), 64, 4))
+    t = time.perf_counter()
+    for _, fn, _, _ in timed:   # warm-up: tables, buffers, the build
+        fn()
+    torch.cuda.synchronize()
+    warmup_seconds = time.perf_counter() - t
+    for e in list(engines.values()) + [mxu_eng]:
+        e.reset_exchange_stats()
+
+    sk.reset_launches()
+    runs, outs = [], {}
+    for label, fn, n, b in timed:
+        t = time.perf_counter()
+        outs[label] = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        runs.append(dict(run=label, steps=n, batch=b, seconds=sec,
+                         ms_per_step=1e3 * sec / n,
+                         cells_per_s=b * frac.volume(r) * n / sec))
+    launches = dict(sk.LAUNCHES)
+    per_run = 63 // k + (63 % k > 0)
+    expect = dict.fromkeys(launches, 0)
+    expect["stencil_step_fused_k_local"] = ns * (2 * per_run * 2
+                                                 + per_run)
+    expect["stencil_step_mxu_k_local"] = ns * 2 * (64 // k)
+    if launches != expect:
+        raise AssertionError(f"dist launches {launches}, expected {expect}")
+
+    # exchange accounting against the byte model of the decomposition
+    stats = {}
+    for label, e in list(engines.items()) + [("runner dist-mxu life",
+                                              mxu_eng)]:
+        st, n = e.exchange_stats(), steps.get(label, 64)
+        b = 4 if e is mxu_eng else 1
+        depths = [k] * (n // k) + ([n % k] if n % k else [])
+        item = 4 if e.workload.dtype == torch.float32 else 1
+        lanes = b * e.workload.n_channels
+        if e.exchange_mode == "p2p":
+            d = e.decomp
+            want = dict(bytes_permuted=sum(
+                lanes * (d.ms_prev + d.ms_next) * (ns - 1) * 4 * dd
+                * lay.rho * item for dd in depths), bytes_gathered=0,
+                neighbor_sends=2 * (ns - 1) * len(depths))
+            want_t = dict(all_gather=0, permute=2 * len(depths),
+                          send=2 * (ns - 1) * len(depths))
+        else:
+            want = dict(bytes_gathered=sum(
+                lanes * e.nb_padded * 4 * dd * lay.rho * item
+                for dd in depths), bytes_permuted=0, neighbor_sends=0)
+            want_t = dict(all_gather=len(depths), permute=0, send=0)
+        got = {key: getattr(st, key) for key in want}
+        if got != want or st.collectives != len(depths) or \
+                st.steps != n or e.transfer_counts() != want_t:
+            raise AssertionError(f"{label}: exchange {st} "
+                                 f"{e.transfer_counts()}, expected {want} "
+                                 f"{want_t}")
+        stats[label] = dict(**got, collectives=st.collectives,
+                            transfers=e.transfer_counts())
+
+    # results against the single-device runs (each timed after an untimed
+    # run), dead cells zero
+    checks, ms_single = {}, {}
+
+    def single_run(label, fn, n):
+        want = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms_single[label] = 1e3 * (time.perf_counter() - t) / n
+        return want
+    for label, e in engines.items():
+        n = steps[label]
+        want = single_run(label, lambda: singles[label].run(dense0[label],
+                                                            n), n)
+        kernel = None if label.startswith("dist-block") \
+            else "stencil_step_fused_k_local"
+        checks[label] = chk.check(f"dist_main/{label}", kernel,
+                                  e.to_dense(outs[label]), want,
+                                  e.workload.dtype == torch.uint8)
+    dense4 = mxu_eng.to_dense(mxu_states)
+    want = single_run("runner dist-mxu life", lambda: runner.run(
+        "cuda-mxu", frac, r, dense4, 64, m=m, workload=R.LIFE), 64)
+    checks["runner dist-mxu life"] = chk.check(
+        "dist_main/runner", "stencil_step_mxu_k_local",
+        mxu_eng.to_dense(outs["runner dist-mxu life"]), want, True)
+    alive = int(mxu_eng.to_dense(outs["runner dist-mxu life"]).sum())
+    if alive == 0:
+        raise AssertionError("LIFE died out on the distributed main path")
+    for label, out in outs.items():
+        e = engines.get(label, mxu_eng)
+        dead = torch.from_numpy(e.dead_mask()).cuda()
+        native = torch.cat([o.to(dead.device) for o in out], dim=-3)
+        if float((native.double() * dead).abs().sum()):
+            raise AssertionError(f"{label}: a dead cell is nonzero")
+
+    # the kernels' share of a launch, CUDA events around each kernel call
+    # (with every shard on one card: events time one device's stream)
+    share = {}
+    one_card = len(set(mxu_eng.devices)) == 1
+    for label, fn in () if not one_card else (
+            ("dist-fused life p2p", lambda: engines[
+                "dist-fused life p2p"].run(init["dist-fused life p2p"], 16)),
+            ("dist-fused life gather", lambda: engines[
+                "dist-fused life gather"].run(
+                init["dist-fused life gather"], 16)),
+            ("runner dist-mxu life", lambda: runner.run(
+                mxu_spec, mxu_states, 16))):
+        spans = []
+        restore = _cuda_events_around(torch, sk, spans)
+        try:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        total = start.elapsed_time(end)
+        kern = sum(a.elapsed_time(b) for a, b in spans)
+        share[label] = dict(ms_per_step=total / 16,
+                            kernel_ms_per_step=kern / 16,
+                            exchange_and_assembly_share=1 - kern / total,
+                            kernel_launches=len(spans))
+    for row in runs:
+        row["single_device_ms_per_step"] = ms_single[row["run"]]
+    emit("dist_main_path", fractal=frac.name, r=r, m=m, n_shards=ns,
+         devices=[str(d) for d in mxu_eng.devices], fusion_k=k, runs=runs,
+         warmup_seconds=warmup_seconds, launches={
+             n: v for n, v in launches.items() if n in LOCAL},
+         expected_launches={n: v for n, v in expect.items() if n in LOCAL},
+         max_err_vs_single_device=checks, exchange=stats,
+         kernel_share=share, live_cells_after_64_steps=alive,
+         state_bytes={"life": lay.memory_bytes(1),
+                      "gray_scott": 2 * lay.memory_bytes(4)})
+    return launches, lay, engines["dist-fused life p2p"], mxu_eng, \
+        init["dist-fused life p2p"], mxu_states
+
+
+def phase_dist_timing(torch, chk, R, sk, lay, k, launches, fused_eng,
+                      mxu_eng, state1, states4):
+    """Kernels 6 and 7 at the per-shard shapes of the main path: shard 0's
+    whole-domain pass (interior-view table), LIFE, k=2; B=4 for v5.
+    Bounds: the state read and written once, the four pieces read once
+    and the existence table; about 12 operations a cell and substep."""
+    rows = []
+    for kname, eng, state in (
+            ("stencil_step_fused_k_local", fused_eng, state1),
+            ("stencil_step_mxu_k_local", mxu_eng, states4)):
+        s5, halo, ex = eng.local_inputs(state, k)
+        fn, plain = getattr(sk, kname), getattr(sk, kname + "_plain")
+        o = torch.empty_like(s5)
+        chk.check(f"timing/{kname}", kname, fn(lay, s5, halo, ex, R.LIFE,
+                                               k=k),
+                  plain(lay, s5, halo, ex, R.LIFE, k=k), True)
+        nbytes = 2 * s5.numel() * s5.element_size() + sum(
+            h.numel() * h.element_size() for h in halo) + ex.numel() * 4
+        ops_n = 12 * k * s5.numel()
+        ms = cuda_ms(torch, lambda: fn(lay, s5, halo, ex, R.LIFE, k=k,
+                                       out=o), 20)
+        plain_ms = cuda_ms(torch, lambda: plain(lay, s5, halo, ex, R.LIFE,
+                                                k=k), 3)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops_n / F32_FLOPS
+        p = lay.macro_tiles_for(s5.shape[2], k)[0] if "mxu" in kname \
+            else None
+        emit("kernel_timing", name=kname, shape=list(s5.shape),
+             workload="life", k=k, p=p, ms=ms, plain_ms=plain_ms,
+             bytes=nbytes, bytes_ms=bytes_ms, ops=ops_n, ops_ms=ops_ms)
+        source, replaces = KERNELS[kname]
+        rows.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=launches[kname], max_abs_err=chk.max_err[kname], ms=ms,
+            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=None))
+        del halo, o
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -498,6 +873,7 @@ def main() -> int:
     from repro_torch.core import compact3d as c3
     from repro_torch.core.compact import (BlockLayout, compact_meshgrid,
                                           expanded_to_compact, shared_layout)
+    from repro_torch.core.distributed import make_distributed_engine
     from repro_torch.core.stencil import default_fusion_k, make_engine
     from repro_torch.kernels import build
     from repro_torch.kernels import lambda_map as lm
@@ -507,7 +883,12 @@ def main() -> int:
     from repro_torch.workloads.base import halo_needs
     from repro_torch.workloads import BatchedRunner
     from repro_torch.workloads import rules as R
+    from repro_torch.tuning.spec import EngineSpec
 
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     card = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -525,8 +906,9 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for n, v in built.items()})
 
-    # 3. kernels against plain ------------------------------------------
     chk = Checker(torch)
+
+    # 3. kernels against plain ------------------------------------------
     phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk)
     phase_maps_vs_plain(torch, chk, F, nm, lm)
 
@@ -607,7 +989,9 @@ def main() -> int:
               "stencil_step_strips": 63 % k + 16 * 2,
               "stencil_step_blocks": 16 * 2,
               "lambda_map_tc": 1, "nu_map_tc": 8,
-              "stencil3d_step_fused_k": 0, "stencil3d_step_mxu_k": 0}
+              "stencil3d_step_fused_k": 0, "stencil3d_step_mxu_k": 0,
+              "stencil_step_fused_k_local": 0,
+              "stencil_step_mxu_k_local": 0}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -827,6 +1211,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_3d_timing(torch, chk, R, lay3, default_fusion_k(lay3.rho),
                             launches3, k3)
+    del lay3, engines3
+    torch.cuda.empty_cache()
+
+    # 11-13. the distributed slice -----------------------------------------
+    phase_dist_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk,
+                                make_engine, make_distributed_engine)
+    torch.cuda.empty_cache()
+    launches_d, lay_d, fused_d, mxu_d, state1, states4 = phase_dist_main(
+        torch, chk, F, R, sk, make_engine, shared_layout, default_fusion_k,
+        BatchedRunner, EngineSpec, make_distributed_engine)
+    torch.cuda.empty_cache()
+    rows += phase_dist_timing(torch, chk, R, sk, lay_d,
+                              default_fusion_k(lay_d.rho), launches_d,
+                              fused_d, mxu_d, state1, states4)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,6 +12,9 @@ Sections 3.2-3.5).
     v2 or v3, ``step_k`` v4; kinds ``cuda-blocks``, ``cuda-strips`` (alias
     ``cuda``) and ``cuda-fused``) or ``mxu`` (v5 for both and for native
     batches; kind ``cuda-mxu``).
+  * the kinds ``dist-block``, ``dist-fused`` and ``dist-mxu`` --
+    ``core/distributed.py``: the block axis sharded over several devices,
+    with the strip halo exchange and the shard-local v4 and v5 kernels.
 
 Every engine takes a ``StencilWorkload``; multi-channel workloads carry a
 leading channel axis (cell state (C, rows, cols), block state (C,
@@ -276,10 +279,16 @@ class SqueezeKernelEngine(_KernelEngine):
                                            p=self.macro_p, out=out)
 
 
+#: dist kind -> the distributed engine's shard-local compute
+_DIST_COMPUTE = {"dist-block": "jnp", "dist-fused": "fused",
+                 "dist-mxu": "mxu"}
+
+
 def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
                 workload: Optional[StencilWorkload] = None,
                 fusion_k: Optional[int] = None,
-                macro_p: Optional[int] = None, device=None):
+                macro_p: Optional[int] = None, device=None,
+                exchange: str = "auto", n_shards: Optional[int] = None):
     """Engine factory: ``make_engine(spec)`` with an ``EngineSpec``, or
     ``make_engine(kind, frac, r, m=..., workload=...)``.
 
@@ -289,7 +298,10 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
     in 3D, with an ``NBBFractal3D`` and a single-channel 3D workload
     (LIFE3D, HEAT3D, or a totalistic rule): 'bb3d' | 'cell3d' | 'block3d'
     | 'cuda-3d' (the fused 3D kernel) | 'cuda-3d-mxu' (the z-slab banded
-    3D kernel).
+    3D kernel); 'dist-block' | 'dist-fused' | 'dist-mxu', the distributed
+    engine (``core/distributed.py``) over ``n_shards`` shards placed by
+    ``shard_devices`` (default one per visible card; on the CPU pass
+    ``n_shards``), with ``exchange`` 'auto' | 'p2p' | 'gather'.
     The spec is normalized first (alias rewritten, fusion depth and MXU
     packing resolved, explicit > heuristic). ``frac``/``workload``
     objects may be passed with a spec to supply custom ones. ``device=None`` means the card, and raises
@@ -302,8 +314,18 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
             raise TypeError("make_engine(kind, frac, r, ...) needs a fractal "
                             "and r")
         spec = EngineSpec.from_args(kind, frac, r, m, workload, fusion_k,
-                                    macro_p)
+                                    macro_p, exchange, n_shards)
     norm = spec.normalize()
+    if norm.is_dist:
+        from repro_torch.core.distributed import make_distributed_engine
+        return make_distributed_engine(
+            shared_layout(frac if frac is not None else norm.build_frac(),
+                          norm.r, norm.m),
+            n_shards=norm.n_shards, device=device,
+            workload=workload if workload is not None
+            else norm.build_workload(),
+            compute=_DIST_COMPUTE[norm.kind], fusion_k=norm.fusion_k,
+            exchange=norm.exchange, macro_p=norm.macro_p)
     dev = str(resolve_device(device))
     frac = frac if frac is not None else norm.build_frac()
     workload = workload if workload is not None else norm.build_workload()

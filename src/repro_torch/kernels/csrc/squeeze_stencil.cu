@@ -6,6 +6,10 @@
 //   * stencil_step_fused        (v3, _fused_kernel)    -> sq_stencil_step_fused
 //   * stencil_step_fused_k      (v4, _fused_k_kernel)  -> sq_stencil_step_fused_k
 //   * stencil_step_mxu_batched  (v5, _mxu_kernel)      -> sq_stencil_step_mxu
+//   * stencil_step_fused_k_local (v4 on one shard)     ->
+//                                               sq_stencil_step_fused_k_local
+//   * stencil_step_mxu_k_local   (v5 on one shard)     ->
+//                                                 sq_stencil_step_mxu_k_local
 //
 // State layout: (B, C, nb, rho, rho), contiguous; u8 for the totalistic CA
 // rules (int aggregate), f32 for Heat and Gray-Scott. nb is the number of
@@ -46,6 +50,15 @@
 // whole window at every substep, so each thread owns one slot cell (its
 // index arithmetic runs once per launch) and keeps the cell's aggregate in
 // registers; the v3/v4 kernel loops instead, which measured faster there.
+//
+// The two shard-local entries of the distributed engine run the same v4 and
+// v5 kernels on one shard's blocks. Their halo comes as four pieces
+// assembled before the launch from the exchanged edge strips (top/bottom
+// (B, C, nbl, k, rho+2k) rows with the corners, west/east (B, C, nbl, rho,
+// k) columns), and an (nbl, 8) int32 existence table takes the neighbor
+// table's place: each halo region of window_mask(k) is gated by its row.
+// A window reads its pieces whatever the existence says, as the reference
+// assembles its padded tile (kPieces staging).
 //
 // Compiled with -fmad=false so v1-v4 round each operation as the plain
 // PyTorch version does; v5 uses explicit fmaf.
@@ -229,7 +242,68 @@ __device__ void store_centers(const typename Rule::T* buf, const int* ids,
 // How a CTA fills its windows: v3/v4 read the depth-k windows straight
 // through the neighbor table, v1 stages the nine blocks whole, v2 reads the
 // pre-gathered strips (v1 and v2 take k == 1).
-enum Halo { kInKernel = 0, kWholeBlocks = 1, kStrips = 2 };
+// kPieces (the shard-local entries) reads the window from the center block
+// and four pre-assembled halo pieces, and the region existence from an
+// (nb, 8) table.
+enum Halo { kInKernel = 0, kWholeBlocks = 1, kStrips = 2, kPieces = 3 };
+
+// The halo pieces of the shard-local entries, (B, C, nb, ...) contiguous,
+// and the (nb, 8) int32 existence table.
+struct Pieces {
+  const void* top;   // (B, C, nb, k, rho+2k): window rows [0, k)
+  const void* bot;   // (B, C, nb, k, rho+2k): window rows [k+rho, w)
+  const void* west;  // (B, C, nb, rho, k): window columns [0, k)
+  const void* east;  // (B, C, nb, rho, k): window columns [k+rho, w)
+  const int* ex;
+};
+
+// The ids of `slots` blocks from blk0 as load_ids gives them, from an
+// existence table: self at d == 8, 0 for a neighbor that exists and the
+// ghost id nb for one that does not (only `id < nb` is read).
+__device__ void load_ex_ids(const int* __restrict__ ex, int* ids, int slots,
+                            long long blk0, long long nb) {
+  for (int t = threadIdx.x; t < slots * 9; t += blockDim.x) {
+    int g = t / 9, d = t - g * 9;
+    long long blk = blk0 + g;
+    int id = (int)nb;
+    if (blk < nb) id = d == 8 ? (int)blk : (ex[blk * 8 + d] ? 0 : (int)nb);
+    ids[t] = id;
+  }
+}
+
+// Window cell (y, x) of the block and channel row sc = (b * C + c) * nb +
+// blk: a halo piece in the frame, the center block inside.
+template <class T>
+__device__ __forceinline__ T piece_at(const T* __restrict__ src,
+                                      const Pieces& pc, long long sc, int y,
+                                      int x, int rho, int k) {
+  const int w = rho + 2 * k;
+  if (y < k) return static_cast<const T*>(pc.top)[sc * k * w + y * w + x];
+  if (y >= k + rho)
+    return static_cast<const T*>(pc.bot)[sc * k * w + (y - k - rho) * w + x];
+  if (x < k)
+    return static_cast<const T*>(pc.west)[sc * rho * k + (y - k) * k + x];
+  if (x >= k + rho)
+    return static_cast<const T*>(pc.east)[sc * rho * k + (y - k) * k +
+                                          (x - k - rho)];
+  return src[sc * rho * rho + (y - k) * rho + (x - k)];
+}
+
+// kPieces: `slots` depth-k windows (all channels) from the pieces.
+template <class Rule>
+__device__ void load_pieces(const typename Rule::T* __restrict__ src,
+                            const Pieces& pc, typename Rule::T* buf,
+                            int slots, long long blk0, long long nb, int b,
+                            int rho, int k) {
+  constexpr int C = Rule::C;
+  const int w = rho + 2 * k, ww = w * w;
+  for (int t = threadIdx.x; t < slots * ww; t += blockDim.x) {
+    int g = t / ww, cell = t - g * ww, y = cell / w, x = cell - y * w;
+    for (int c = 0; c < C; ++c)
+      buf[(g * C + c) * ww + cell] = piece_at(
+          src, pc, ((long long)b * C + c) * nb + blk0 + g, y, x, rho, k);
+  }
+}
 
 // v1: the center and its 8 Moore-neighbor blocks of each slot, whole, into
 // `nine` (slots, 9, C, rho^2), a ghost as a zero block; then each
@@ -292,15 +366,15 @@ __device__ void load_strips(const typename Rule::T* __restrict__ src,
 
 // v1-v4: grid (ceil(nb / G), B); G compact blocks per CTA; k substeps on a
 // shrinking window between two shared buffers. `mask` is window_mask(k)
-// for v3/v4 and micro_mask (rho, rho) for v1/v2, placed at the window's
-// center (k == 1 updates only the center).
+// for v3/v4 (and the shard-local v4) and micro_mask (rho, rho) for v1/v2,
+// placed at the window's center (k == 1 updates only the center).
 template <class Rule, int H>
 __global__ void __launch_bounds__(kThreads)
 step_kernel(const typename Rule::T* __restrict__ src,
             typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
             const typename Rule::T* __restrict__ strips,
             const uint8_t* __restrict__ mask, long long nb, int rho, int k,
-            int G, RuleArgs ra) {
+            int G, Pieces pc, RuleArgs ra) {
   using T = typename Rule::T;
   using A = typename Rule::A;
   constexpr int C = Rule::C;
@@ -317,9 +391,12 @@ step_kernel(const typename Rule::T* __restrict__ src,
   const long long blk0 = (long long)blockIdx.x * G;
   const int b = blockIdx.y;
   const int slots = (int)min((long long)G, nb - blk0);
-  if constexpr (H != kStrips) load_ids(nbr, ids, slots, blk0, nb);
+  if constexpr (H == kPieces)
+    load_ex_ids(pc.ex, ids, slots, blk0, nb);
+  else if constexpr (H != kStrips)
+    load_ids(nbr, ids, slots, blk0, nb);
   for (int t = threadIdx.x; t < ww; t += blockDim.x) {
-    if constexpr (H == kInKernel) {
+    if constexpr (H == kInKernel || H == kPieces) {
       wm[t] = mask[t];
     } else {
       int y = t / w - 1, x = t % w - 1;
@@ -332,6 +409,8 @@ step_kernel(const typename Rule::T* __restrict__ src,
     load_windows<Rule>(src, buf0, ids, slots, nb, b, rho, k);
   else if constexpr (H == kWholeBlocks)
     load_blocks<Rule>(src, nine, buf0, ids, slots, nb, b, rho);
+  else if constexpr (H == kPieces)
+    load_pieces<Rule>(src, pc, buf0, slots, blk0, nb, b, rho, k);
   else
     load_strips<Rule>(src, strips, buf0, slots, blk0, nb, b, rho);
   __syncthreads();
@@ -367,11 +446,11 @@ struct Cells {
   bool on[CPT];
 };
 
-template <class Rule, int CPT>
+template <class Rule, int CPT, int H>
 __device__ void stage(Cells<CPT>& cs, const typename Rule::T* __restrict__ src,
-                      typename Rule::T* buf, const int* ids,
+                      const Pieces& pc, typename Rule::T* buf, const int* ids,
                       const uint8_t* __restrict__ wmask, int slots,
-                      long long nb, int b, int rho, int k) {
+                      long long blk0, long long nb, int b, int rho, int k) {
   using T = typename Rule::T;
   constexpr int C = Rule::C;
   const int w = rho + 2 * k, ww = w * w;
@@ -391,9 +470,14 @@ __device__ void stage(Cells<CPT>& cs, const typename Rule::T* __restrict__ src,
     cs.m[i] = wmask[cell] * (d == 8 || id < nb);
     for (int c = 0; c < C; ++c) {
       T v = (T)0;
-      if (id < nb)
+      if constexpr (H == kPieces) {
+        if (blk0 + g < nb)
+          v = piece_at(src, pc, ((long long)b * C + c) * nb + blk0 + g, y,
+                       cs.x[i], rho, k);
+      } else if (id < nb) {
         v = src[((long long)b * C + c) * nb * cells + id * cells +
                 sy * rho + sx];
+      }
       buf[(g * C + c) * ww + cell] = v;
     }
   }
@@ -425,14 +509,16 @@ __device__ void store_cells(const Cells<CPT>& cs,
 // aggregate of the whole window as sum_t (R_t @ X) @ C_t^T in f32, kept in
 // registers, and updates the window in place. Slot borders pick up
 // truncated-band values ring by ring; the center sits at distance >= k
-// from them and is exact.
-template <class Rule, int CPT>
+// from them and is exact. H is kInKernel (windows read through the
+// neighbor table) or kPieces (the shard-local entry).
+template <class Rule, int CPT, int H>
 __global__ void __launch_bounds__(kMaxThreads)
 mxu_kernel(const typename Rule::T* __restrict__ src,
            typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
            const uint8_t* __restrict__ wmask,
            const float* __restrict__ rop, const float* __restrict__ cop,
-           int n_terms, long long nb, int rho, int k, int P, RuleArgs ra) {
+           int n_terms, long long nb, int rho, int k, int P, Pieces pc,
+           RuleArgs ra) {
   using T = typename Rule::T;
   using A = typename Rule::A;
   constexpr int C = Rule::C;
@@ -448,14 +534,17 @@ mxu_kernel(const typename Rule::T* __restrict__ src,
 
   const long long blk0 = (long long)blockIdx.x * P;
   const int b = blockIdx.y;
-  load_ids(nbr, ids, P, blk0, nb);
+  if constexpr (H == kPieces)
+    load_ex_ids(pc.ex, ids, P, blk0, nb);
+  else
+    load_ids(nbr, ids, P, blk0, nb);
   for (int t = threadIdx.x; t < n_terms * ww; t += blockDim.x) {
     rs[t] = rop[t];
     cs_op[t] = cop[t];
   }
   __syncthreads();
   Cells<CPT> cs;
-  stage<Rule, CPT>(cs, src, cur, ids, wmask, P, nb, b, rho, k);
+  stage<Rule, CPT, H>(cs, src, pc, cur, ids, wmask, P, blk0, nb, b, rho, k);
   __syncthreads();
 
   for (int j = 0; j < k; ++j) {
@@ -528,8 +617,8 @@ int set_smem(Kernel kernel, size_t smem) {
 
 template <class Rule, int H>
 int launch_step(const void* src, void* dst, const int* nbr,
-                const void* strips, const uint8_t* mask, long long nb,
-                int batch, int rho, int k, const RuleArgs& ra,
+                const void* strips, const uint8_t* mask, const Pieces& pc,
+                long long nb, int batch, int rho, int k, const RuleArgs& ra,
                 cudaStream_t stream) {
   using T = typename Rule::T;
   const int w = rho + 2 * k, ww = w * w;
@@ -547,7 +636,7 @@ int launch_step(const void* src, void* dst, const int* nbr,
   dim3 grid((unsigned)((nb + G - 1) / G), (unsigned)batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(src), static_cast<T*>(dst), nbr,
-      static_cast<const T*>(strips), mask, nb, rho, k, G, ra);
+      static_cast<const T*>(strips), mask, nb, rho, k, G, pc, ra);
   return (int)cudaGetLastError();
 }
 
@@ -560,11 +649,11 @@ int threads_for(long long cells, int* cpt) {
   return (int)threads;
 }
 
-template <class Rule, int CPT>
+template <class Rule, int CPT, int H>
 int launch_mxu_cpt(const void* src, void* dst, const int* nbr,
                    const uint8_t* wmask, const float* rop, const float* cop,
                    int n_terms, long long nb, int batch, int rho, int k,
-                   int P, int threads, const RuleArgs& ra,
+                   int P, int threads, const Pieces& pc, const RuleArgs& ra,
                    cudaStream_t stream) {
   using T = typename Rule::T;
   const int ww = (rho + 2 * k) * (rho + 2 * k);
@@ -572,59 +661,76 @@ int launch_mxu_cpt(const void* src, void* dst, const int* nbr,
                      ~(size_t)15;
   size_t smem = (size_t)(P * Rule::C + 2 * n_terms) * ww * sizeof(float) +
                 cur_bytes + (size_t)P * 9 * sizeof(int);
-  auto kernel = mxu_kernel<Rule, CPT>;
+  auto kernel = mxu_kernel<Rule, CPT, H>;
   int rc = set_smem(kernel, smem);
   if (rc) return rc;
   dim3 grid((unsigned)((nb + P - 1) / P), (unsigned)batch);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(src), static_cast<T*>(dst), nbr, wmask, rop, cop,
-      n_terms, nb, rho, k, P, ra);
+      n_terms, nb, rho, k, P, pc, ra);
   return (int)cudaGetLastError();
 }
 
-template <class Rule>
+template <class Rule, int H>
 int launch_mxu(const void* src, void* dst, const int* nbr,
                const uint8_t* wmask, const float* rop, const float* cop,
                int n_terms, long long nb, int batch, int rho, int k, int P,
-               const RuleArgs& ra, cudaStream_t stream) {
+               const Pieces& pc, const RuleArgs& ra, cudaStream_t stream) {
   const int ww = (rho + 2 * k) * (rho + 2 * k);
   int cpt;
   int threads = threads_for((long long)P * ww, &cpt);
+#define SQ_LAUNCH_MXU(CPT)                                                  \
+  launch_mxu_cpt<Rule, CPT, H>(src, dst, nbr, wmask, rop, cop, n_terms, nb, \
+                               batch, rho, k, P, threads, pc, ra, stream)
   switch (cpt) {
-    case 1: return launch_mxu_cpt<Rule, 1>(src, dst, nbr, wmask, rop, cop,
-                                           n_terms, nb, batch, rho, k, P,
-                                           threads, ra, stream);
-    case 2: return launch_mxu_cpt<Rule, 2>(src, dst, nbr, wmask, rop, cop,
-                                           n_terms, nb, batch, rho, k, P,
-                                           threads, ra, stream);
-    case 3: case 4:
-      return launch_mxu_cpt<Rule, 4>(src, dst, nbr, wmask, rop, cop, n_terms,
-                                     nb, batch, rho, k, P, threads, ra,
-                                     stream);
+    case 1: return SQ_LAUNCH_MXU(1);
+    case 2: return SQ_LAUNCH_MXU(2);
+    case 3: case 4: return SQ_LAUNCH_MXU(4);
     default:
-      if (cpt <= kMaxCellsPerThread)
-        return launch_mxu_cpt<Rule, kMaxCellsPerThread>(
-            src, dst, nbr, wmask, rop, cop, n_terms, nb, batch, rho, k, P,
-            threads, ra, stream);
+      if (cpt <= kMaxCellsPerThread) return SQ_LAUNCH_MXU(kMaxCellsPerThread);
       return (int)cudaErrorInvalidValue;
   }
+#undef SQ_LAUNCH_MXU
 }
 
 template <int H>
 int step_entry(int rule, const void* src, void* dst, const int* nbr,
-               const void* strips, const uint8_t* mask, long long nb,
-               int batch, int rho, int k, int born, int survive, float p0,
-               float p1, float p2, float p3, float wd, float wo, float wc,
-               void* stream) {
+               const void* strips, const uint8_t* mask, const Pieces& pc,
+               long long nb, int batch, int rho, int k, int born, int survive,
+               float p0, float p1, float p2, float p3, float wd, float wo,
+               float wc, void* stream) {
   RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rule) {
-    case 0: return launch_step<Totalistic, H>(src, dst, nbr, strips, mask, nb,
-                                              batch, rho, k, ra, s);
-    case 1: return launch_step<Heat, H>(src, dst, nbr, strips, mask, nb,
+    case 0: return launch_step<Totalistic, H>(src, dst, nbr, strips, mask, pc,
+                                              nb, batch, rho, k, ra, s);
+    case 1: return launch_step<Heat, H>(src, dst, nbr, strips, mask, pc, nb,
                                         batch, rho, k, ra, s);
-    case 2: return launch_step<GrayScott, H>(src, dst, nbr, strips, mask, nb,
-                                             batch, rho, k, ra, s);
+    case 2: return launch_step<GrayScott, H>(src, dst, nbr, strips, mask, pc,
+                                             nb, batch, rho, k, ra, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int H>
+int mxu_entry(int rule, const void* src, void* dst, const int* nbr,
+              const uint8_t* wmask, const float* rop, const float* cop,
+              int n_terms, long long nb, int batch, int rho, int k, int P,
+              const Pieces& pc, int born, int survive, float p0, float p1,
+              float p2, float p3, float wd, float wo, float wc,
+              void* stream) {
+  if (n_terms < 1 || n_terms > kMaxTerms) return (int)cudaErrorInvalidValue;
+  RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rule) {
+    case 0: return launch_mxu<Totalistic, H>(src, dst, nbr, wmask, rop, cop,
+                                             n_terms, nb, batch, rho, k, P,
+                                             pc, ra, s);
+    case 1: return launch_mxu<Heat, H>(src, dst, nbr, wmask, rop, cop, n_terms,
+                                       nb, batch, rho, k, P, pc, ra, s);
+    case 2: return launch_mxu<GrayScott, H>(src, dst, nbr, wmask, rop, cop,
+                                            n_terms, nb, batch, rho, k, P, pc,
+                                            ra, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -640,9 +746,9 @@ int sq_stencil_step_blocks(int rule, const void* src, void* dst,
                            int survive, float p0, float p1, float p2,
                            float p3, float wd, float wo, float wc,
                            void* stream) {
-  return step_entry<kWholeBlocks>(rule, src, dst, nbr, nullptr, micro, nb,
-                                  batch, rho, 1, born, survive, p0, p1, p2,
-                                  p3, wd, wo, wc, stream);
+  return step_entry<kWholeBlocks>(rule, src, dst, nbr, nullptr, micro,
+                                  Pieces{}, nb, batch, rho, 1, born, survive,
+                                  p0, p1, p2, p3, wd, wo, wc, stream);
 }
 
 // v2: one step from the center and its pre-gathered strips.
@@ -652,9 +758,9 @@ int sq_stencil_step_strips(int rule, const void* src, void* dst,
                            int survive, float p0, float p1, float p2,
                            float p3, float wd, float wo, float wc,
                            void* stream) {
-  return step_entry<kStrips>(rule, src, dst, nullptr, strips, micro, nb,
-                             batch, rho, 1, born, survive, p0, p1, p2, p3,
-                             wd, wo, wc, stream);
+  return step_entry<kStrips>(rule, src, dst, nullptr, strips, micro,
+                             Pieces{}, nb, batch, rho, 1, born, survive, p0,
+                             p1, p2, p3, wd, wo, wc, stream);
 }
 
 // v3: one step (k = 1 instance of the fused kernel).
@@ -663,9 +769,9 @@ int sq_stencil_step_fused(int rule, const void* src, void* dst,
                           int batch, int rho, int born, int survive,
                           float p0, float p1, float p2, float p3, float wd,
                           float wo, float wc, void* stream) {
-  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, nb, batch,
-                               rho, 1, born, survive, p0, p1, p2, p3, wd, wo,
-                               wc, stream);
+  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, Pieces{},
+                               nb, batch, rho, 1, born, survive, p0, p1, p2,
+                               p3, wd, wo, wc, stream);
 }
 
 // v4: k exact steps per launch, 1 <= k <= rho.
@@ -675,9 +781,9 @@ int sq_stencil_step_fused_k(int rule, const void* src, void* dst,
                             int born, int survive, float p0, float p1,
                             float p2, float p3, float wd, float wo, float wc,
                             void* stream) {
-  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, nb, batch,
-                               rho, k, born, survive, p0, p1, p2, p3, wd, wo,
-                               wc, stream);
+  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, Pieces{},
+                               nb, batch, rho, k, born, survive, p0, p1, p2,
+                               p3, wd, wo, wc, stream);
 }
 
 // v5: k exact steps per launch over a (n_macro, B) grid of P-slot CTAs.
@@ -687,20 +793,42 @@ int sq_stencil_step_mxu(int rule, const void* src, void* dst, const int* nbr,
                         int batch, int rho, int k, int P, int born,
                         int survive, float p0, float p1, float p2, float p3,
                         float wd, float wo, float wc, void* stream) {
-  if (n_terms < 1 || n_terms > kMaxTerms) return (int)cudaErrorInvalidValue;
-  RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rule) {
-    case 0: return launch_mxu<Totalistic>(src, dst, nbr, wmask, rop, cop,
-                                          n_terms, nb, batch, rho, k, P, ra,
-                                          s);
-    case 1: return launch_mxu<Heat>(src, dst, nbr, wmask, rop, cop, n_terms,
-                                    nb, batch, rho, k, P, ra, s);
-    case 2: return launch_mxu<GrayScott>(src, dst, nbr, wmask, rop, cop,
-                                         n_terms, nb, batch, rho, k, P, ra,
-                                         s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return mxu_entry<kInKernel>(rule, src, dst, nbr, wmask, rop, cop, n_terms,
+                              nb, batch, rho, k, P, Pieces{}, born, survive,
+                              p0, p1, p2, p3, wd, wo, wc, stream);
+}
+
+// Shard-local v4: k exact steps of the nbl blocks of one shard from their
+// halo pieces and existence table, 1 <= k <= rho.
+int sq_stencil_step_fused_k_local(int rule, const void* src, void* dst,
+                                  const void* top, const void* bot,
+                                  const void* west, const void* east,
+                                  const int* ex, const uint8_t* wmask,
+                                  long long nbl, int batch, int rho, int k,
+                                  int born, int survive, float p0, float p1,
+                                  float p2, float p3, float wd, float wo,
+                                  float wc, void* stream) {
+  return step_entry<kPieces>(rule, src, dst, nullptr, nullptr, wmask,
+                             Pieces{top, bot, west, east, ex}, nbl, batch,
+                             rho, k, born, survive, p0, p1, p2, p3, wd, wo,
+                             wc, stream);
+}
+
+// Shard-local v5: k exact steps of B simulations over the nbl blocks of one
+// shard, P slots per CTA, from their halo pieces and existence table.
+int sq_stencil_step_mxu_k_local(int rule, const void* src, void* dst,
+                                const void* top, const void* bot,
+                                const void* west, const void* east,
+                                const int* ex, const uint8_t* wmask,
+                                const float* rop, const float* cop,
+                                int n_terms, long long nbl, int batch, int rho,
+                                int k, int P, int born, int survive, float p0,
+                                float p1, float p2, float p3, float wd,
+                                float wo, float wc, void* stream) {
+  return mxu_entry<kPieces>(rule, src, dst, nullptr, wmask, rop, cop, n_terms,
+                            nbl, batch, rho, k, P,
+                            Pieces{top, bot, west, east, ex}, born, survive,
+                            p0, p1, p2, p3, wd, wo, wc, stream);
 }
 
 }  // extern "C"

@@ -14,6 +14,11 @@ its plain PyTorch version.
   * ``stencil_step_mxu_batched`` (v5) -- k exact steps of B simulations in
     one launch, the Moore aggregate as rank-1 banded products over P window
     slots per CTA; replaces ``stencil_step_mxu_batched``.
+  * ``stencil_step_fused_k_local`` and ``stencil_step_mxu_k_local`` -- v4
+    and v5 over one shard's blocks, their halo given as four pieces
+    assembled from the exchanged strips and their neighbors as an (nbl, 8)
+    existence table (the distributed engine's compute); replace the
+    reference's entries of the same names.
 
 The kernels live in ``csrc/squeeze_stencil.cu``. A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
@@ -33,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.compact import BlockLayout
+from repro_torch.core.compact import BlockLayout, halo_regions
 from repro_torch.kernels import build
 from repro_torch.workloads.base import (StencilWorkload, banded_operators,
                                         halo_needs)
@@ -44,7 +49,8 @@ from repro_torch.workloads.rules import LIFE
 LAUNCHES = build.LAUNCHES
 LAUNCHES.update(dict.fromkeys(
     ("stencil_step_blocks", "stencil_step_strips", "stencil_step_fused",
-     "stencil_step_fused_k", "stencil_step_mxu_batched"), 0))
+     "stencil_step_fused_k", "stencil_step_mxu_batched",
+     "stencil_step_fused_k_local", "stencil_step_mxu_k_local"), 0))
 reset_launches = build.reset_launches
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -60,6 +66,13 @@ _SIGNATURES = {
     # rule, src, dst, nbr, wmask, R, C, n_terms, nb, batch, rho, k, P, ...
     "sq_stencil_step_mxu": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
                             _I] + _RULE_ARGS,
+    # rule, src, dst, top, bot, west, east, existence, wmask, nbl, batch,
+    # rho, k, ...
+    "sq_stencil_step_fused_k_local": [_I] + [_P] * 8 + [_LL, _I, _I, _I]
+    + _RULE_ARGS,
+    # ... wmask, R, C, n_terms, nbl, batch, rho, k, P, ...
+    "sq_stencil_step_mxu_k_local": [_I] + [_P] * 10 + [_I, _LL, _I, _I, _I,
+                                                      _I] + _RULE_ARGS,
 }
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper CTA can use
 _MAX_CTA_CELLS = 8 * 1024  # window cells of one CTA: 8 per thread
@@ -113,14 +126,21 @@ def block_step_k(layout: BlockLayout, x: torch.Tensor,
     return workload.tile_rule_k(padded, hmask, k).to(x.dtype)
 
 
+def per_simulation(workload: StencilWorkload, fn, s5: torch.Tensor
+                   ) -> torch.Tensor:
+    """``fn`` of each simulation of ``s5`` (B, C, ...), which it gets as
+    (C?, ...) (the channel axis only for a multi-channel workload),
+    stacked back to (B, C, ...)."""
+    if workload.n_channels > 1:
+        return torch.stack([fn(x) for x in s5])
+    return torch.stack([fn(x[0]) for x in s5])[:, None]
+
+
 def _plain_batched(layout, state, workload, k, batched=None):
     s5, batched = _as_batched(layout, workload, state, batched)
-    outs = []
-    for x in s5:
-        x = x if workload.n_channels > 1 else x[0]
-        y = block_step_k(layout, x, workload, k)
-        outs.append(y if workload.n_channels > 1 else y[None])
-    return _unbatch(torch.stack(outs), workload, batched)
+    out = per_simulation(workload, lambda x: block_step_k(
+        layout, x, workload, k), s5)
+    return _unbatch(out, workload, batched)
 
 
 def stencil_step_fused_plain(layout: BlockLayout, state: torch.Tensor,
@@ -150,6 +170,55 @@ def stencil_step_mxu_batched_plain(layout: BlockLayout, states: torch.Tensor,
     """k steps of B simulations; the result does not depend on ``p``."""
     del p
     return _plain_batched(layout, states, workload, k, batched=True)
+
+
+def window_from_pieces(state: torch.Tensor, halo) -> torch.Tensor:
+    """(..., n, rho+2k, rho+2k) windows from the centers (..., n, rho, rho)
+    and the halo pieces (top, bot, west, east) of the local entries."""
+    top, bot, west, east = halo
+    return torch.cat([top, torch.cat([west, state, east], dim=-1), bot],
+                     dim=-2)
+
+
+def existence_window_mask(layout: BlockLayout, existence: torch.Tensor,
+                          k: int) -> torch.Tensor:
+    """(n, w, w) uint8: ``window_mask(k)`` with each halo region gated by
+    the block's row of the (n, 8) existence table."""
+    wm = layout.device_table("window_mask", existence.device, k)
+    mask = wm.expand((existence.shape[0],) + wm.shape).clone()
+    gate = (existence != 0).to(torch.uint8)
+    for d, (ys, xs) in enumerate(halo_regions(layout.rho, k)):
+        mask[:, ys, xs] *= gate[:, d, None, None]
+    return mask
+
+
+def stencil_step_fused_k_local_plain(layout: BlockLayout,
+                                     state: torch.Tensor, halo,
+                                     existence: torch.Tensor,
+                                     workload: StencilWorkload = LIFE, *,
+                                     k: int = 2) -> torch.Tensor:
+    """k steps of one shard's blocks: the window assembled from the
+    pieces, then ``tile_rule_k`` under the existence-gated window mask.
+    state (B?, C, nbl, rho, rho), pieces with the same leading axes."""
+    batched = state.dim() == 5
+    s5 = state if batched else state[None]
+    pieces = [h if batched else h[None] for h in halo]
+    mask = existence_window_mask(layout, existence, k)
+    out = per_simulation(workload, lambda x: workload.tile_rule_k(
+        x, mask, k), window_from_pieces(s5, pieces)).to(state.dtype)
+    return out if batched else out[0]
+
+
+def stencil_step_mxu_k_local_plain(layout: BlockLayout, states: torch.Tensor,
+                                   halo, existence: torch.Tensor,
+                                   workload: StencilWorkload = LIFE, *,
+                                   k: int = 2, p: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """k steps of B simulations over one shard's blocks; the result does
+    not depend on ``p``."""
+    del p
+    return stencil_step_fused_k_local_plain(layout, states, halo, existence,
+                                            workload, k=k)
 
 
 # ======================================================================
@@ -378,17 +447,8 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
     p, n_macro, _ = layout.macro_tiles(k, p=p)
     w = layout.rho + 2 * k
     dev = states.device
-    rm, cm = _mxu_operators_on(workload, w, str(dev))
+    rm, cm = _mxu_operands(workload, states, w, p, n_macro)
     n_terms = rm.shape[0]
-    smem = ((p * workload.n_channels + 2 * n_terms) * w * w * 4
-            + p * workload.n_channels * w * w * states.element_size()
-            + 16 + p * 36)
-    if smem > _MAX_SMEM or p * w * w > _MAX_CTA_CELLS:
-        raise ValueError(f"P={p} slots of {w}x{w} cells exceed one CTA "
-                         f"({smem} bytes of {_MAX_SMEM} shared, "
-                         f"{p * w * w} cells of {_MAX_CTA_CELLS})")
-    if n_macro >= 2 ** 31:
-        raise ValueError(f"{n_macro} macro-tiles exceed the grid")
     nbr = layout.device_table("neighbor_table", dev)
     wmask = layout.device_table("window_mask", dev, k)
     with torch.cuda.device(dev):
@@ -399,6 +459,122 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
             n_terms, layout.n_blocks, b, layout.rho, k, p,
             *_rule_args(workload, stream))
     build.finish_launch(rc, "stencil_step_mxu_batched")
+    return out
+
+
+def _mxu_operands(workload: StencilWorkload, states: torch.Tensor, w: int,
+                  p: int, n_macro: int):
+    """The banded operators on the states' device, after checking that P
+    slots of w x w cells fit one v5 CTA and the grid."""
+    rm, cm = _mxu_operators_on(workload, w, str(states.device))
+    n_terms = rm.shape[0]
+    smem = ((p * workload.n_channels + 2 * n_terms) * w * w * 4
+            + p * workload.n_channels * w * w * states.element_size()
+            + 16 + p * 36)
+    if smem > _MAX_SMEM or p * w * w > _MAX_CTA_CELLS:
+        raise ValueError(f"P={p} slots of {w}x{w} cells exceed one CTA "
+                         f"({smem} bytes of {_MAX_SMEM} shared, "
+                         f"{p * w * w} cells of {_MAX_CTA_CELLS})")
+    if n_macro >= 2 ** 31:
+        raise ValueError(f"{n_macro} macro-tiles exceed the grid")
+    return rm, cm
+
+
+# ======================================================================
+# shard-local entries (the distributed engine's compute)
+# ======================================================================
+def _check_local(layout: BlockLayout, state: torch.Tensor, halo,
+                 existence: torch.Tensor, workload: StencilWorkload, k: int,
+                 out: Optional[torch.Tensor]):
+    """Checks of a shard-local launch; returns (batch, nbl, out)."""
+    out = _check_cuda(state, workload, out)
+    rho, nc, w = layout.rho, workload.n_channels, layout.rho + 2 * k
+    if state.dim() not in (4, 5) or state.shape[-4] != nc or \
+            tuple(state.shape[-2:]) != (rho, rho):
+        raise ValueError(f"state shape {tuple(state.shape)} does not match "
+                         f"(B?, {nc}, nbl, {rho}, {rho})")
+    lead = tuple(state.shape[:-2])
+    for name, piece, tail in zip(("top", "bot", "west", "east"), halo,
+                                 ((k, w), (k, w), (rho, k), (rho, k))):
+        if tuple(piece.shape) != lead + tail or \
+                piece.dtype != state.dtype or \
+                piece.device != state.device or not piece.is_contiguous():
+            raise ValueError(f"halo piece {name} must be a contiguous "
+                             f"{lead + tail} tensor of the state's dtype "
+                             "and device")
+    nbl = state.shape[-3]
+    if tuple(existence.shape) != (nbl, 8) or \
+            existence.dtype != torch.int32 or \
+            existence.device != state.device or \
+            not existence.is_contiguous():
+        raise ValueError(f"existence must be a contiguous ({nbl}, 8) int32 "
+                         "tensor on the state's device")
+    b = state.shape[0] if state.dim() == 5 else 1
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535")
+    return b, nbl, out
+
+
+def stencil_step_fused_k_local(layout: BlockLayout, state: torch.Tensor,
+                               halo, existence: torch.Tensor,
+                               workload: StencilWorkload = LIFE, *, k: int,
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Shard-local v4: ``k`` exact steps of one shard's blocks in one
+    launch. ``state`` (B?, C, nbl, rho, rho) (the channel axis always
+    there); ``halo`` = (top, bot, west, east) with top/bot (B?, C, nbl, k,
+    rho+2k) and west/east (B?, C, nbl, rho, k); ``existence`` (nbl, 8)
+    int32 {0, 1} (padding blocks all zero)."""
+    _check_k(layout, k, "the fused kernel")
+    if state.device.type == "cpu":
+        return _into(state, stencil_step_fused_k_local_plain(
+            layout, state, halo, existence, workload, k=k), out)
+    fn = _c_function("sq_stencil_step_fused_k_local")
+    b, nbl, out = _check_local(layout, state, halo, existence, workload, k,
+                               out)
+    dev = state.device
+    wmask = layout.device_table("window_mask", dev, k)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_rule(workload), state.data_ptr(), out.data_ptr(),
+                *(h.data_ptr() for h in halo), existence.data_ptr(),
+                wmask.data_ptr(), nbl, b, layout.rho, k,
+                *_rule_args(workload, stream))
+    build.finish_launch(rc, "stencil_step_fused_k_local")
+    return out
+
+
+def stencil_step_mxu_k_local(layout: BlockLayout, states: torch.Tensor,
+                             halo, existence: torch.Tensor,
+                             workload: StencilWorkload = LIFE, *, k: int,
+                             p: Optional[int] = None,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Shard-local v5: ``k`` exact steps of B simulations over one shard's
+    blocks in one launch over a (n_macro, B) grid, packed with
+    ``layout.macro_tiles_for(nbl, k, p)``. ``states`` (B, C, nbl, rho,
+    rho), the pieces with the same (B, C) axes, ``existence`` (nbl, 8)."""
+    _check_k(layout, k, "the mxu kernel")
+    if states.device.type == "cpu":
+        return _into(states, stencil_step_mxu_k_local_plain(
+            layout, states, halo, existence, workload, k=k, p=p), out)
+    fn = _c_function("sq_stencil_step_mxu_k_local")
+    if states.dim() != 5:
+        raise ValueError("the mxu kernel takes (B, C, nbl, rho, rho) states")
+    b, nbl, out = _check_local(layout, states, halo, existence, workload, k,
+                               out)
+    p, n_macro, _ = layout.macro_tiles_for(nbl, k, p=p)
+    w = layout.rho + 2 * k
+    rm, cm = _mxu_operands(workload, states, w, p, n_macro)
+    dev = states.device
+    wmask = layout.device_table("window_mask", dev, k)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_rule(workload), states.data_ptr(), out.data_ptr(),
+                *(h.data_ptr() for h in halo), existence.data_ptr(),
+                wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(), rm.shape[0],
+                nbl, b, layout.rho, k, p, *_rule_args(workload, stream))
+    build.finish_launch(rc, "stencil_step_mxu_k_local")
     return out
 
 

@@ -16,6 +16,7 @@ equal.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple, Union
 
 #: port kind -> the reference kind it is held against (parity tests walk
@@ -24,6 +25,8 @@ REFERENCE_KINDS: Dict[str, str] = {
     "bb": "bb", "lambda": "lambda", "cell": "cell", "block": "block",
     "cuda-blocks": "pallas-blocks", "cuda-strips": "pallas-strips",
     "cuda-fused": "pallas-fused", "cuda-mxu": "pallas-mxu",
+    "dist-block": "dist-block", "dist-fused": "dist-fused",
+    "dist-mxu": "dist-mxu",
     "bb3d": "bb3d", "cell3d": "cell3d", "block3d": "block3d",
     "cuda-3d": "pallas-3d", "cuda-3d-mxu": "pallas-3d-mxu",
 }
@@ -37,11 +40,18 @@ KIND_ALIASES: Dict[str, str] = {"cuda": "cuda-strips"}
 
 #: kinds with block tiles (fusion depth applies)
 BLOCK_KINDS = frozenset({"block", "cuda-blocks", "cuda-strips",
-                         "cuda-fused", "cuda-mxu", "block3d", "cuda-3d",
-                         "cuda-3d-mxu"})
+                         "cuda-fused", "cuda-mxu", "dist-block", "dist-fused",
+                         "dist-mxu", "block3d", "cuda-3d", "cuda-3d-mxu"})
 
 #: kinds whose kernel packs P blocks per CTA
-MXU_KINDS = frozenset({"cuda-mxu", "cuda-3d-mxu"})
+MXU_KINDS = frozenset({"cuda-mxu", "dist-mxu", "cuda-3d-mxu"})
+
+#: kinds of the distributed engine: the block axis sharded over devices
+DIST_KINDS = frozenset({"dist-block", "dist-fused", "dist-mxu"})
+
+#: halo-exchange modes of the dist kinds: neighbor-only p2p, strip gather,
+#: or p2p where the strip decomposition is valid
+EXCHANGES = ("auto", "p2p", "gather")
 
 #: kinds of the 3D engines (an ``NBBFractal3D``, 3D workloads)
 KINDS_3D = frozenset({"bb3d", "cell3d", "block3d", "cuda-3d",
@@ -69,7 +79,9 @@ class EngineSpec:
     or (x, y, z) slots); ``s`` the fractal's scaling factor; ``workload``
     a registry workload name.
     ``fusion_k`` and ``macro_p`` are the tunable knobs (``None`` = the
-    heuristic)."""
+    heuristic). The dist kinds also take ``exchange`` ('auto', 'p2p' or
+    'gather') and ``mesh_shape``, ``(n_shards,)`` (``None`` = one shard
+    per visible card)."""
 
     kind: str
     s: int
@@ -79,18 +91,23 @@ class EngineSpec:
     workload: str = "life"
     fusion_k: Optional[int] = None
     macro_p: Optional[int] = None
+    exchange: str = "auto"
+    mesh_shape: Optional[Tuple[int, ...]] = None
 
     @classmethod
     def from_args(cls, kind: str, frac, r: int, m: int = 0, workload=None,
                   fusion_k: Optional[int] = None,
-                  macro_p: Optional[int] = None) -> "EngineSpec":
+                  macro_p: Optional[int] = None, exchange: str = "auto",
+                  n_shards: Optional[int] = None) -> "EngineSpec":
         """The identity of a fractal object and workload object (or
         name) plus knobs."""
         s, ident = _frac_identity(frac)
         wl = workload if isinstance(workload, str) else (
             "life" if workload is None else workload.name)
         return cls(kind=kind, s=s, frac=ident, r=int(r), m=int(m),
-                   workload=wl, fusion_k=fusion_k, macro_p=macro_p)
+                   workload=wl, fusion_k=fusion_k, macro_p=macro_p,
+                   exchange=exchange,
+                   mesh_shape=None if n_shards is None else (int(n_shards),))
 
     @property
     def is_block(self) -> bool:
@@ -105,6 +122,17 @@ class EngineSpec:
         return self.kind in KINDS_3D
 
     @property
+    def is_dist(self) -> bool:
+        return self.kind in DIST_KINDS
+
+    @property
+    def n_shards(self) -> Optional[int]:
+        """Shards of a dist kind (None = one per visible card)."""
+        if self.mesh_shape is None:
+            return None
+        return math.prod(self.mesh_shape)
+
+    @property
     def rho(self) -> int:
         """Block tile side s**m (1 for non-block kinds)."""
         return self.s ** self.m if self.is_block else 1
@@ -113,7 +141,7 @@ class EngineSpec:
         """Validated, with the alias rewritten ('cuda' -> 'cuda-strips')
         and the knobs that do not apply zeroed: non-block kinds get
         ``m = 0`` and ``fusion_k = 1``; ``macro_p`` only stays on the MXU
-        kind."""
+        kinds, ``exchange`` and ``mesh_shape`` on the dist kinds."""
         kind = KIND_ALIASES.get(self.kind, self.kind)
         if kind not in KINDS:
             raise ValueError(f"unknown engine kind {self.kind!r}; known: "
@@ -124,15 +152,28 @@ class EngineSpec:
             raise ValueError(f"fusion_k must be >= 1, got {self.fusion_k}")
         if self.macro_p is not None and self.macro_p < 1:
             raise ValueError(f"macro_p must be >= 1, got {self.macro_p}")
-        block = self.is_block
+        if self.exchange not in EXCHANGES:
+            raise ValueError(f"exchange must be one of {EXCHANGES}, got "
+                             f"{self.exchange!r}")
+        mesh = self.mesh_shape
+        if mesh is not None:
+            mesh = tuple(int(n) for n in mesh)
+            if not mesh or min(mesh) < 1:
+                raise ValueError(f"bad mesh_shape {self.mesh_shape!r}")
+        block, dist = self.is_block, self.is_dist
         return dataclasses.replace(
             self, m=self.m if block else 0,
             fusion_k=self.fusion_k if block else 1,
-            macro_p=self.macro_p if self.is_mxu else None)
+            macro_p=self.macro_p if self.is_mxu else None,
+            exchange=self.exchange if dist else "auto",
+            mesh_shape=mesh if dist else None)
 
     def normalize(self) -> "EngineSpec":
-        """``canonical()`` with ``fusion_k`` and (MXU kind) ``macro_p``
-        resolved to concrete values, explicit > heuristic; idempotent."""
+        """``canonical()`` with ``fusion_k`` and (single-device MXU kinds)
+        ``macro_p`` resolved to concrete values, explicit > heuristic;
+        idempotent. A dist-mxu engine packs each shard's blocks by its own
+        count, so its ``macro_p`` stays as given, and ``exchange='auto'``
+        is resolved by the engine from its decomposition."""
         spec = self.canonical()
         if not spec.is_block:
             return spec
@@ -140,7 +181,7 @@ class EngineSpec:
         k = spec.fusion_k if spec.fusion_k is not None \
             else default_fusion_k(spec.rho)
         p = spec.macro_p
-        if spec.is_mxu:
+        if spec.is_mxu and not spec.is_dist:
             from repro_torch.core.compact import BlockLayout
             from repro_torch.core.compact3d import BlockLayout3D
             layout = (BlockLayout3D if spec.is_3d else BlockLayout)(

@@ -10,6 +10,15 @@ set of static configurations.
     kernel kinds (the 3D ones too) through their kernels' batch grid axis;
     the plain kinds step each simulation in turn.
 
+The dist kinds ('dist-block', 'dist-fused', 'dist-mxu') shard one
+fractal's BLOCK axis over several devices: their states are the engine's
+tuple of shards, each with the leading batch axis, and the runner hands
+them to the engine's own ``run`` (one strip exchange per launch for the
+whole batch). They take their ``exchange`` and shard count from an
+``EngineSpec``. ``place_batch`` instead spreads whole simulations of any
+other kind over devices (the BATCH axis); each part is then a batch of
+its own, stepped by ``step``/``run`` on its device.
+
 The runner is dimension-agnostic: the 3D kinds ('bb3d', 'cell3d',
 'block3d', 'cuda-3d', 'cuda-3d-mxu') take states with 3D trailing axes --
 (B, nz, ny, nx) cell states, (B, n_blocks, rho, rho, rho) block states,
@@ -25,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,11 +45,14 @@ from repro_torch.workloads.rules import LIFE
 
 
 def _steps_batches(engine) -> bool:
-    """True for the kernel engines (2D and 3D), which step a leading batch
-    axis in one launch; the plain engines step one simulation at a time."""
+    """True for the kernel engines (2D and 3D) and the distributed engine,
+    which step a leading batch axis in one launch; the plain engines step
+    one simulation at a time."""
+    from repro_torch.core.distributed import DistributedSqueezeEngine
     from repro_torch.core.stencil import SqueezeKernelEngine
     from repro_torch.core.stencil3d import Squeeze3DKernelEngine
-    return isinstance(engine, (SqueezeKernelEngine, Squeeze3DKernelEngine))
+    return isinstance(engine, (SqueezeKernelEngine, Squeeze3DKernelEngine,
+                               DistributedSqueezeEngine))
 
 
 @dataclasses.dataclass
@@ -120,8 +132,36 @@ class BatchedRunner:
         return self._get(self._resolve(kind, frac, r, m, workload, k,
                                        macro_p))
 
+    def is_cached(self, kind, frac=None, r=None, m=0, workload=None, k=None,
+                  macro_p=None) -> bool:
+        """Whether this configuration is a warm cache hit now (no build, no
+        LRU touch). Takes a spec or the argument list."""
+        res = self._resolve(kind, frac, r, m, workload, k, macro_p)
+        with self._lock:
+            return res.spec in self._cache
+
+    def invalidate(self, kind, frac=None, r=None, m=0, workload=None,
+                   k=None, macro_p=None) -> bool:
+        """Drop this configuration's engine, if cached, so the next call
+        builds it anew; True when one was dropped."""
+        res = self._resolve(kind, frac, r, m, workload, k, macro_p)
+        with self._lock:
+            return self._cache.pop(res.spec, None) is not None
+
     def cache_size(self) -> int:
         return len(self._cache)
+
+    @staticmethod
+    def place_batch(states: torch.Tensor, devices) -> Tuple[torch.Tensor,
+                                                             ...]:
+        """Spread a batch of whole simulations over ``devices`` along the
+        BATCH axis (no halo traffic: the placement for many small
+        fractals); one contiguous part per device, each stepped by
+        ``step``/``run`` as a batch of its own. For one fractal too large
+        for a device, use the dist kinds, which shard the BLOCK axis."""
+        parts = torch.tensor_split(states, len(devices))
+        return tuple(p.to(torch.device(d)).contiguous()
+                     for p, d in zip(parts, devices))
 
     # ------------------------------------------------------- batched API
     def init_batch(self, kind, frac=None, r=None, seeds=None, m=0,
@@ -131,6 +171,8 @@ class BatchedRunner:
         if isinstance(kind, EngineSpec) and seeds is None:
             seeds, frac = frac, None
         engine = self._get(self._resolve(kind, frac, r, m, workload))
+        if _is_dist(engine):
+            return engine.init_batch(seeds)
         return torch.stack([engine.init_random(int(s)) for s in seeds])
 
     def step(self, kind, frac=None, r=None, states=None, m=0,
@@ -164,4 +206,11 @@ class BatchedRunner:
         engine = self._get(self._resolve(kind, frac, r, m, workload))
         if not hasattr(engine, "to_expanded"):
             return states  # BB and lambda states are already expanded
+        if _is_dist(engine):
+            return engine.to_expanded(states)
         return torch.stack([engine.to_expanded(s) for s in states])
+
+
+def _is_dist(engine) -> bool:
+    from repro_torch.core.distributed import DistributedSqueezeEngine
+    return isinstance(engine, DistributedSqueezeEngine)

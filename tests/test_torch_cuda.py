@@ -317,3 +317,103 @@ def test_cuda_3d_wrappers_refuse_bad_inputs(cuda):
             with pytest.raises(ValueError, match="alias"):
                 fn(lay, x, trules.LIFE3D, k=1, out=x)
     assert k3.LAUNCHES == before
+
+
+# ------------------------------------------------------- distributed
+def _pieces(lay, wl, lead, k, seed=0):
+    """Random halo pieces (top, bot, west, east) with leading axes
+    ``lead`` (..., C, nbl) for the shard-local entries."""
+    rng = np.random.default_rng(seed)
+    rho, w = lay.rho, lay.rho + 2 * k
+    out = []
+    for tail in ((k, w), (k, w), (rho, k), (rho, k)):
+        shape = lead + tail
+        x = rng.integers(0, 2, shape).astype(np.uint8) \
+            if wl.dtype == torch.uint8 \
+            else rng.random(shape).astype(np.float32)
+        out.append(torch.from_numpy(x))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+def test_cuda_local_kernels_match_plain(cuda, wl_name):
+    """Kernels 6 and 7 (the shard-local v4 and v5) against their plain
+    versions on random states, pieces and existence rows (the pieces are
+    read whatever the existence says, as the plain version does)."""
+    wl = trules.WORKLOADS[wl_name]
+    nc = wl.n_channels
+    rng = np.random.default_rng(5)
+    for frac, r, m in CASES:
+        lay = BlockLayout(frac, r, m)
+        nbl = lay.n_blocks // 2 + 1
+        ex = torch.from_numpy(
+            rng.integers(0, 2, (nbl, 8)).astype(np.int32)).to(cuda)
+        for k in sorted({1, 2, lay.rho}):
+            x = _state(lay, wl, 3)
+            x = (x if nc > 1 else x[:, None])[:, :, :nbl].contiguous()
+            halo = tuple(h.to(cuda) for h in
+                         _pieces(lay, wl, (3, nc, nbl), k, seed=k))
+            x = x.to(cuda)
+            _close(sk.stencil_step_fused_k_local(
+                       lay, x[0], tuple(h[0] for h in halo), ex, wl, k=k),
+                   sk.stencil_step_fused_k_local_plain(
+                       lay, x[0], tuple(h[0] for h in halo), ex, wl, k=k),
+                   wl)
+            _close(sk.stencil_step_fused_k_local(lay, x, halo, ex, wl, k=k),
+                   sk.stencil_step_fused_k_local_plain(lay, x, halo, ex, wl,
+                                                       k=k), wl)
+            for p in (None, 3):
+                _close(sk.stencil_step_mxu_k_local(lay, x, halo, ex, wl,
+                                                   k=k, p=p),
+                       sk.stencil_step_mxu_k_local_plain(lay, x, halo, ex,
+                                                         wl, k=k), wl)
+
+
+@pytest.mark.parametrize("exchange", ["p2p", "gather"])
+@pytest.mark.parametrize("wl_name", ["life", "gray-scott"])
+@pytest.mark.parametrize("kind", ["dist-fused", "dist-mxu"])
+def test_cuda_dist_engine_matches_single_device(cuda, kind, wl_name,
+                                                exchange):
+    """A 3-shard run on the card equals the single-device kernel engine of
+    the same kind on the same state; a p2p launch runs two kernel launches
+    per shard (interior pass and boundary patch), a gather launch one."""
+    wl = trules.WORKLOADS[wl_name]
+    single = make_engine("cuda-" + kind[len("dist-"):], tf.SIERPINSKI, 7, 2,
+                         workload=wl)
+    dist = make_engine(kind, tf.SIERPINSKI, 7, 2, workload=wl, n_shards=3,
+                       exchange=exchange)
+    assert dist.exchange_mode == exchange and dist.n_shards == 3
+    x = single.init_random(seed=2)
+    want = single.run(x, 7)
+    sk.reset_launches()
+    out = dist.run(dist.from_dense(x), 7)
+    _close(dist.to_dense(out), want, wl)
+    k = dist.effective_fusion_k
+    per = 2 if exchange == "p2p" else 1
+    name = "stencil_step_" + ("mxu" if kind == "dist-mxu" else "fused") + \
+        "_k_local"
+    assert sk.LAUNCHES[name] == per * 3 * (7 // k + (7 % k > 0))
+    dead = torch.from_numpy(dist.dead_mask()).to(cuda)
+    assert int((torch.cat(out, dim=-3) * dead).abs().sum()) == 0
+
+
+def test_cuda_local_wrappers_refuse_bad_inputs(cuda):
+    lay = BlockLayout(tf.SIERPINSKI, 5, 2)
+    wl, k, nbl = trules.LIFE, 2, 5
+    x = _state(lay, wl, 2)[:, None, :nbl].contiguous().to(cuda)
+    halo = tuple(h.to(cuda) for h in _pieces(lay, wl, (2, 1, nbl), k))
+    ex = torch.ones((nbl, 8), dtype=torch.int32, device=cuda)
+    before = dict(sk.LAUNCHES)
+    for fn in (sk.stencil_step_fused_k_local, sk.stencil_step_mxu_k_local):
+        with pytest.raises(ValueError, match="existence"):
+            fn(lay, x, halo, ex.long(), wl, k=k)
+        with pytest.raises(ValueError, match="piece west"):
+            fn(lay, x, (halo[0], halo[1], halo[2].transpose(-1, -2),
+                        halo[3]), ex, wl, k=k)
+        with pytest.raises(ValueError, match="piece top"):
+            fn(lay, x, (halo[0].cpu(),) + halo[1:], ex, wl, k=k)
+        with pytest.raises(ValueError, match="alias"):
+            fn(lay, x, halo, ex, wl, k=k, out=x)
+        with pytest.raises(ValueError, match="k <= rho"):
+            fn(lay, x, halo, ex, wl, k=lay.rho + 1)
+    assert sk.LAUNCHES == before

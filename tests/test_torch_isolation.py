@@ -52,6 +52,12 @@ from repro_torch.workloads import HEAT3D
 for kind in ("cuda-3d", "cuda-3d-mxu", "block3d", "cell3d", "bb3d"):
     eng = make_engine(kind, MENGER, 2, 1, workload=HEAT3D, device="cpu")
     assert torch.isfinite(eng.run(eng.init_random(0), 3)).all()
+for kind in ("dist-block", "dist-fused", "dist-mxu"):
+    for exchange in ("p2p", "gather"):
+        eng = make_engine(kind, SIERPINSKI, 5, 1, workload=GRAY_SCOTT,
+                          device="cpu", n_shards=3, exchange=exchange)
+        out = eng.run(eng.init_random(0), 3)
+        assert torch.isfinite(eng.to_dense(out)).all()
 runner = BatchedRunner(device="cpu")
 states = runner.init_batch("cuda-mxu", SIERPINSKI, 4, [0, 1], m=2)
 assert runner.run("cuda-mxu", SIERPINSKI, 4, states, 5, m=2).shape == \\
