@@ -45,7 +45,12 @@ jax or the reference package). Phases, each printing one JSON line:
      kernel) against their plain versions on the Menger sponge (r=5 at m=1
      and m=2) and the Sierpinski tetrahedron (r=10, m=2): LIFE3D, HEAT3D
      and the 2D rule LIFE, k in {1, 2, rho}, two packings of the mxu kernel
-     for k <= 2, one simulation and B=3, <= 8 steps, at phase 3's bar;
+     for k <= 2, one simulation and B=3, <= 8 steps, at phase 3's bar; then
+     the windows over one CTA's shared memory, on the Menger sponge r=5
+     m=3 (rho=27): HEAT3D at k=2 and 3 and LIFE3D at k=27 through cuda-3d
+     and cuda-3d-mxu, B=1 and 3, each one launch of the kernels' device-
+     workspace variant (counted under ``<name>[global]``), with a launch's
+     time;
   8. the 3D main path at full size, the Menger sponge r=6, m=2 (160,000
      blocks of 9^3, 64,000,000 cells), each timed run after a warm-up:
      ``make_engine('cuda-3d')`` with LIFE3D and HEAT3D for 31 steps,
@@ -81,7 +86,28 @@ jax or the reference package). Phases, each printing one JSON line:
      and the wire bytes per device for 2, 4 and 8 shards;
  13. kernels 6 and 7 at phase 12's per-shard shapes (LIFE, k=2, B=4 for
      v5), with their plain versions' times and bounds; their rows join the
-     ``kernels`` line (eleven rows).
+     ``kernels`` line;
+ 14. the flash-attention and SSD chunk kernels against their plain
+     versions: the reference tests' attention shapes (one block, several,
+     Sq < Sk, windows 128 and 256, softcap 50, decode Sq=1), non-causal,
+     causal Sq > Sk (queries that see no key get the mean of v), a window
+     that hides every key, D in {64, 128, 256}, each in float32 (bar 2e-5)
+     and bfloat16 (2e-2); the SSD kernel at the reference test's shapes, a
+     ragged S at mamba2-780m's widths (2e-5), with the whole scan against
+     the chunked oracle ``models.ssm._ssd_chunked``;
+ 15. their path at full width, each run after a warm-up and held against
+     the plain version: ``flash_attention`` at gemma2-2b (bf16, 8 heads of
+     D=256, softcap 50) for a global layer (causal, S=8192), a local layer
+     (window 4096) and decode (B=8, Sq=1, Sk=8192, bq=1), and
+     ``ssd_chunk_scan`` at mamba2-780m (f32, B=4, S=2048, 48 heads of P=64,
+     N=128, chunk 128), with the kernel's share of the scan on CUDA events
+     and the launch counts; then the three attention runs again in float32
+     at 2e-5 (the bf16 bar is about the size of an output at these
+     lengths), each row with its output's rms beside its bar;
+ 16. both kernels timed (attention also at the global layer with the
+     softcap off, beside ``scaled_dot_product_attention`` on the same
+     inputs, the yardstick the port never calls); their rows join the
+     ``kernels`` line (thirteen rows).
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -125,6 +151,53 @@ KERNELS = {
                                    _TPU + "squeeze_stencil.py:744"),
     "stencil_step_mxu_k_local": (_STENCIL, _TPU + "squeeze_stencil.py:780"),
 }
+#: H100 SXM bf16 on the tensor cores (dense), the rate bf16 attention's
+#: bar (2e-2) allows
+BF16_FLOPS = 989e12
+_ATTN = "src/repro_torch/kernels/csrc/attention.cu"
+_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+KERNELS.update({
+    "flash_attention": (_ATTN, _TPU + "attention.py:75"),
+    "ssd_chunk_scan": (_SSD, _TPU + "ssd_chunk.py:70"),
+})
+#: attention's bars (tests/test_kernels_attention.py:19), (rtol, atol)
+ATTN_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (2e-2, 2e-2)}
+#: the SSD kernel's bar (tests/test_kernels_ssd.py)
+SSD_TOL = (2e-5, 2e-5)
+#: phase 14's attention cases: the reference test's shapes, then non-causal,
+#: causal Sq > Sk (queries that see no key), a window that hides every key
+#: and D in {64, 256}, and D = 36 (bf16 rows the 16-byte loads cannot
+#: take); (label, (B, H, Sq, Sk, D), keyword arguments)
+ATTN_CASES = [
+    ("1blk", (1, 2, 128, 128, 128), {}),
+    ("multi", (2, 3, 256, 256, 128), {}),
+    ("prefill-chunk", (1, 2, 128, 384, 128), {}),
+    ("window128", (1, 2, 384, 384, 128), {"window": 128}),
+    ("window256", (1, 2, 384, 384, 128), {"window": 256}),
+    ("softcap", (1, 2, 256, 256, 128), {"softcap": 50.0}),
+    ("decode", (2, 2, 1, 512, 128), {"bq": 1}),
+    ("block-sizes", (1, 1, 256, 256, 128), {"bq": 64, "bk": 256}),
+    ("noncausal", (1, 2, 256, 384, 128), {"causal": False}),
+    ("empty-rows", (1, 2, 384, 128, 128), {}),
+    ("window-hides-all", (1, 2, 128, 256, 64), {"window": 0}),
+    ("d64", (2, 4, 512, 512, 64), {"window": 200, "softcap": 30.0}),
+    ("d256", (1, 4, 512, 1024, 256), {"softcap": 50.0}),
+    ("d36", (1, 2, 128, 256, 36), {"causal": False}),
+]
+#: phase 14's SSD cases: the reference test's shapes and a ragged S at the
+#: mamba2-780m head and state widths; (B, S, H, P, N, chunk)
+SSD_CASES = [(1, 16, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
+             (1, 40, 3, 8, 16, 16), (2, 300, 8, 64, 128, 128)]
+#: gemma2-2b's attention (configs/gemma2_2b.py): 8 heads of D = 256, local
+#: window 4096, logit softcap 50; S = 8192 at B = 1, decode at B = 8
+GEMMA2 = dict(h=8, d=256, s=8192, window=4096, softcap=50.0, decode_b=8)
+#: mamba2-780m's SSD (configs/mamba2_780m.py): d_inner 3072 = 48 heads of
+#: P = 64, N = 128, chunk 128; B = 4, S = 2048
+MAMBA2 = dict(b=4, s=2048, h=48, p=64, n=128, chunk=128)
+#: the 3D shapes over one CTA's shared memory: the Menger sponge r=5 m=3
+#: (400 blocks of 27^3); (workload, k) at HEAT3D k = 2, 3, LIFE3D k = rho
+GLOBAL3D = ("menger", 5, 3)
+
 #: the shard-local kernels (6 and 7), each checked against its plain version
 LOCAL = ("stencil_step_fused_k_local", "stencil_step_mxu_k_local")
 #: (fractal, r, m) of the shard-local kernel checks (phase 3's shapes)
@@ -159,7 +232,8 @@ class Checker:
         self.torch = torch
         self.max_err = {}
 
-    def check(self, what, kernel, got, want, exact):
+    def check(self, what, kernel, got, want, exact, tol=None):
+        """``tol`` (rtol, atol), when given, replaces the float bar."""
         t = self.torch
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs "
@@ -173,6 +247,8 @@ class Checker:
         scale = min(1.0, float(want.double().abs().max()))
         bound = 0.0 if exact else (FLOAT_TOL["atol"] * scale
                                    + FLOAT_TOL["rtol"] * want.double().abs())
+        if tol is not None:
+            bound = tol[1] + tol[0] * want.double().abs()
         if bool((diff > bound).any()):
             raise AssertionError(f"{what}: max |kernel - plain| = {err}")
         if kernel:
@@ -858,6 +934,310 @@ def phase_dist_timing(torch, chk, R, sk, lay, k, launches, fused_eng,
     return rows
 
 
+def phase_3d_global_windows(torch, chk, F3, R, make_engine, c3, k3):
+    """The 3D windows over one CTA's shared memory (phase 7's repaired
+    shapes): the Menger sponge r=5, m=3 (rho = 27), HEAT3D at k = 2 and 3
+    and LIFE3D at k = rho, one simulation and B = 3, each ``run(k)`` one
+    launch of the workspace variant through cuda-3d and cuda-3d-mxu, held
+    against the kernel's plain version at phase 3's bar; then one launch's
+    time (CUDA events, after the checked runs)."""
+    name, r, m = GLOBAL3D
+    frac = F3.REGISTRY3D[name]
+    lay = c3.shared_layout3d(frac, r, m)
+    rows = []
+    for wl, k in ((R.HEAT3D, 2), (R.HEAT3D, 3), (R.LIFE3D, lay.rho)):
+        exact = wl.dtype == torch.uint8
+        x = _init3d(torch, lay, wl, 3, 61 + k)
+        for kind, kernel in (("cuda-3d", "fused"), ("cuda-3d-mxu", "mxu")):
+            t0 = time.perf_counter()
+            if k3.window_variant(lay, wl, k, kernel) != "global":
+                raise AssertionError(f"{kind} {wl.name} k={k}: the window "
+                                     "fits shared memory")
+            eng = make_engine(kind, frac, r, m, workload=wl, fusion_k=k)
+            kname = f"stencil3d_step_{kernel}_k"
+            k3.reset_launches()
+            got1 = eng.run(x[0], k)
+            got3 = eng.run(x, k)
+            torch.cuda.synchronize()
+            launches = {n: v for n, v in k3.LAUNCHES.items() if v}
+            if launches != {kname + "[global]": 2}:
+                raise AssertionError(f"{kind} {wl.name} k={k}: launches "
+                                     f"{launches}")
+            plain = getattr(k3, kname + "_plain")
+            want = plain(lay, x, wl, k=k)
+            what = f"3d-global/{kind}/{wl.name}/k{k}"
+            errs = [chk.check(what + "/b1", kname, got1, want[0], exact),
+                    chk.check(what + "/b3", kname, got3, want, exact)]
+            del want, got1, got3
+            fn = getattr(k3, kname)
+            out = torch.empty_like(x[0])
+            ms = cuda_ms(torch, lambda: fn(lay, x[0], wl, k=k, out=out), 2)
+            rows.append(dict(kind=kind, workload=wl.name, k=k,
+                             window=lay.rho + 2 * k, launches=launches,
+                             max_err=max(errs), ms_per_launch=ms,
+                             seconds=time.perf_counter() - t0))
+            del eng, out
+        del x
+        torch.cuda.empty_cache()
+    emit("kernel3d_global_window", fractal=name, r=r, m=m, rho=lay.rho,
+         n_blocks=lay.n_blocks,
+         tolerance={"life3d": "exact", "heat3d": FLOAT_TOL}, runs=rows)
+
+
+def _qkv(torch, shape, dtype, seed):
+    b, h, sq, sk, d = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return (torch.randn((b, h, sq, d), generator=g, device="cuda")
+            .to(dtype),
+            torch.randn((b, h, sk, d), generator=g, device="cuda").to(dtype),
+            torch.randn((b, h, sk, d), generator=g, device="cuda").to(dtype))
+
+
+def _ssd_inputs(torch, b, s, h, p, n, seed):
+    """x, dt (softplus), a (negative), B and C as the reference test draws
+    them, on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    x = randn(b, s, h, p)
+    dt = torch.nn.functional.softplus(randn(b, s, h) - 1.0)
+    a = -torch.exp(randn(h) * 0.3)
+    return x, dt, a, randn(b, s, n) * 0.5, randn(b, s, n) * 0.5
+
+
+def phase_attention_ssd_vs_plain(torch, chk, ta, ts, tssm):
+    """Phase 14: both new kernels against their plain versions."""
+    t0 = time.perf_counter()
+    errs = {}
+    for i, (label, shape, kw) in enumerate(ATTN_CASES):
+        plain_kw = {n: v for n, v in kw.items() if n not in ("bq", "bk")}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(torch, shape, dtype, 70 + i)
+            got = ta.flash_attention(q, k, v, **kw)
+            want = ta.attention_plain(q, k, v, **plain_kw)
+            what = f"{label}/{str(dtype)[6:]}"
+            errs[what] = chk.check(f"attention/{what}", "flash_attention",
+                                   got, want, False, ATTN_TOL[str(dtype)])
+    emit("attention_vs_plain", cases=len(errs), tolerance=ATTN_TOL,
+         max_err=errs, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    errs = {}
+    for b, s, h, p, n, chunk in SSD_CASES:
+        x, dt, a, bm, cm = _ssd_inputs(torch, b, s, h, p, n, s)
+        xc, dtc, bc, cc = ts.to_chunks(x, dt, bm, cm, chunk)
+        label = f"b{b}_s{s}_h{h}_p{p}_n{n}_l{chunk}"
+        for part, got, want in zip(
+                ("y_diag", "states"), ts.ssd_chunk(xc, dtc, a, bc, cc),
+                ts.ssd_chunk_plain(xc, dtc, a, bc, cc)):
+            errs[f"{label}/{part}"] = chk.check(
+                f"ssd/{label}/{part}", "ssd_chunk_scan", got, want, False,
+                SSD_TOL)
+        errs[f"{label}/scan"] = chk.check(
+            f"ssd/{label}/scan", None,
+            ts.ssd_chunk_scan(x, dt, a, bm, cm, chunk=chunk),
+            tssm._ssd_chunked(x, dt, a, bm[:, :, None], cm[:, :, None],
+                              chunk), False, SSD_TOL)
+    emit("ssd_vs_plain", cases=len(SSD_CASES), tolerance=SSD_TOL,
+         max_err=errs, seconds=time.perf_counter() - t0)
+
+
+def _gemma2_inputs(torch, seed):
+    """(global/local q, k, v) and the decode triple at gemma2-2b's widths,
+    bfloat16."""
+    g2 = GEMMA2
+    full = _qkv(torch, (1, g2["h"], g2["s"], g2["s"], g2["d"]),
+                torch.bfloat16, seed)
+    dec = _qkv(torch, (g2["decode_b"], g2["h"], 1, g2["s"], g2["d"]),
+               torch.bfloat16, seed + 1)
+    return full, dec
+
+
+def phase_attention_ssd_main(torch, chk, ta, ts, tssm, build):
+    """Phase 15: the slice's path at full width; returns its launches."""
+    g2, mb = GEMMA2, MAMBA2
+    full, dec = _gemma2_inputs(torch, 81)
+    ssd = _ssd_inputs(torch, mb["b"], mb["s"], mb["h"], mb["p"], mb["n"], 83)
+    runs = [
+        ("gemma2 global", lambda: ta.flash_attention(
+            *full, causal=True, softcap=g2["softcap"]),
+         lambda: ta.attention_plain(*full, causal=True,
+                                    softcap=g2["softcap"])),
+        ("gemma2 local", lambda: ta.flash_attention(
+            *full, causal=True, window=g2["window"], softcap=g2["softcap"]),
+         lambda: ta.attention_plain(*full, causal=True, window=g2["window"],
+                                    softcap=g2["softcap"])),
+        ("gemma2 decode", lambda: ta.flash_attention(
+            *dec, causal=True, softcap=g2["softcap"], bq=1),
+         lambda: ta.attention_plain(*dec, causal=True,
+                                    softcap=g2["softcap"])),
+        ("mamba2 ssd", lambda: ts.ssd_chunk_scan(*ssd, chunk=mb["chunk"]),
+         lambda: tssm._ssd_chunked(
+             ssd[0], ssd[1], ssd[2], ssd[3][:, :, None], ssd[4][:, :, None],
+             mb["chunk"])),
+    ]
+    for _, fn, _ in runs:   # warm-up: builds, allocations
+        fn()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs, results = {}, []
+    for label, fn, _ in runs:
+        t = time.perf_counter()
+        outs[label] = fn()
+        torch.cuda.synchronize()
+        results.append(dict(run=label, ms=1e3 * (time.perf_counter() - t)))
+    launches = dict(build.LAUNCHES)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention=3, ssd_chunk_scan=1)
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    for row, (label, _, plain) in zip(results, runs):
+        kernel = "ssd_chunk_scan" if "ssd" in label else "flash_attention"
+        got = outs.pop(label)
+        tol = SSD_TOL if "ssd" in label else ATTN_TOL[str(got.dtype)]
+        row["max_err"] = chk.check(f"main/{label}", kernel, got, plain(),
+                                   False, tol)
+        row.update(shape=list(got.shape), tolerance=tol,
+                   rms=float(got.double().square().mean().sqrt()))
+        del got
+        torch.cuda.empty_cache()
+    # the same runs in float32 at 2e-5: the bf16 bar (2e-2) is about the
+    # size of an output at these lengths (sqrt(e / n) for a row of n keys;
+    # rms above), so a missed key tile could pass it. The kernel's body is
+    # the same for both types; float32 holds it far below the outputs.
+    f32 = [tuple(t.float() for t in qkv) for qkv in (full, dec)]
+    del full, dec
+    for label, qkv, kw in (
+            ("gemma2 global f32", f32[0], dict(causal=True)),
+            ("gemma2 local f32", f32[0], dict(causal=True,
+                                              window=g2["window"])),
+            ("gemma2 decode f32", f32[1], dict(causal=True))):
+        kw["softcap"] = g2["softcap"]
+        got = ta.flash_attention(*qkv, bq=1 if qkv is f32[1] else 128, **kw)
+        tol = ATTN_TOL[str(got.dtype)]
+        results.append(dict(
+            run=label, max_err=chk.check(
+                f"main/{label}", "flash_attention", got,
+                ta.attention_plain(*qkv, **kw), False, tol),
+            shape=list(got.shape), tolerance=tol,
+            rms=float(got.double().square().mean().sqrt())))
+        del got
+        torch.cuda.empty_cache()
+    del f32
+    # the SSD kernel's share of a scan, on CUDA events
+    xc, dtc, bc, cc = ts.to_chunks(ssd[0], ssd[1], ssd[3], ssd[4],
+                                   mb["chunk"])
+    kernel_ms = cuda_ms(torch, lambda: ts.ssd_chunk(xc, dtc, ssd[2], bc, cc),
+                        10)
+    scan_ms = cuda_ms(torch, lambda: ts.ssd_chunk_scan(
+        *ssd, chunk=mb["chunk"]), 10)
+    emit("attention_ssd_main_path", gemma2=g2, mamba2=mb, runs=results,
+         launches={n: launches[n] for n in ("flash_attention",
+                                            "ssd_chunk_scan")},
+         ssd_kernel_ms=kernel_ms, ssd_scan_ms=scan_ms,
+         ssd_kernel_share=kernel_ms / scan_ms)
+    return launches
+
+
+def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
+    """Phase 16: rows 12 and 13. Attention at gemma2-2b's global layer
+    with the softcap off, where SDPA computes the same function (timed
+    here only as the yardstick); the other main-path shapes beside it.
+    Bounds count visible (query, key) pairs, 4 D operations each, at the
+    bf16 tensor rate the bf16 bar allows, and Q, K, V and O once. The SSD
+    kernel at mamba2-780m: C B^T once a chunk on its lower triangle, the y
+    triangle and the state per head at the FP32 rate; x, dt, B, C in and
+    y_diag and the states out once."""
+    F = torch.nn.functional
+    g2, mb = GEMMA2, MAMBA2
+    full, dec = _gemma2_inputs(torch, 91)
+    h, s, d = g2["h"], g2["s"], g2["d"]
+    qkv_bytes = 4 * h * s * d * 2   # Q, K, V and O, bf16
+    shapes = {
+        "global": (full, dict(causal=True), h * s * (s + 1) // 2),
+        "global softcap": (full, dict(causal=True, softcap=g2["softcap"]),
+                           h * s * (s + 1) // 2),
+        "local softcap": (full, dict(causal=True, window=g2["window"],
+                                     softcap=g2["softcap"]),
+                          h * (g2["window"] * (g2["window"] + 1) // 2
+                               + (s - g2["window"]) * g2["window"])),
+        "decode softcap": (dec, dict(causal=True, softcap=g2["softcap"],
+                                     bq=1), g2["decode_b"] * h * s),
+    }
+    att = {}
+    for label, (qkv, kw, pairs) in shapes.items():
+        plain_kw = {n: v for n, v in kw.items() if n != "bq"}
+        nbytes = qkv_bytes if qkv is full else \
+            2 * qkv[1].numel() * 2 + 2 * qkv[0].numel() * 2
+        ms = cuda_ms(torch, lambda: ta.flash_attention(*qkv, **kw), 5)
+        plain_ms = cuda_ms(torch, lambda: ta.attention_plain(*qkv,
+                                                             **plain_kw), 2)
+        ops_ms = 1e3 * 4 * d * pairs / BF16_FLOPS
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        att[label] = dict(ms=ms, plain_ms=plain_ms, pairs=pairs,
+                          bound_ms=max(ops_ms, bytes_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms
+                          else "operations")
+        emit("kernel_timing", name="flash_attention", run=label,
+             shape=list(qkv[0].shape), sk=qkv[1].shape[2], ms=ms,
+             plain_ms=plain_ms, pairs=pairs, ops_ms=ops_ms, bytes=nbytes,
+             bytes_ms=bytes_ms)
+    got = ta.flash_attention(*full, causal=True)
+    lib = F.scaled_dot_product_attention(*full, is_causal=True)
+    sdpa_err = chk.check("timing/sdpa", None, got, lib, False,
+                         ATTN_TOL["torch.bfloat16"])
+    del got, lib
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        *full, is_causal=True), 5)
+    emit("library_timing", name="scaled_dot_product_attention",
+         run="global", ms=library_ms, max_err_vs_kernel=sdpa_err,
+         kernel_ms=att["global"]["ms"],
+         kernel_over_library=att["global"]["ms"] / library_ms)
+    del full, dec
+    torch.cuda.empty_cache()
+
+    x, dt, a, bm, cm = _ssd_inputs(torch, mb["b"], mb["s"], mb["h"],
+                                   mb["p"], mb["n"], 93)
+    xc, dtc, bc, cc = ts.to_chunks(x, dt, bm, cm, mb["chunk"])
+    for got, want in zip(ts.ssd_chunk(xc, dtc, a, bc, cc),
+                         ts.ssd_chunk_plain(xc, dtc, a, bc, cc)):
+        chk.check("timing/ssd", "ssd_chunk_scan", got, want, False, SSD_TOL)
+    n_chunks, ll = xc.shape[0], mb["chunk"]
+    hh, p, n = mb["h"], mb["p"], mb["n"]
+    # C B^T on its lower triangle, the y triangle and the state; the exps
+    # and scalings are left out, which keeps the bound a lower bound
+    tri = ll * (ll + 1) // 2
+    ops = 2 * n_chunks * (tri * n + hh * (tri * p + ll * p * n))
+    nbytes = 4 * (2 * xc.numel() + dtc.numel() + bc.numel() + cc.numel()
+                  + n_chunks * hh * p * n)
+    ms = cuda_ms(torch, lambda: ts.ssd_chunk(xc, dtc, a, bc, cc), 10)
+    plain_ms = cuda_ms(torch, lambda: ts.ssd_chunk_plain(xc, dtc, a, bc,
+                                                         cc), 3)
+    ops_ms, bytes_ms = 1e3 * ops / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    emit("kernel_timing", name="ssd_chunk_scan", shape=list(xc.shape),
+         n=n, ms=ms, plain_ms=plain_ms, ops=ops, ops_ms=ops_ms,
+         bytes=nbytes, bytes_ms=bytes_ms)
+    row_att = att["global"]
+    rows = [dict(
+        name="flash_attention", route="cuda", source=KERNELS[
+            "flash_attention"][0], replaces=KERNELS["flash_attention"][1],
+        launches=launches["flash_attention"],
+        max_abs_err=chk.max_err["flash_attention"], ms=row_att["ms"],
+        plain_ms=row_att["plain_ms"], bound_ms=row_att["bound_ms"],
+        bound_by=row_att["bound_by"], library_ms=library_ms), dict(
+        name="ssd_chunk_scan", route="cuda",
+        source=KERNELS["ssd_chunk_scan"][0],
+        replaces=KERNELS["ssd_chunk_scan"][1],
+        launches=launches["ssd_chunk_scan"],
+        max_abs_err=chk.max_err["ssd_chunk_scan"], ms=ms, plain_ms=plain_ms,
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None)]
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -880,6 +1260,9 @@ def main() -> int:
     from repro_torch.kernels import nu_map as nm
     from repro_torch.kernels import squeeze_stencil as sk
     from repro_torch.kernels import squeeze_stencil3d as k3
+    from repro_torch.kernels import attention as ta
+    from repro_torch.kernels import ssd_chunk as ts
+    from repro_torch.models import ssm as tssm
     from repro_torch.workloads.base import halo_needs
     from repro_torch.workloads import BatchedRunner
     from repro_torch.workloads import rules as R
@@ -890,6 +1273,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # the plain versions' float32 products in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     print(card, flush=True)
@@ -983,15 +1369,13 @@ def main() -> int:
     cell_index_seconds = time.perf_counter() - t
     out_cell = drive("cell life", lambda: cell.run(cell_init, 4), 4, 1)
     launches = dict(sk.LAUNCHES)
-    expect = {"stencil_step_mxu_batched": 64 // k * 2,
-              "stencil_step_fused_k": 63 // k * 3,
-              "stencil_step_fused": 63 % k * 2,
-              "stencil_step_strips": 63 % k + 16 * 2,
-              "stencil_step_blocks": 16 * 2,
-              "lambda_map_tc": 1, "nu_map_tc": 8,
-              "stencil3d_step_fused_k": 0, "stencil3d_step_mxu_k": 0,
-              "stencil_step_fused_k_local": 0,
-              "stencil_step_mxu_k_local": 0}
+    expect = dict.fromkeys(launches, 0)   # every other kernel: none
+    expect.update({"stencil_step_mxu_batched": 64 // k * 2,
+                   "stencil_step_fused_k": 63 // k * 3,
+                   "stencil_step_fused": 63 % k * 2,
+                   "stencil_step_strips": 63 % k + 16 * 2,
+                   "stencil_step_blocks": 16 * 2,
+                   "lambda_map_tc": 1, "nu_map_tc": 8})
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -1203,6 +1587,8 @@ def main() -> int:
 
     # 7-10. the 3D slice --------------------------------------------------
     phase_3d_kernels_vs_plain(torch, chk, F3, R, c3.BlockLayout3D, k3)
+    phase_3d_global_windows(torch, chk, F3, R, make_engine, c3, k3)
+    torch.cuda.empty_cache()
     launches3, lay3, engines3 = phase_3d_main(
         torch, chk, F3, R, make_engine, default_fusion_k, c3.shared_layout3d,
         BatchedRunner, k3, c3)
@@ -1225,6 +1611,15 @@ def main() -> int:
     rows += phase_dist_timing(torch, chk, R, sk, lay_d,
                               default_fusion_k(lay_d.rho), launches_d,
                               fused_d, mxu_d, state1, states4)
+    del lay_d, fused_d, mxu_d, state1, states4
+    torch.cuda.empty_cache()
+
+    # 14-16. attention and the SSD chunk scan ------------------------------
+    phase_attention_ssd_vs_plain(torch, chk, ta, ts, tssm)
+    torch.cuda.empty_cache()
+    launches_a = phase_attention_ssd_main(torch, chk, ta, ts, tssm, build)
+    torch.cuda.empty_cache()
+    rows += phase_attention_ssd_timing(torch, chk, ta, ts, launches_a)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

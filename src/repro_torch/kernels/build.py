@@ -27,6 +27,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v",
 )
 
+#: bytes of shared memory one Hopper CTA can use
+MAX_SMEM = 232448
+#: CTAs of a persistent grid: two per SM of an H100 (132 SMs)
+PERSISTENT_CTAS = 2 * 132
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

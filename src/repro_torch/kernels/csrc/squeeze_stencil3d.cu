@@ -23,8 +23,19 @@
 // window cells (one block at rho=9, k >= 2); the CTA's threads stride over
 // the live cells of each substep. Shared bytes are 2 G (rho+2k)^3 state
 // cells plus the window mask: about 10 KB (LIFE3D) and 30 KB (HEAT3D) at
-// rho=9, k=3. A window over 232,448 bytes (HEAT3D at rho=27, k >= 2) is
-// refused, not split.
+// rho=9, k=3.
+//
+// A window over 232,448 shared bytes (HEAT3D at rho=27, k >= 2: 2 x 31^3 f32
+// cells; LIFE3D at k=rho=27: 2 x 81^3 cells) takes the second instance of the
+// same kernel body, kGlobal: the two state buffers live in a device workspace
+// the wrapper allocates, 2 G w^3 cells a CTA, and the window mask and the mxu
+// operators are read where they lie in device memory; only the slot ids stay
+// in shared memory. Its grid is persistent and bounded (the wrapper launches
+// at most 2 x 132 CTAs, each looping over its (block group, batch) items), so
+// the workspace stays at 2 x 132 windows however many blocks there are (280
+// MB for LIFE3D at k=27). The buffers are read back within the CTA after a
+// __syncthreads, which orders global memory for the block as it does shared
+// memory, and most of a window stays in L1/L2 between substeps.
 //
 // The two kernels differ only in the aggregate. The fused kernel sums the 26
 // neighbors as workloads/base.py::weighted_moore_agg3 does: a uniform weight
@@ -182,108 +193,149 @@ __host__ __device__ inline Smem3 smem3(int G, int w, int n_terms,
   return s;
 }
 
-// grid (ceil(nb / G), B); G compact blocks per CTA; k substeps on a
-// shrinking window between two shared buffers; kBanded picks the mxu
-// aggregate.
-template <class Rule, bool kBanded>
+// Shared-memory variant: grid (ceil(nb / G), B), one item per CTA, every
+// buffer in dynamic shared memory. Global variant (kGlobal): grid (n_ctas),
+// each CTA looping over the (block group, batch) items with its own slice
+// of the workspace ws, the window mask and the mxu operators read where
+// they lie in device memory, the slot ids in shared memory. An item: G
+// compact blocks of simulation b from blk0, staged as windows in buf0 (from
+// the slot ids), k substeps on a shrinking window between buf0 and buf1,
+// the centers written to dst; kBanded picks the mxu aggregate. ws and
+// batch come after ra: placed before it, ptxas spilled in the shared HEAT3D
+// mxu instance, 1-3 % slower on an H100.
+template <class Rule, bool kBanded, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 step3_kernel(const typename Rule::T* __restrict__ src,
              typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
              const uint8_t* __restrict__ wmask,
              const float* __restrict__ rop, const float* __restrict__ cop,
-             long long nb, int rho, int k, int G, Rule3Args ra) {
+             long long nb, int rho, int k, int G, Rule3Args ra,
+             typename Rule::T* __restrict__ ws, int batch) {
   using T = typename Rule::T;
   using A = typename Rule::A;
   const int w = rho + 2 * k, ww = w * w, www = ww * w;
   const long long cells = (long long)rho * rho * rho;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem3 lay = smem3(G, w, kBanded ? ra.n_terms : 0, sizeof(T));
-  T* buf0 = reinterpret_cast<T*>(smem);
+  T* buf0;
+  const float* rs;
+  const float* cs;
+  const uint8_t* wm;
+  int* ids;
+  if constexpr (kGlobal) {
+    buf0 = ws + (size_t)blockIdx.x * 2 * G * www;
+    rs = rop;
+    cs = cop;
+    wm = wmask;
+    ids = reinterpret_cast<int*>(smem);
+  } else {
+    const Smem3 lay = smem3(G, w, kBanded ? ra.n_terms : 0, sizeof(T));
+    buf0 = reinterpret_cast<T*>(smem);
+    float* rsw = reinterpret_cast<float*>(smem + lay.rs);
+    float* csw = reinterpret_cast<float*>(smem + lay.cs);
+    uint8_t* wmw = smem + lay.wm;
+    for (int t = threadIdx.x; t < www; t += blockDim.x) wmw[t] = wmask[t];
+    if (kBanded)
+      for (int t = threadIdx.x; t < ra.n_terms * ww; t += blockDim.x) {
+        rsw[t] = rop[t];
+        csw[t] = cop[t];
+      }
+    rs = rsw;
+    cs = csw;
+    wm = wmw;
+    ids = reinterpret_cast<int*>(smem + lay.ids);
+  }
   T* buf1 = buf0 + (size_t)G * www;
-  float* rs = reinterpret_cast<float*>(smem + lay.rs);
-  float* cs = reinterpret_cast<float*>(smem + lay.cs);
-  int* ids = reinterpret_cast<int*>(smem + lay.ids);
-  uint8_t* wm = smem + lay.wm;
-
-  const long long blk0 = (long long)blockIdx.x * G;
-  const int b = blockIdx.y;
-  const int slots = (int)min((long long)G, nb - blk0);
-  for (int t = threadIdx.x; t < slots * kIds; t += blockDim.x) {
-    const int g = t / kIds, d = t - g * kIds;
-    const long long blk = blk0 + g;
-    ids[t] = d == kSelf ? (int)blk : nbr[blk * kDirs + d];
-  }
-  for (int t = threadIdx.x; t < www; t += blockDim.x) wm[t] = wmask[t];
-  if (kBanded)
-    for (int t = threadIdx.x; t < ra.n_terms * ww; t += blockDim.x) {
-      rs[t] = rop[t];
-      cs[t] = cop[t];
-    }
-  __syncthreads();
-
-  // stage the windows, a ghost neighbor as zeros
-  for (int t = threadIdx.x; t < slots * www; t += blockDim.x) {
-    const int g = t / www, cell = t - g * www;
-    const int z = cell / ww, rem = cell - z * ww, y = rem / w,
-              x = rem - y * w;
-    int rz, ry, rx;
-    const int d = region3(z, y, x, rho, k, &rz, &ry, &rx);
-    const long long id = ids[g * kIds + d];
-    const int sz = z - k - (rz - 1) * rho, sy = y - k - (ry - 1) * rho,
-              sx = x - k - (rx - 1) * rho;
-    T v = (T)0;
-    if (id < nb)
-      v = src[((long long)b * nb + id) * cells + ((long long)sz * rho + sy) *
-                                                     rho + sx];
-    buf0[(size_t)g * www + cell] = v;
-  }
-  __syncthreads();
-
-  T* cur = buf0;
-  T* nxt = buf1;
-  for (int j = 1; j <= k; ++j) {
-    const int span = w - 2 * j, area = span * span, vol = area * span;
-    for (int t = threadIdx.x; t < slots * vol; t += blockDim.x) {
-      const int g = t / vol, a = t - g * vol;
-      const int z = j + a / area, a2 = a % area;
-      const int y = j + a2 / span, x = j + a2 % span;
-      const T* tile = cur + (size_t)g * www;
-      A agg;
-      if constexpr (kBanded)
-        agg = Rule::from_f32(banded_agg3(tile, z, y, x, w, rs, cs, ra));
-      else
-        agg = moore_agg3<A>(tile, z, y, x, w, ra);
-      int rz, ry, rx;
-      const int d = region3(z, y, x, rho, k, &rz, &ry, &rx);
-      const int cell = (z * w + y) * w + x;
-      const int m = wm[cell] * (d == kSelf || ids[g * kIds + d] < nb);
-      nxt[(size_t)g * www + cell] = Rule::apply(tile[cell], agg, m, ra);
+  const long long n_groups = (nb + G - 1) / G;
+  const long long n_items = kGlobal ? n_groups * batch : 1;
+  for (long long item = kGlobal ? blockIdx.x : 0; item < n_items;
+       item += kGlobal ? gridDim.x : 1) {
+    const long long blk0 =
+        kGlobal ? item % n_groups * G : (long long)blockIdx.x * G;
+    const int b = kGlobal ? (int)(item / n_groups) : (int)blockIdx.y;
+    const int slots = (int)min((long long)G, nb - blk0);
+    for (int t = threadIdx.x; t < slots * kIds; t += blockDim.x) {
+      const int g = t / kIds, d = t - g * kIds;
+      const long long blk = blk0 + g;
+      ids[t] = d == kSelf ? (int)blk : nbr[blk * kDirs + d];
     }
     __syncthreads();
-    T* tmp = cur; cur = nxt; nxt = tmp;
-  }
 
-  // write the rho^3 centers
-  for (int t = threadIdx.x; t < slots * cells; t += blockDim.x) {
-    const int g = t / (int)cells, c = t - g * (int)cells;
-    const int z = c / (rho * rho), rem = c - z * rho * rho, y = rem / rho,
-              x = rem - y * rho;
-    dst[((long long)b * nb + blk0 + g) * cells + c] =
-        cur[(size_t)g * www + ((z + k) * w + (y + k)) * w + (x + k)];
+    // stage the windows, a ghost neighbor as zeros
+    for (int t = threadIdx.x; t < slots * www; t += blockDim.x) {
+      const int g = t / www, cell = t - g * www;
+      const int z = cell / ww, rem = cell - z * ww, y = rem / w,
+                x = rem - y * w;
+      int rz, ry, rx;
+      const int d = region3(z, y, x, rho, k, &rz, &ry, &rx);
+      const long long id = ids[g * kIds + d];
+      const int sz = z - k - (rz - 1) * rho, sy = y - k - (ry - 1) * rho,
+                sx = x - k - (rx - 1) * rho;
+      T v = (T)0;
+      if (id < nb)
+        v = src[((long long)b * nb + id) * cells + ((long long)sz * rho + sy) *
+                                                       rho + sx];
+      buf0[(size_t)g * www + cell] = v;
+    }
+    __syncthreads();
+
+    T* cur = buf0;
+    T* nxt = buf1;
+    for (int j = 1; j <= k; ++j) {
+      const int span = w - 2 * j, area = span * span, vol = area * span;
+      for (int t = threadIdx.x; t < slots * vol; t += blockDim.x) {
+        const int g = t / vol, a = t - g * vol;
+        const int z = j + a / area, a2 = a % area;
+        const int y = j + a2 / span, x = j + a2 % span;
+        const T* tile = cur + (size_t)g * www;
+        A agg;
+        if constexpr (kBanded)
+          agg = Rule::from_f32(banded_agg3(tile, z, y, x, w, rs, cs, ra));
+        else
+          agg = moore_agg3<A>(tile, z, y, x, w, ra);
+        int rz, ry, rx;
+        const int d = region3(z, y, x, rho, k, &rz, &ry, &rx);
+        const int cell = (z * w + y) * w + x;
+        const int m = wm[cell] * (d == kSelf || ids[g * kIds + d] < nb);
+        nxt[(size_t)g * www + cell] = Rule::apply(tile[cell], agg, m, ra);
+      }
+      __syncthreads();
+      T* tmp = cur; cur = nxt; nxt = tmp;
+    }
+
+    // write the rho^3 centers
+    for (int t = threadIdx.x; t < slots * cells; t += blockDim.x) {
+      const int g = t / (int)cells, c = t - g * (int)cells;
+      const int z = c / (rho * rho), rem = c - z * rho * rho, y = rem / rho,
+                x = rem - y * rho;
+      dst[((long long)b * nb + blk0 + g) * cells + c] =
+          cur[(size_t)g * www + ((z + k) * w + (y + k)) * w + (x + k)];
+    }
+    if constexpr (kGlobal) __syncthreads();  // the next item overwrites
   }
 }
 
+// ws == nullptr: the shared-memory variant; else the global variant over
+// n_ctas CTAs, ws holding n_ctas x 2 G (rho+2k)^3 cells.
 template <class Rule, bool kBanded>
 int launch3(const void* src, void* dst, const int* nbr, const uint8_t* wmask,
-            const float* rop, const float* cop, long long nb, int batch,
-            int rho, int k, int G, const Rule3Args& ra, cudaStream_t stream) {
+            const float* rop, const float* cop, void* ws, int n_ctas,
+            long long nb, int batch, int rho, int k, int G,
+            const Rule3Args& ra, cudaStream_t stream) {
   using T = typename Rule::T;
   if (G < 1 || k < 1 || k > rho || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
+  if (ws != nullptr) {
+    if (n_ctas < 1) return (int)cudaErrorInvalidValue;
+    step3_kernel<Rule, kBanded, true>
+        <<<n_ctas, kThreads, (size_t)G * kIds * sizeof(int), stream>>>(
+            static_cast<const T*>(src), static_cast<T*>(dst), nbr, wmask,
+            rop, cop, nb, rho, k, G, ra, static_cast<T*>(ws), batch);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem3(G, rho + 2 * k, kBanded ? ra.n_terms : 0,
                             sizeof(T)).total;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = step3_kernel<Rule, kBanded>;
+  auto kernel = step3_kernel<Rule, kBanded, false>;
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -292,21 +344,23 @@ int launch3(const void* src, void* dst, const int* nbr, const uint8_t* wmask,
   dim3 grid((unsigned)((nb + G - 1) / G), (unsigned)batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(src), static_cast<T*>(dst), nbr, wmask, rop, cop,
-      nb, rho, k, G, ra);
+      nb, rho, k, G, ra, nullptr, batch);
   return (int)cudaGetLastError();
 }
 
 template <bool kBanded>
 int entry3(int rule, const void* src, void* dst, const int* nbr,
            const uint8_t* wmask, const float* rop, const float* cop,
-           long long nb, int batch, int rho, int k, int G,
-           const Rule3Args& ra, void* stream) {
+           void* ws, int n_ctas, long long nb, int batch, int rho, int k,
+           int G, const Rule3Args& ra, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rule) {
     case 0: return launch3<Totalistic, kBanded>(src, dst, nbr, wmask, rop, cop,
-                                                nb, batch, rho, k, G, ra, s);
-    case 1: return launch3<Heat, kBanded>(src, dst, nbr, wmask, rop, cop, nb,
-                                          batch, rho, k, G, ra, s);
+                                                ws, n_ctas, nb, batch, rho, k,
+                                                G, ra, s);
+    case 1: return launch3<Heat, kBanded>(src, dst, nbr, wmask, rop, cop, ws,
+                                          n_ctas, nb, batch, rho, k, G, ra,
+                                          s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -323,36 +377,38 @@ Rule3Args make_args3(int born, int survive, float alpha, float degree) {
 extern "C" {
 
 // 3D v4: k exact steps per launch (1 <= k <= rho), G blocks per CTA; the
-// 26 weights (MOORE3_DIRS order) are read from host memory.
+// 26 weights (MOORE3_DIRS order) are read from host memory. ws == nullptr
+// holds the windows in shared memory, else in ws over n_ctas CTAs.
 int sq3_step_fused_k(int rule, const void* src, void* dst, const int* nbr,
                      const uint8_t* wmask, long long nb, int batch, int rho,
                      int k, int G, int born, int survive, float alpha,
                      float degree, int uniform, float wu,
-                     const float* weights, void* stream) {
+                     const float* weights, void* ws, int n_ctas,
+                     void* stream) {
   Rule3Args ra = make_args3(born, survive, alpha, degree);
   ra.uniform = uniform;
   ra.wu = wu;
   for (int d = 0; d < kDirs; ++d) ra.w[d] = weights[d];
-  return entry3<false>(rule, src, dst, nbr, wmask, nullptr, nullptr, nb,
-                       batch, rho, k, G, ra, stream);
+  return entry3<false>(rule, src, dst, nbr, wmask, nullptr, nullptr, ws,
+                       n_ctas, nb, batch, rho, k, G, ra, stream);
 }
 
 // 3D v5: k exact steps per launch, the aggregate as the banded products of
 // n_terms rank-1 operators (rop, cop: (n_terms, w, w) f32 on the device,
 // ordered by dz: terms [0, t0) at dz = -1, [t0, t1) at 0, [t1, n) at +1),
-// P blocks per CTA.
+// P blocks per CTA; ws and n_ctas as for sq3_step_fused_k.
 int sq3_step_mxu_k(int rule, const void* src, void* dst, const int* nbr,
                    const uint8_t* wmask, const float* rop, const float* cop,
                    int n_terms, int t0, int t1, long long nb, int batch,
                    int rho, int k, int P, int born, int survive, float alpha,
-                   float degree, void* stream) {
+                   float degree, void* ws, int n_ctas, void* stream) {
   if (n_terms < 1 || n_terms > kMaxTerms || t0 < 0 || t1 < t0 ||
       t1 > n_terms)
     return (int)cudaErrorInvalidValue;
   Rule3Args ra = make_args3(born, survive, alpha, degree);
   ra.n_terms = n_terms; ra.t0 = t0; ra.t1 = t1;
-  return entry3<true>(rule, src, dst, nbr, wmask, rop, cop, nb, batch, rho,
-                      k, P, ra, stream);
+  return entry3<true>(rule, src, dst, nbr, wmask, rop, cop, ws, n_ctas, nb,
+                      batch, rho, k, P, ra, stream);
 }
 
 }  // extern "C"

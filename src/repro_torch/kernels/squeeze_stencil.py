@@ -74,7 +74,6 @@ _SIGNATURES = {
     "sq_stencil_step_mxu_k_local": [_I] + [_P] * 10 + [_I, _LL, _I, _I, _I,
                                                       _I] + _RULE_ARGS,
 }
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper CTA can use
 _MAX_CTA_CELLS = 8 * 1024  # window cells of one CTA: 8 per thread
 
 
@@ -471,9 +470,9 @@ def _mxu_operands(workload: StencilWorkload, states: torch.Tensor, w: int,
     smem = ((p * workload.n_channels + 2 * n_terms) * w * w * 4
             + p * workload.n_channels * w * w * states.element_size()
             + 16 + p * 36)
-    if smem > _MAX_SMEM or p * w * w > _MAX_CTA_CELLS:
+    if smem > build.MAX_SMEM or p * w * w > _MAX_CTA_CELLS:
         raise ValueError(f"P={p} slots of {w}x{w} cells exceed one CTA "
-                         f"({smem} bytes of {_MAX_SMEM} shared, "
+                         f"({smem} bytes of {build.MAX_SMEM} shared, "
                          f"{p * w * w} cells of {_MAX_CTA_CELLS})")
     if n_macro >= 2 ** 31:
         raise ValueError(f"{n_macro} macro-tiles exceed the grid")

@@ -12,9 +12,11 @@ each, its plain PyTorch version.
 The kernels live in ``csrc/squeeze_stencil3d.cu``. A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises: a failed build raises ``KernelBuildError``, a bad shape,
-dtype, workload, k or a window over the CTA's shared memory raises
-``ValueError`` or ``TypeError``. Each wrapper counts its launches in
-``LAUNCHES``.
+dtype, workload or k raises ``ValueError`` or ``TypeError``. Each kernel
+holds its windows in one CTA's shared memory where they fit, else in a
+device workspace the wrapper allocates (``window_variant``; the same kernel
+body over a bounded persistent grid). Each wrapper counts its launches in
+``LAUNCHES``, a launch of the workspace variant under ``<name>[global]``.
 
 States are ``(B?, n_blocks, rho, rho, rho)`` (single-channel workloads
 only, as the 3D engines); both kernels take the optional leading batch
@@ -39,8 +41,9 @@ from repro_torch.workloads.rules import LIFE3D
 
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES = build.LAUNCHES
-LAUNCHES.update(dict.fromkeys(("stencil3d_step_fused_k",
-                               "stencil3d_step_mxu_k"), 0))
+LAUNCHES.update(dict.fromkeys((
+    "stencil3d_step_fused_k", "stencil3d_step_mxu_k",
+    "stencil3d_step_fused_k[global]", "stencil3d_step_mxu_k[global]"), 0))
 reset_launches = build.reset_launches
 
 #: direction -> MOORE3_DIRS index (the neighbor table's column order)
@@ -50,15 +53,14 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
     # rule, src, dst, nbr, wmask, nb, batch, rho, k, G, born, survive,
-    # alpha, degree, uniform, wu, weights (host), stream
+    # alpha, degree, uniform, wu, weights (host), ws, n_ctas, stream
     "sq3_step_fused_k": [_I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _F, _P, _P],
+                         _F, _F, _I, _F, _P, _P, _I, _P],
     # rule, src, dst, nbr, wmask, R, C, n_terms, t0, t1, nb, batch, rho, k,
-    # P, born, survive, alpha, degree, stream
+    # P, born, survive, alpha, degree, ws, n_ctas, stream
     "sq3_step_mxu_k": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I,
-                       _I, _I, _I, _I, _F, _F, _P],
+                       _I, _I, _I, _I, _F, _F, _P, _I, _P],
 }
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper CTA can use
 #: window cells one fused CTA holds (its G blocks)
 _CELLS_PER_CTA = 4096
 
@@ -110,13 +112,37 @@ def fused_slots(layout: BlockLayout3D, k: int) -> int:
     return max(1, min(layout.n_blocks, _CELLS_PER_CTA // w ** 3))
 
 
-def _check_smem(slots: int, w: int, n_terms: int, itemsize: int,
-                what: str) -> None:
-    need = smem_bytes(slots, w, n_terms, itemsize)
-    if need > _MAX_SMEM:
-        raise ValueError(
-            f"{what}: {slots} window(s) of {w}^3 cells need {need} bytes of "
-            f"shared memory, over the {_MAX_SMEM} one CTA can use")
+def window_variant(layout: BlockLayout3D, workload: StencilWorkload, k: int,
+                   kernel: str, p: Optional[int] = None) -> str:
+    """Where ``kernel`` ('fused' or 'mxu', ``p`` its packing) holds the
+    windows of ``workload`` at depth ``k``: 'shared' when one CTA's shared
+    memory takes ``smem_bytes`` of its slots, else 'global' (a device
+    workspace of ``build.PERSISTENT_CTAS`` CTAs' windows)."""
+    return "global" if smem_bytes(*_window_shape(
+        layout, workload, k, kernel, p)) > build.MAX_SMEM else "shared"
+
+
+def _window_shape(layout, workload, k, kernel, p):
+    """(slots, w, n_terms, itemsize) of one CTA of ``kernel``."""
+    _check_k(layout, k, f"the {kernel} 3D kernel")
+    w = layout.rho + 2 * k
+    if kernel == "fused":
+        return fused_slots(layout, k), w, 0, workload.dtype.itemsize
+    return layout.macro_tiles(k, p=p)[0], w, \
+        len(mxu3_operators(workload, w)[2]), workload.dtype.itemsize
+
+
+def _workspace(layout, workload, k, kernel, p, state, batch):
+    """(slots, workspace or None, its CTAs, launch name) of one launch."""
+    shape = _window_shape(layout, workload, k, kernel, p)
+    slots, w, _, itemsize = shape
+    name = f"stencil3d_step_{kernel}_k"
+    if smem_bytes(*shape) <= build.MAX_SMEM:
+        return slots, None, 0, name
+    n_ctas = min(build.PERSISTENT_CTAS, -(-layout.n_blocks // slots) * batch)
+    ws = torch.empty(n_ctas * 2 * slots * w ** 3 * itemsize,
+                     dtype=torch.uint8, device=state.device)
+    return slots, ws, n_ctas, name + "[global]"
 
 
 # ======================================================================
@@ -287,13 +313,12 @@ def stencil3d_step_fused_k(layout: BlockLayout3D, state: torch.Tensor,
     if state.device.type == "cpu":
         return _into(state, stencil3d_step_fused_k_plain(layout, state,
                                                          workload, k=k), out)
-    w = layout.rho + 2 * k
-    g = fused_slots(layout, k)
-    _check_smem(g, w, 0, state.element_size(), "the fused 3D kernel")
     fn = _c_function("sq3_step_fused_k")
     out = _check_cuda(state, workload, out)
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the grid's 65535")
+    g, ws, n_ctas, name = _workspace(layout, workload, k, "fused", None,
+                                     state, batch)
     weights = workload.weights3d
     uniform = len(set(weights)) == 1 and weights[0] != 0
     host_w = (ctypes.c_float * 26)(*weights)
@@ -306,8 +331,9 @@ def stencil3d_step_fused_k(layout: BlockLayout3D, state: torch.Tensor,
         rc = fn(rule, state.data_ptr(), out.data_ptr(), nbr.data_ptr(),
                 wmask.data_ptr(), layout.n_blocks, batch, layout.rho, k, g,
                 born, survive, alpha, degree, int(uniform),
-                float(weights[0]), ctypes.addressof(host_w), stream)
-    build.finish_launch(rc, "stencil3d_step_fused_k")
+                float(weights[0]), ctypes.addressof(host_w),
+                None if ws is None else ws.data_ptr(), n_ctas, stream)
+    build.finish_launch(rc, name)
     return out
 
 
@@ -324,14 +350,14 @@ def stencil3d_step_mxu_k(layout: BlockLayout3D, state: torch.Tensor,
     if state.device.type == "cpu":
         return _into(state, stencil3d_step_mxu_k_plain(
             layout, state, workload, k=k, p=p), out)
-    w = layout.rho + 2 * k
-    p = layout.macro_tiles(k, p=p)[0]
-    rm, cm, dzs = _mxu3_operators_on(workload, w, str(state.device))
-    _check_smem(p, w, len(dzs), state.element_size(), "the mxu 3D kernel")
     fn = _c_function("sq3_step_mxu_k")
     out = _check_cuda(state, workload, out)
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the grid's 65535")
+    p, ws, n_ctas, name = _workspace(layout, workload, k, "mxu", p, state,
+                                     batch)
+    rm, cm, dzs = _mxu3_operators_on(workload, layout.rho + 2 * k,
+                                     str(state.device))
     t0, t1 = dzs.count(-1), dzs.count(-1) + dzs.count(0)
     dev = state.device
     nbr = layout.device_table("neighbor_table", dev)
@@ -342,6 +368,7 @@ def stencil3d_step_mxu_k(layout: BlockLayout3D, state: torch.Tensor,
         rc = fn(rule, state.data_ptr(), out.data_ptr(), nbr.data_ptr(),
                 wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(), len(dzs), t0,
                 t1, layout.n_blocks, batch, layout.rho, k, p, born, survive,
-                alpha, degree, stream)
-    build.finish_launch(rc, "stencil3d_step_mxu_k")
+                alpha, degree, None if ws is None else ws.data_ptr(), n_ctas,
+                stream)
+    build.finish_launch(rc, name)
     return out

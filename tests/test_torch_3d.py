@@ -409,16 +409,34 @@ def test_3d_kernels_reject_k_beyond_rho_and_wrong_workloads():
 
 def test_3d_window_over_shared_memory_is_refused_before_any_launch():
     """HEAT3D at rho = 27, k = 2: 2 x 31^3 f32 cells exceed one CTA's
-    232,448 bytes; the wrapper raises before it builds or launches."""
+    232,448 bytes, so both wrappers take the device-workspace variant in
+    place of refusing (the shape the reference's pallas-3d kinds accept);
+    windows that fit keep shared memory, and k > rho is still refused
+    before anything is built."""
     assert k3.smem_bytes(1, 31, 0, 4) > 232448
     assert k3.smem_bytes(1, 15, 0, 4) < 32 * 1024   # rho=9, k=3: ~30 KB
     assert k3.smem_bytes(1, 15, 0, 1) < 11 * 1024   # LIFE3D: ~10 KB
     lay = BlockLayout3D(tf3.MENGER, 3, 3)  # rho = 27, one block
+    small = BlockLayout3D(tf3.MENGER, 3, 2)  # rho = 9
+    for kernel in ("fused", "mxu"):
+        assert k3.window_variant(lay, trules.HEAT3D, 2, kernel) == "global"
+        assert k3.window_variant(lay, trules.LIFE3D, 27, kernel) == "global"
+        assert k3.window_variant(lay, trules.LIFE3D, 1, kernel) == "shared"
+        assert k3.window_variant(small, trules.HEAT3D, 3, kernel) == \
+            "shared"
+        with pytest.raises(ValueError, match="k <= rho"):
+            k3.window_variant(lay, trules.LIFE3D, 28, kernel)
     meta = torch.empty((1, 27, 27, 27), dtype=torch.float32, device="meta")
     with mock.patch.object(build, "load_library",
                            side_effect=AssertionError("built")):
         for fn in (k3.stencil3d_step_fused_k, k3.stencil3d_step_mxu_k):
-            with pytest.raises(ValueError, match="shared memory"):
+            with pytest.raises(ValueError, match="k <= rho"):
+                fn(lay, meta, trules.HEAT3D, k=28)
+    # past the plan, the meta tensor is refused only as not CUDA
+    with mock.patch.object(build, "load_library",
+                           return_value=mock.MagicMock()):
+        for fn in (k3.stencil3d_step_fused_k, k3.stencil3d_step_mxu_k):
+            with pytest.raises(ValueError, match="CUDA or CPU"):
                 fn(lay, meta, trules.HEAT3D, k=2)
 
 

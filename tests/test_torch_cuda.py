@@ -22,10 +22,14 @@ from repro_torch.core import fractals3d as tf3
 from repro_torch.core.compact import BlockLayout
 from repro_torch.core.compact3d import BlockLayout3D
 from repro_torch.core.stencil import make_engine
+from repro_torch.kernels import attention as ta
+from repro_torch.kernels import build
 from repro_torch.kernels import lambda_map as lm
 from repro_torch.kernels import nu_map as nm
 from repro_torch.kernels import squeeze_stencil as sk
 from repro_torch.kernels import squeeze_stencil3d as k3
+from repro_torch.kernels import ssd_chunk as ts
+from repro_torch.models import ssm as tssm
 from repro_torch.workloads import BatchedRunner
 from repro_torch.workloads import rules as trules
 
@@ -294,20 +298,17 @@ def test_cuda_3d_runner_batch_matches_cpu(cuda, kind):
 
 
 def test_cuda_3d_wrappers_refuse_bad_inputs(cuda):
-    """An over-limit window, k > rho, a wrong dtype, a strided state and
-    an aliased output raise on the card; nothing falls back to the plain
-    version and nothing is counted."""
+    """k > rho, a wrong dtype, a strided state and an aliased output raise
+    on the card; nothing falls back to the plain version and nothing is
+    counted (a window over shared memory runs: see
+    test_cuda_3d_global_window_matches_plain)."""
     lay = BlockLayout3D(tf3.MENGER, 4, 2)
     x = _state3(lay, trules.LIFE3D, 1)[0].to(cuda)
-    big = BlockLayout3D(tf3.MENGER, 3, 3)  # rho = 27, one block
-    hot = torch.zeros((1, 27, 27, 27), dtype=torch.float32, device=cuda)
     before = dict(k3.LAUNCHES)
     for kernel in ("fused", "mxu"):
         fn = getattr(k3, f"stencil3d_step_{kernel}_k")
         with mock.patch.object(k3, f"stencil3d_step_{kernel}_k_plain",
                                side_effect=AssertionError("fell back")):
-            with pytest.raises(ValueError, match="shared memory"):
-                fn(big, hot, trules.HEAT3D, k=2)
             with pytest.raises(ValueError, match="k <= rho"):
                 fn(lay, x, trules.LIFE3D, k=10)
             with pytest.raises(TypeError):
@@ -318,6 +319,114 @@ def test_cuda_3d_wrappers_refuse_bad_inputs(cuda):
                 fn(lay, x, trules.LIFE3D, k=1, out=x)
     assert k3.LAUNCHES == before
 
+
+
+@pytest.mark.parametrize("kernel", ["fused", "mxu"])
+def test_cuda_3d_global_window_matches_plain(cuda, kernel):
+    """Menger r=4 m=3 (rho = 27, 20 blocks), HEAT3D at k = 3: two 33^3 f32
+    windows are over one CTA's shared memory, so the kernel holds them in
+    its device workspace; one simulation and B = 3 equal the plain version
+    and count as launches of the workspace variant."""
+    wl = trules.HEAT3D
+    lay = BlockLayout3D(tf3.MENGER, 4, 3)
+    x = _state3(lay, wl, 3).to(cuda)
+    fn = getattr(k3, f"stencil3d_step_{kernel}_k")
+    plain = getattr(k3, f"stencil3d_step_{kernel}_k_plain")
+    name = f"stencil3d_step_{kernel}_k"
+    assert k3.window_variant(lay, wl, 3, kernel) == "global"
+    before = dict(k3.LAUNCHES)
+    for s in (x[0], x):
+        _close(fn(lay, s, wl, k=3), plain(lay, s, wl, k=3), wl)
+    assert k3.LAUNCHES[name + "[global]"] - before[name + "[global]"] == 2
+    assert k3.LAUNCHES[name] == before[name]
+
+
+# ------------------------------------------------------- attention, SSD
+#: (B, H, Sq, Sk, D), dtype, keyword arguments
+ATTENTION = [
+    ((1, 2, 256, 128, 64), torch.float32, {}),                  # empty rows
+    ((2, 2, 1, 4096, 128), torch.float32, {"bq": 1}),           # decode
+    ((1, 2, 384, 384, 256), torch.bfloat16,
+     {"window": 128, "softcap": 50.0}),                         # gemma2-like
+    ((1, 2, 128, 256, 36), torch.bfloat16, {"causal": False}),  # 2-byte loads
+]
+
+
+@pytest.mark.parametrize("case", range(len(ATTENTION)),
+                         ids=["empty-rows", "decode", "d256-bf16",
+                              "d36-bf16"])
+def test_cuda_attention_matches_plain(cuda, case):
+    shape, dtype, kw = ATTENTION[case]
+    b, h, sq, sk, d = shape
+    g = torch.Generator().manual_seed(case)
+    q = torch.randn((b, h, sq, d), generator=g).to(cuda, dtype)
+    k, v = (torch.randn((b, h, sk, d), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    before = build.LAUNCHES["flash_attention"]
+    got = ta.flash_attention(q, k, v, **kw)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    plain_kw = {n: x for n, x in kw.items() if n != "bq"}
+    want = ta.attention_plain(q, k, v, **plain_kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 3, 8, 16, 16),
+                                   (2, 256, 4, 64, 128, 128)],
+                         ids=["ragged", "mamba2-width"])
+def test_cuda_ssd_matches_plain(cuda, shape):
+    """The intra-chunk kernel against its plain version, and the whole scan
+    (kernel and recurrence) against the chunked oracle, at 2e-5."""
+    b, s, h, p, n, chunk = shape
+    g = torch.Generator().manual_seed(s)
+    x = torch.randn((b, s, h, p), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g)
+                                      - 1.0)
+    a = -torch.exp(torch.randn(h, generator=g) * 0.3)
+    bm, cm = (torch.randn((b, s, n), generator=g) * 0.5 for _ in range(2))
+    x, dt, a, bm, cm = (t.to(cuda) for t in (x, dt, a, bm, cm))
+    xc, dtc, bc, cc = ts.to_chunks(x, dt, bm, cm, chunk)
+    chunks = (xc, dtc, a, bc, cc)
+    name = "ssd_chunk_scan"
+    before = build.LAUNCHES[name]
+    for got, want in zip(ts.ssd_chunk(*chunks), ts.ssd_chunk_plain(*chunks)):
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    got = ts.ssd_chunk_scan(x, dt, a, bm, cm, chunk=chunk)
+    assert build.LAUNCHES[name] == before + 2
+    want = tssm._ssd_chunked(x, dt, a, bm[:, :, None], cm[:, :, None], chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_cuda_attention_and_ssd_refuse_bad_inputs(cuda):
+    """D over 256, inputs on two devices and a chunk over one CTA's shared
+    memory raise on the card; nothing falls back and nothing is counted."""
+    q = torch.zeros((1, 1, 64, 320), device=cuda)
+    chunks = [torch.zeros(s, device=cuda) for s in
+              ((1, 16, 2, 8), (1, 16, 2), (2,), (1, 16, 8), (1, 16, 8))]
+    before = dict(build.LAUNCHES)
+    with mock.patch.object(ta, "attention_plain",
+                           side_effect=AssertionError("fell back")), \
+            mock.patch.object(ts, "ssd_chunk_plain",
+                              side_effect=AssertionError("fell back")):
+        with pytest.raises(ValueError, match="D <= 256"):
+            ta.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="one device"):
+            ta.flash_attention(q[..., :64], q[..., :64].cpu(), q[..., :64])
+        with pytest.raises(ValueError, match="one device"):
+            ts.ssd_chunk(*chunks[:2], chunks[2].cpu(), *chunks[3:])
+        with pytest.raises(ValueError, match="shared memory"):
+            ts.ssd_chunk(*(torch.zeros(s, device=cuda) for s in (
+                (1, 256, 2, 64), (1, 256, 2), (2,), (1, 256, 128),
+                (1, 256, 128))))
+    assert build.LAUNCHES == before
 
 # ------------------------------------------------------- distributed
 def _pieces(lay, wl, lead, k, seed=0):

@@ -1,6 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax or the reference package, and the CPU path
-runs with neither loaded."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports jax or the
+reference package, and the CPU path runs with neither loaded."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path: Path):
@@ -58,6 +58,14 @@ for kind in ("dist-block", "dist-fused", "dist-mxu"):
                           device="cpu", n_shards=3, exchange=exchange)
         out = eng.run(eng.init_random(0), 3)
         assert torch.isfinite(eng.to_dense(out)).all()
+from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+q = torch.randn(1, 2, 64, 32, dtype=torch.bfloat16)
+assert torch.isfinite(flash_attention(q, q, q, window=16,
+                                      softcap=20.0).float()).all()
+x, bm = torch.randn(1, 40, 2, 8), torch.randn(1, 40, 8)
+y = ssd_chunk_scan(x, torch.rand(1, 40, 2), -torch.rand(2), bm, bm, chunk=16)
+assert y.shape == x.shape and torch.isfinite(y).all()
 runner = BatchedRunner(device="cpu")
 states = runner.init_batch("cuda-mxu", SIERPINSKI, 4, [0, 1], m=2)
 assert runner.run("cuda-mxu", SIERPINSKI, 4, states, 5, m=2).shape == \\
