@@ -91,23 +91,32 @@ jax or the reference package). Phases, each printing one JSON line:
      versions: the reference tests' attention shapes (one block, several,
      Sq < Sk, windows 128 and 256, softcap 50, decode Sq=1), non-causal,
      causal Sq > Sk (queries that see no key get the mean of v), a window
-     that hides every key, D in {64, 128, 256}, each in float32 (bar 2e-5)
-     and bfloat16 (2e-2); the SSD kernel at the reference test's shapes, a
-     ragged S at mamba2-780m's widths (2e-5), with the whole scan against
-     the chunked oracle ``models.ssm._ssd_chunked``;
+     that hides every key, D in {36, 64, 128, 256}, decode with a ragged
+     Sk and with four rows under a window, each in float32 (bar 2e-5) and
+     bfloat16 (the reference's 2e-2, and within one bf16 rounding of the
+     plain version in float32: |got - want| <= ulp_bf16(|want|) + 1e-5),
+     each through the body ``attention.plan`` names (tensor cores, split,
+     FP32), counted under that body's name; the SSD kernel at the
+     reference test's shapes, a ragged S at mamba2-780m's widths (2e-5),
+     with the whole scan against the chunked oracle
+     ``models.ssm._ssd_chunked``;
  15. their path at full width, each run after a warm-up and held against
      the plain version: ``flash_attention`` at gemma2-2b (bf16, 8 heads of
      D=256, softcap 50) for a global layer (causal, S=8192), a local layer
      (window 4096) and decode (B=8, Sq=1, Sk=8192, bq=1), and
      ``ssd_chunk_scan`` at mamba2-780m (f32, B=4, S=2048, 48 heads of P=64,
      N=128, chunk 128), with the kernel's share of the scan on CUDA events
-     and the launch counts; then the three attention runs again in float32
-     at 2e-5 (the bf16 bar is about the size of an output at these
-     lengths), each row with its output's rms beside its bar;
+     and the launch counts by body (global and local on the tensor cores,
+     decode split); each bf16 run also within one bf16 rounding of the
+     float32 plain version; then the three attention runs again in float32
+     at 2e-5 (FP32 body for prefill, split for decode, counted), each row
+     with its output's rms beside its bar;
  16. both kernels timed (attention also at the global layer with the
      softcap off, beside ``scaled_dot_product_attention`` on the same
-     inputs, the yardstick the port never calls); their rows join the
-     ``kernels`` line (thirteen rows).
+     inputs, the yardstick the port never calls, and its plain version),
+     with the bound of the function (4 D operations a visible pair) and of
+     the split-P design (6 D); their rows join the ``kernels`` line
+     (thirteen rows; attention's launches summed over its three bodies).
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -117,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -160,8 +170,16 @@ KERNELS.update({
     "flash_attention": (_ATTN, _TPU + "attention.py:75"),
     "ssd_chunk_scan": (_SSD, _TPU + "ssd_chunk.py:70"),
 })
-#: attention's bars (tests/test_kernels_attention.py:19), (rtol, atol)
+#: attention's bars (tests/test_kernels_attention.py:19), (rtol, atol); a
+#: bf16 result is also held within one bf16 rounding of the float32 plain
+#: version (``Checker.check_bf16_rounding``)
 ATTN_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (2e-2, 2e-2)}
+#: the absolute term of the bf16 rounding bar
+BF16_ROUNDING_ATOL = 1e-5
+#: attention's three bodies, each counted under its own name
+#: (``attention.FP32``, ``TC``, ``SPLIT``)
+ATTN_BODIES = ("flash_attention", "flash_attention[tc]",
+               "flash_attention[split]")
 #: the SSD kernel's bar (tests/test_kernels_ssd.py)
 SSD_TOL = (2e-5, 2e-5)
 #: phase 14's attention cases: the reference test's shapes, then non-causal,
@@ -183,6 +201,9 @@ ATTN_CASES = [
     ("d64", (2, 4, 512, 512, 64), {"window": 200, "softcap": 30.0}),
     ("d256", (1, 4, 512, 1024, 256), {"softcap": 50.0}),
     ("d36", (1, 2, 128, 256, 36), {"causal": False}),
+    ("decode-ragged", (1, 4, 1, 1000, 128), {"bq": 1, "bk": 8}),
+    ("decode-rows-window", (2, 2, 4, 1000, 64), {"bq": 4, "bk": 8,
+                                                  "window": 250}),
 ]
 #: phase 14's SSD cases: the reference test's shapes and a ragged S at the
 #: mamba2-780m head and state widths; (B, S, H, P, N, chunk)
@@ -211,6 +232,21 @@ DIST_SHARDS = 4
 MAIN3D = ("menger", 6, 2)
 #: (fractal, r, m) of the 3D kernel checks
 CHECK3D = [("menger", 5, 1), ("menger", 5, 2), ("sierpinski3d", 10, 2)]
+
+
+def ptxas_summary(log: str) -> list:
+    """[{"entry", "ptxas"}] from nvcc's -Xptxas=-v log: each kernel
+    instance (its mangled name after the source's prefix) with its
+    registers, shared memory and spill lines."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            out.append({"entry": re.sub(r"^.*?_cu_[0-9a-f]+", "",
+                                        m.group(1))[:64], "ptxas": []})
+        elif out and ("registers" in ln or "spill" in ln):
+            out[-1]["ptxas"].append(ln.strip())
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -254,6 +290,24 @@ class Checker:
         if kernel:
             self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), err)
         return err
+
+    def check_bf16_rounding(self, what, got, want32):
+        """A bf16 result within one bf16 rounding of the float32 plain
+        version: |got - want32| <= ulp_bf16(|want32|) + 1e-5 elementwise,
+        ulp_bf16(x) = 2^(floor(log2 x) - 7). Returns the largest |got -
+        want32| and the largest |got - want32| - ulp_bf16(|want32|) (at
+        most 1e-5 where it holds)."""
+        t = self.torch
+        a = want32.double().abs()
+        _, e = t.frexp(a)   # a = f 2^e, 0.5 <= f < 1: floor(log2 a) = e - 1
+        ulp = t.where(a > 0, t.ldexp(t.ones_like(a), e - 8),
+                      t.zeros_like(a))
+        diff = (got.double() - want32.double()).abs()
+        excess = float((diff - ulp).max())
+        if excess > BF16_ROUNDING_ATOL:
+            raise AssertionError(f"{what}: |kernel - plain f32| exceeds one "
+                                 f"bf16 rounding by {excess}")
+        return float(diff.max()), excess
 
 
 def cuda_ms(torch, fn, n: int) -> float:
@@ -1008,21 +1062,39 @@ def _ssd_inputs(torch, b, s, h, p, n, seed):
     return x, dt, a, randn(b, s, n) * 0.5, randn(b, s, n) * 0.5
 
 
-def phase_attention_ssd_vs_plain(torch, chk, ta, ts, tssm):
+def phase_attention_ssd_vs_plain(torch, chk, ta, ts, tssm, build):
     """Phase 14: both new kernels against their plain versions."""
     t0 = time.perf_counter()
     errs = {}
+    rounding, bodies = {}, {}
     for i, (label, shape, kw) in enumerate(ATTN_CASES):
         plain_kw = {n: v for n, v in kw.items() if n not in ("bq", "bk")}
+        b, h, sq, sk, d = shape
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _qkv(torch, shape, dtype, 70 + i)
-            got = ta.flash_attention(q, k, v, **kw)
-            want = ta.attention_plain(q, k, v, **plain_kw)
             what = f"{label}/{str(dtype)[6:]}"
+            body = ta.plan(dtype, b * h, sq, sk, d, True,
+                           plain_kw.get("causal", True),
+                           plain_kw.get("window")).body
+            before = {n: build.LAUNCHES[n] for n in ATTN_BODIES}
+            got = ta.flash_attention(q, k, v, **kw)
+            ran = {n: build.LAUNCHES[n] - before[n] for n in ATTN_BODIES}
+            if ran != {n: int(n == body) for n in ATTN_BODIES}:
+                raise AssertionError(f"attention/{what}: launches {ran}, "
+                                     f"expected one of {body}")
+            bodies[what] = body
+            want = ta.attention_plain(q, k, v, **plain_kw)
             errs[what] = chk.check(f"attention/{what}", "flash_attention",
                                    got, want, False, ATTN_TOL[str(dtype)])
+            if dtype == torch.bfloat16:
+                rounding[what] = chk.check_bf16_rounding(
+                    f"attention/{what}", got, ta.attention_plain(
+                        q.float(), k.float(), v.float(), **plain_kw))
     emit("attention_vs_plain", cases=len(errs), tolerance=ATTN_TOL,
-         max_err=errs, seconds=time.perf_counter() - t0)
+         max_err=errs, bodies=bodies,
+         bf16_rounding={"bar": f"ulp_bf16(|want|) + {BF16_ROUNDING_ATOL}",
+                        "max_err_vs_f32_and_excess_over_ulp": rounding},
+         seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     errs = {}
     for b, s, h, p, n, chunk in SSD_CASES:
@@ -1060,72 +1132,80 @@ def phase_attention_ssd_main(torch, chk, ta, ts, tssm, build):
     g2, mb = GEMMA2, MAMBA2
     full, dec = _gemma2_inputs(torch, 81)
     ssd = _ssd_inputs(torch, mb["b"], mb["s"], mb["h"], mb["p"], mb["n"], 83)
-    runs = [
-        ("gemma2 global", lambda: ta.flash_attention(
-            *full, causal=True, softcap=g2["softcap"]),
-         lambda: ta.attention_plain(*full, causal=True,
-                                    softcap=g2["softcap"])),
-        ("gemma2 local", lambda: ta.flash_attention(
-            *full, causal=True, window=g2["window"], softcap=g2["softcap"]),
-         lambda: ta.attention_plain(*full, causal=True, window=g2["window"],
-                                    softcap=g2["softcap"])),
-        ("gemma2 decode", lambda: ta.flash_attention(
-            *dec, causal=True, softcap=g2["softcap"], bq=1),
-         lambda: ta.attention_plain(*dec, causal=True,
-                                    softcap=g2["softcap"])),
-        ("mamba2 ssd", lambda: ts.ssd_chunk_scan(*ssd, chunk=mb["chunk"]),
-         lambda: tssm._ssd_chunked(
-             ssd[0], ssd[1], ssd[2], ssd[3][:, :, None], ssd[4][:, :, None],
-             mb["chunk"])),
-    ]
-    for _, fn, _ in runs:   # warm-up: builds, allocations
+    att_kw = {
+        "gemma2 global": dict(causal=True, softcap=g2["softcap"]),
+        "gemma2 local": dict(causal=True, window=g2["window"],
+                             softcap=g2["softcap"]),
+        "gemma2 decode": dict(causal=True, softcap=g2["softcap"]),
+    }
+    att_in = {"gemma2 global": full, "gemma2 local": full,
+              "gemma2 decode": dec}
+    runs = [(label, lambda label=label: ta.flash_attention(
+                 *att_in[label], bq=1 if label == "gemma2 decode" else 128,
+                 **att_kw[label]))
+            for label in att_kw]
+    runs.append(("mamba2 ssd", lambda: ts.ssd_chunk_scan(
+        *ssd, chunk=mb["chunk"])))
+    for _, fn in runs:   # warm-up: builds, allocations
         fn()
     torch.cuda.synchronize()
     build.reset_launches()
     outs, results = {}, []
-    for label, fn, _ in runs:
+    for label, fn in runs:
         t = time.perf_counter()
         outs[label] = fn()
         torch.cuda.synchronize()
         results.append(dict(run=label, ms=1e3 * (time.perf_counter() - t)))
     launches = dict(build.LAUNCHES)
     expect = dict.fromkeys(launches, 0)
-    expect.update(flash_attention=3, ssd_chunk_scan=1)
+    expect.update({"flash_attention[tc]": 2, "flash_attention[split]": 1,
+                   "ssd_chunk_scan": 1})
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
-    for row, (label, _, plain) in zip(results, runs):
-        kernel = "ssd_chunk_scan" if "ssd" in label else "flash_attention"
+    row = results[-1]
+    got = outs.pop("mamba2 ssd")
+    row["max_err"] = chk.check("main/mamba2 ssd", "ssd_chunk_scan", got,
+                               tssm._ssd_chunked(
+                                   ssd[0], ssd[1], ssd[2], ssd[3][:, :, None],
+                                   ssd[4][:, :, None], mb["chunk"]),
+                               False, SSD_TOL)
+    row.update(shape=list(got.shape), tolerance=SSD_TOL)
+    del got
+    # each bf16 run against the plain version (the reference's 2e-2) and
+    # within one bf16 rounding of the plain version in float32; then the
+    # same calls in float32 at 2e-5 against that float32 result, through
+    # the FP32 body (prefill) and the split body (decode)
+    f32 = {id(t): tuple(x.float() for x in t) for t in (full, dec)}
+    build.reset_launches()
+    for row, label in zip(results[:len(att_kw)], att_kw):
+        qkv, kw = att_in[label], att_kw[label]
         got = outs.pop(label)
-        tol = SSD_TOL if "ssd" in label else ATTN_TOL[str(got.dtype)]
-        row["max_err"] = chk.check(f"main/{label}", kernel, got, plain(),
-                                   False, tol)
-        row.update(shape=list(got.shape), tolerance=tol,
+        row["max_err"] = chk.check(f"main/{label}", "flash_attention", got,
+                                   ta.attention_plain(*qkv, **kw), False,
+                                   ATTN_TOL[str(got.dtype)])
+        want32 = ta.attention_plain(*f32[id(qkv)], **kw)
+        row["max_err_vs_f32"], row["excess_over_bf16_ulp"] = \
+            chk.check_bf16_rounding(f"main/{label}", got, want32)
+        row.update(shape=list(got.shape), tolerance=ATTN_TOL[str(got.dtype)],
                    rms=float(got.double().square().mean().sqrt()))
         del got
-        torch.cuda.empty_cache()
-    # the same runs in float32 at 2e-5: the bf16 bar (2e-2) is about the
-    # size of an output at these lengths (sqrt(e / n) for a row of n keys;
-    # rms above), so a missed key tile could pass it. The kernel's body is
-    # the same for both types; float32 holds it far below the outputs.
-    f32 = [tuple(t.float() for t in qkv) for qkv in (full, dec)]
-    del full, dec
-    for label, qkv, kw in (
-            ("gemma2 global f32", f32[0], dict(causal=True)),
-            ("gemma2 local f32", f32[0], dict(causal=True,
-                                              window=g2["window"])),
-            ("gemma2 decode f32", f32[1], dict(causal=True))):
-        kw["softcap"] = g2["softcap"]
-        got = ta.flash_attention(*qkv, bq=1 if qkv is f32[1] else 128, **kw)
+        got = ta.flash_attention(*f32[id(qkv)], bq=1 if qkv is dec else 128,
+                                 **kw)
         tol = ATTN_TOL[str(got.dtype)]
         results.append(dict(
-            run=label, max_err=chk.check(
-                f"main/{label}", "flash_attention", got,
-                ta.attention_plain(*qkv, **kw), False, tol),
+            run=f"{label} f32", max_err=chk.check(
+                f"main/{label} f32", "flash_attention", got, want32, False,
+                tol),
             shape=list(got.shape), tolerance=tol,
             rms=float(got.double().square().mean().sqrt())))
-        del got
+        del got, want32
         torch.cuda.empty_cache()
-    del f32
+    f32_launches = {n: build.LAUNCHES[n] for n in ATTN_BODIES}
+    if f32_launches != {"flash_attention": 2, "flash_attention[tc]": 0,
+                        "flash_attention[split]": 1}:
+        raise AssertionError(f"float32 runs' launches {f32_launches}")
+    del f32, full, dec
+    torch.cuda.empty_cache()
     # the SSD kernel's share of a scan, on CUDA events
     xc, dtc, bc, cc = ts.to_chunks(ssd[0], ssd[1], ssd[3], ssd[4],
                                    mb["chunk"])
@@ -1134,8 +1214,9 @@ def phase_attention_ssd_main(torch, chk, ta, ts, tssm, build):
     scan_ms = cuda_ms(torch, lambda: ts.ssd_chunk_scan(
         *ssd, chunk=mb["chunk"]), 10)
     emit("attention_ssd_main_path", gemma2=g2, mamba2=mb, runs=results,
-         launches={n: launches[n] for n in ("flash_attention",
-                                            "ssd_chunk_scan")},
+         launches={n: launches[n] for n in ATTN_BODIES + ("ssd_chunk_scan",)},
+         f32_launches=f32_launches,
+         bf16_rounding_bar=f"ulp_bf16(|want|) + {BF16_ROUNDING_ATOL}",
          ssd_kernel_ms=kernel_ms, ssd_scan_ms=scan_ms,
          ssd_kernel_share=kernel_ms / scan_ms)
     return launches
@@ -1146,7 +1227,8 @@ def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
     with the softcap off, where SDPA computes the same function (timed
     here only as the yardstick); the other main-path shapes beside it.
     Bounds count visible (query, key) pairs, 4 D operations each, at the
-    bf16 tensor rate the bf16 bar allows, and Q, K, V and O once. The SSD
+    bf16 tensor rate, and Q, K, V and O once; the tensor-core body's
+    split-P design does 6 D a pair (its own bound beside). The SSD
     kernel at mamba2-780m: C B^T once a chunk on its lower triangle, the y
     triangle and the state per head at the FP32 rate; x, dt, B, C in and
     y_diag and the states out once."""
@@ -1178,12 +1260,16 @@ def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         att[label] = dict(ms=ms, plain_ms=plain_ms, pairs=pairs,
                           bound_ms=max(ops_ms, bytes_ms),
+                          bound_split_p_ms=max(1.5 * ops_ms, bytes_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms
                           else "operations")
         emit("kernel_timing", name="flash_attention", run=label,
+             body=ta.plan(torch.bfloat16, qkv[0].shape[0] * h,
+                          qkv[0].shape[2], qkv[1].shape[2], d, True,
+                          kw["causal"], kw.get("window")).body,
              shape=list(qkv[0].shape), sk=qkv[1].shape[2], ms=ms,
-             plain_ms=plain_ms, pairs=pairs, ops_ms=ops_ms, bytes=nbytes,
-             bytes_ms=bytes_ms)
+             plain_ms=plain_ms, pairs=pairs, ops_ms=ops_ms,
+             ops_split_p_ms=1.5 * ops_ms, bytes=nbytes, bytes_ms=bytes_ms)
     got = ta.flash_attention(*full, causal=True)
     lib = F.scaled_dot_product_attention(*full, is_causal=True)
     sdpa_err = chk.check("timing/sdpa", None, got, lib, False,
@@ -1223,9 +1309,11 @@ def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
     rows = [dict(
         name="flash_attention", route="cuda", source=KERNELS[
             "flash_attention"][0], replaces=KERNELS["flash_attention"][1],
-        launches=launches["flash_attention"],
+        launches=sum(launches[n] for n in ATTN_BODIES),
+        launches_by_body={n: launches[n] for n in ATTN_BODIES},
         max_abs_err=chk.max_err["flash_attention"], ms=row_att["ms"],
         plain_ms=row_att["plain_ms"], bound_ms=row_att["bound_ms"],
+        bound_split_p_ms=row_att["bound_split_p_ms"],
         bound_by=row_att["bound_by"], library_ms=library_ms), dict(
         name="ssd_chunk_scan", route="cuda",
         source=KERNELS["ssd_chunk_scan"][0],
@@ -1288,8 +1376,7 @@ def main() -> int:
     built = build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          sources={n: {"path": v["path"], "nvcc_seconds": v["seconds"],
-                      "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                                if "registers" in ln or "spill" in ln]}
+                      "ptxas": ptxas_summary(v["log"])}
                   for n, v in built.items()})
 
     chk = Checker(torch)
@@ -1615,7 +1702,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14-16. attention and the SSD chunk scan ------------------------------
-    phase_attention_ssd_vs_plain(torch, chk, ta, ts, tssm)
+    phase_attention_ssd_vs_plain(torch, chk, ta, ts, tssm, build)
     torch.cuda.empty_cache()
     launches_a = phase_attention_ssd_main(torch, chk, ta, ts, tssm, build)
     torch.cuda.empty_cache()

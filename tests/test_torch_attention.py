@@ -5,7 +5,9 @@ for CPU tensors) against ``repro.kernels.ref.attention_ref`` on the cases of
 ``chip_smoke.py``'s phase 14 at small widths, at the reference's bars
 (``tests/test_kernels_attention.py``: 2e-5 for float32, 2e-2 for
 bfloat16), and one case against the Pallas kernel in interpret mode. Inputs
-come from numpy with a seed and go to both packages.
+come from numpy with a seed and go to both packages. ``plan``, which picks
+the kernel body on the card from the shape alone, is tested here too: the
+body for each dtype, D, alignment and Sq, and the split body's splits.
 """
 from unittest import mock
 
@@ -129,3 +131,80 @@ def test_flash_on_a_device_tensor_launches_or_raises():
             with pytest.raises(ValueError, match="CUDA or CPU"):
                 ta.flash_attention(*meta)
     assert build.LAUNCHES == before
+
+
+#: (dtype, D, aligned, Sq, B*H) -> the body ``plan`` picks
+PLANS = [
+    ("f32", 256, True, 8192, 8, ta.FP32),      # float32 prefill: FP32 FMA
+    ("bf16", 256, True, 8192, 8, ta.TC),       # gemma2 global/local layer
+    ("bf16", 72, True, 200, 2, ta.TC),         # ragged tiles, padded D
+    ("bf16", 36, True, 128, 2, ta.FP32),       # no 16-byte rows
+    ("bf16", 256, False, 128, 8, ta.FP32),     # not 16-byte aligned
+    ("bf16", 256, True, 1, 64, ta.SPLIT),      # gemma2 decode
+    ("f32", 256, True, 1, 64, ta.SPLIT),
+    ("f32", 36, True, 1, 4, ta.SPLIT),         # 36 floats: 16-byte rows
+    ("bf16", 36, True, 1, 4, ta.FP32),
+    ("f32", 256, False, 1, 64, ta.FP32),
+    ("bf16", 64, True, 8, 2, ta.SPLIT),        # the split body's most rows
+    ("bf16", 64, True, 9, 2, ta.TC),
+    ("f32", 64, True, 9, 2, ta.FP32),
+    ("bf16", 128, True, 1, 4096, ta.SPLIT),    # a batch that fills the card
+]
+
+
+@pytest.mark.parametrize("dtype,d,aligned,sq,bh,body", PLANS,
+                         ids=[f"{p[0]}-d{p[1]}-{'al' if p[2] else 'mis'}"
+                              f"-sq{p[3]}-bh{p[4]}" for p in PLANS])
+def test_plan_picks_the_body_from_the_shape(dtype, d, aligned, sq, bh,
+                                            body):
+    p = ta.plan(TORCH[dtype], bh, sq, 8192, d, aligned)
+    assert p.body == body
+    assert (p.n_split > 0) == (body == ta.SPLIT)
+
+
+#: (B*H, Sq, Sk, causal, window)
+SPLITS = [
+    (64, 1, 8192, True, None),     # gemma2 decode: every key
+    (64, 1, 8192, True, 4096),     # a local layer's decode: the last 4096
+    (4, 1, 1000, True, None),      # no split size divides 1000
+    (4, 4, 1000, True, 250),       # four rows under a window
+    (2, 8, 5, True, None),         # causal Sq > Sk: rows that see no key
+    (2, 1, 512, True, 0),          # a window that hides every key
+    (3, 2, 77, False, 10),         # non-causal window
+    (1, 1, 1, True, None),         # one key
+    (4096, 1, 300, True, None),    # many heads: one split each
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,causal,window", SPLITS)
+def test_plan_splits_cover_the_visible_keys_none_empty(bh, sq, sk, causal,
+                                                       window):
+    """The splits tile [kv_lo, kv_end) in order, none empty; that range
+    holds every key some row sees, or every key when a row sees none (it
+    then takes the mean of v over all Sk)."""
+    p = ta.plan(torch.bfloat16, bh, sq, sk, 128, True, causal, window)
+    assert p.body == ta.SPLIT
+    # split i holds keys [kv_lo + i split_len, kv_lo + (i + 1) split_len),
+    # cut at kv_end, as the kernel takes them
+    splits = [(p.kv_lo + i * p.split_len,
+               min(p.kv_lo + (i + 1) * p.split_len, p.kv_end))
+              for i in range(p.n_split)]
+    assert p.n_split >= 1
+    assert splits[0][0] == p.kv_lo and splits[-1][1] == p.kv_end
+    assert all(a < b <= a + p.split_len for a, b in splits)
+    assert all(b == a2 for (_, b), (a2, _) in zip(splits, splits[1:]))
+    qpos = np.arange(sq)[:, None] + (sk - sq)
+    kpos = np.arange(sk)[None, :]
+    seen = np.ones((sq, sk), bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window is not None:
+        seen &= kpos > qpos - window
+    if not seen.any(axis=1).all():
+        assert (p.kv_lo, p.kv_end) == (0, sk)
+    else:
+        cols = np.flatnonzero(seen.any(axis=0))
+        assert (p.kv_lo, p.kv_end) == (cols[0], cols[-1] + 1)
+    assert p.n_split * bh >= min(ta.SPLIT_CTAS,
+                                 bh * -(-(p.kv_end - p.kv_lo)
+                                        // ta.SPLIT_MIN_KEYS))

@@ -342,30 +342,60 @@ def test_cuda_3d_global_window_matches_plain(cuda, kernel):
 
 
 # ------------------------------------------------------- attention, SSD
-#: (B, H, Sq, Sk, D), dtype, keyword arguments
-ATTENTION = [
-    ((1, 2, 256, 128, 64), torch.float32, {}),                  # empty rows
-    ((2, 2, 1, 4096, 128), torch.float32, {"bq": 1}),           # decode
-    ((1, 2, 384, 384, 256), torch.bfloat16,
-     {"window": 128, "softcap": 50.0}),                         # gemma2-like
-    ((1, 2, 128, 256, 36), torch.bfloat16, {"causal": False}),  # 2-byte loads
-]
+#: id -> ((B, H, Sq, Sk, D), dtype, keyword arguments, the body that runs)
+ATTENTION = {
+    "empty-rows": ((1, 2, 256, 128, 64), torch.float32, {}, ta.FP32),
+    "decode": ((2, 2, 1, 4096, 128), torch.float32, {"bq": 1}, ta.SPLIT),
+    "d256-bf16": ((1, 2, 384, 384, 256), torch.bfloat16,
+                  {"window": 128, "softcap": 50.0}, ta.TC),   # gemma2-like
+    "d36-bf16": ((1, 2, 128, 256, 36), torch.bfloat16, {"causal": False},
+                 ta.FP32),                                    # 2-byte loads
+    "empty-rows-bf16": ((1, 2, 256, 128, 64), torch.bfloat16, {}, ta.TC),
+    "window-hides-all-bf16": ((1, 2, 128, 256, 64), torch.bfloat16,
+                              {"window": 0}, ta.TC),
+    "ragged-tiles-bf16": ((1, 2, 200, 328, 72), torch.bfloat16,
+                          {"bq": 8, "bk": 8, "softcap": 30.0}, ta.TC),
+    "decode-8192-f32": ((1, 4, 1, 8192, 256), torch.float32,
+                        {"bq": 1, "softcap": 50.0}, ta.SPLIT),
+    "decode-8192-bf16": ((1, 4, 1, 8192, 256), torch.bfloat16,
+                         {"bq": 1, "softcap": 50.0}, ta.SPLIT),
+    # 1000 keys in 16 splits of 63: the last holds 55
+    "decode-ragged-bf16": ((1, 4, 1, 1000, 128), torch.bfloat16,
+                           {"bq": 1, "bk": 8}, ta.SPLIT),
+    "decode-rows-window-bf16": ((2, 2, 4, 1000, 64), torch.bfloat16,
+                                {"bq": 4, "bk": 8, "window": 250}, ta.SPLIT),
+    "decode-hides-all": ((1, 2, 1, 512, 128), torch.float32,
+                         {"bq": 1, "window": 0}, ta.SPLIT),
+}
 
 
-@pytest.mark.parametrize("case", range(len(ATTENTION)),
-                         ids=["empty-rows", "decode", "d256-bf16",
-                              "d36-bf16"])
+def bf16_rounding_bound(want):
+    """ulp_bf16(|want|) + 1e-5 elementwise, ulp_bf16(x) = 2^(floor(log2 x)
+    - 7): the bf16 bar at one rounding of the float32 result."""
+    a = want.double().abs()
+    _, e = torch.frexp(a)   # a = f * 2^e, 0.5 <= f < 1: floor(log2 a) = e - 1
+    ulp = torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                      torch.zeros_like(a))
+    return ulp + 1e-5
+
+
+@pytest.mark.parametrize("case", sorted(ATTENTION))
 def test_cuda_attention_matches_plain(cuda, case):
-    shape, dtype, kw = ATTENTION[case]
+    """Each shape through the body ``plan`` names, counted under that name
+    alone, at the reference's bar against the plain version; a bf16 result
+    also within one bf16 rounding of the plain version in float32."""
+    shape, dtype, kw, body = ATTENTION[case]
     b, h, sq, sk, d = shape
-    g = torch.Generator().manual_seed(case)
+    g = torch.Generator().manual_seed(sorted(ATTENTION).index(case))
     q = torch.randn((b, h, sq, d), generator=g).to(cuda, dtype)
     k, v = (torch.randn((b, h, sk, d), generator=g).to(cuda, dtype)
             for _ in range(2))
-    before = build.LAUNCHES["flash_attention"]
+    before = dict(build.LAUNCHES)
     got = ta.flash_attention(q, k, v, **kw)
-    assert build.LAUNCHES["flash_attention"] == before + 1
-    plain_kw = {n: x for n, x in kw.items() if n != "bq"}
+    assert {n: build.LAUNCHES[n] - before[n]
+            for n in (ta.FP32, ta.TC, ta.SPLIT)} == {
+        n: int(n == body) for n in (ta.FP32, ta.TC, ta.SPLIT)}
+    plain_kw = {n: x for n, x in kw.items() if n not in ("bq", "bk")}
     want = ta.attention_plain(q, k, v, **plain_kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.cuda.synchronize()
@@ -373,6 +403,12 @@ def test_cuda_attention_matches_plain(cuda, case):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+    if dtype == torch.bfloat16:
+        want32 = ta.attention_plain(q.float(), k.float(), v.float(),
+                                    **plain_kw)
+        err = (got.double() - want32.double()).abs()
+        bound = bf16_rounding_bound(want32)
+        assert bool((err <= bound).all()), float((err - bound).max())
 
 
 @pytest.mark.parametrize("shape", [(1, 40, 3, 8, 16, 16),
