@@ -40,7 +40,15 @@ jax or the reference package). Phases, each printing one JSON line:
      cells, also the float32 product form (``*_map_matmul``, Fig. 14's
      tensor-core form against the scalar kernels); then a ``kernels`` line:
      each kernel's launches on the main path, largest error against its
-     plain version, time, plain time and bound;
+     plain version, time, plain time and bound; v5's row (and kernel 7's,
+     phase 13) also with the operation bound of its padded TF32 products
+     (``bound_ops_design_ms``) and the registers and spills of each
+     instance of its kernel (``registers``). v5 computes each window slot's
+     Moore aggregate as sum_t (R_t X) C_t^T on the tensor cores
+     (``mma.sync`` m16n8k8 TF32: one pass for the uint8 CA states, exact
+     after rintf; 3xTF32 for float32), a warp per pair of slots in a
+     persistent grid; windows wider than 8 cells take its wide instance,
+     counted as ``<name>[wide]``;
   7. the 3D kernels (cuda-3d's fused kernel, cuda-3d-mxu's z-slab banded
      kernel) against their plain versions on the Menger sponge (r=5 at m=1
      and m=2) and the Sierpinski tetrahedron (r=10, m=2): LIFE3D, HEAT3D
@@ -164,6 +172,8 @@ KERNELS = {
 #: H100 SXM bf16 on the tensor cores (dense), the rate bf16 attention's
 #: bar (2e-2) allows
 BF16_FLOPS = 989e12
+#: H100 SXM TF32 on the tensor cores (dense): v5's and kernel 7's products
+TF32_FLOPS = 495e12
 _ATTN = "src/repro_torch/kernels/csrc/attention.cu"
 _SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 KERNELS.update({
@@ -247,6 +257,33 @@ def ptxas_summary(log: str) -> list:
         elif out and ("registers" in ln or "spill" in ln):
             out[-1]["ptxas"].append(ln.strip())
     return out
+
+
+def mxu_registers(log: str) -> dict:
+    """{"in-kernel" | "pieces": {"<rule>/<body>": "registers/spill
+    bytes"}}: the v5 kernel's instances (kInKernel for row 5, kPieces for
+    row 7; the one-tile body and the wide one) from nvcc's log."""
+    out = {"in-kernel": {}, "pieces": {}}
+    for e in ptxas_summary(log):
+        m = re.search(r"mxu_kernelINS_\d+(\w+?)ELi(\d)ELi(\d)E", e["entry"])
+        if not m:
+            continue
+        text = " ".join(e["ptxas"])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        halo = "pieces" if m.group(2) == "3" else "in-kernel"
+        body = "one-tile" if m.group(3) == "1" else "wide"
+        out[halo][f"{m.group(1)}/{body}"] = (
+            f"{regs.group(1) if regs else '?'}/"
+            f"{spill.group(1) if spill else 0}")
+    return out
+
+
+def mxu_design_ms(batch: int, n_blocks: int, k: int, passes: int) -> float:
+    """The operation bound of v5's padded products: per slot and substep
+    two 16x8x8 TF32 products' worth (2 x 1024 multiply-adds), times the
+    TF32 passes, at the tensor cores' TF32 rate."""
+    return 1e3 * batch * n_blocks * k * 2 * 1024 * 2 * passes / TF32_FLOPS
 
 
 def emit(phase: str, **fields) -> None:
@@ -948,7 +985,7 @@ def phase_dist_main(torch, chk, F, R, sk, make_engine, shared_layout,
 
 
 def phase_dist_timing(torch, chk, R, sk, lay, k, launches, fused_eng,
-                      mxu_eng, state1, states4):
+                      mxu_eng, state1, states4, mxu_regs):
     """Kernels 6 and 7 at the per-shard shapes of the main path: shard 0's
     whole-domain pass (interior-view table), LIFE, k=2; B=4 for v5.
     Bounds: the state read and written once, the four pieces read once
@@ -980,10 +1017,16 @@ def phase_dist_timing(torch, chk, R, sk, lay, k, launches, fused_eng,
         source, replaces = KERNELS[kname]
         rows.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=chk.max_err[kname], ms=ms,
+            launches=launches[kname] + launches.get(kname + "[wide]", 0),
+            max_abs_err=chk.max_err[kname], ms=ms,
             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=None))
+        if "mxu" in kname:
+            rows[-1].update(
+                bound_ops_design_ms=mxu_design_ms(s5.shape[0], s5.shape[2],
+                                                  k, 1),
+                registers=mxu_regs["pieces"])
         del halo, o
     return rows
 
@@ -1378,6 +1421,7 @@ def main() -> int:
          sources={n: {"path": v["path"], "nvcc_seconds": v["seconds"],
                       "ptxas": ptxas_summary(v["log"])}
                   for n, v in built.items()})
+    mxu_regs = mxu_registers(built["squeeze_stencil"]["log"])
 
     chk = Checker(torch)
 
@@ -1656,10 +1700,15 @@ def main() -> int:
         source, replaces = KERNELS[kname]
         rows.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=chk.max_err[kname], ms=ms,
+            launches=launches[kname] + launches.get(kname + "[wide]", 0),
+            max_abs_err=chk.max_err[kname], ms=ms,
             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=None))
+        if kname == "stencil_step_mxu_batched":
+            rows[-1].update(
+                bound_ops_design_ms=mxu_design_ms(*sb.shape[:2], k, 1),
+                registers=mxu_regs["in-kernel"])
         if "kernel_alone_bytes" in spec:
             extra_ms["kernel_alone_bytes_ms"] = \
                 1e3 * spec["kernel_alone_bytes"] / HBM_BYTES_PER_S
@@ -1697,7 +1746,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_dist_timing(torch, chk, R, sk, lay_d,
                               default_fusion_k(lay_d.rho), launches_d,
-                              fused_d, mxu_d, state1, states4)
+                              fused_d, mxu_d, state1, states4, mxu_regs)
     del lay_d, fused_d, mxu_d, state1, states4
     torch.cuda.empty_cache()
 

@@ -39,17 +39,40 @@
 // the launch (outside the kernel, as XLA gathers it outside the Pallas call);
 // it needs no neighbor table. Both step under micro_mask.
 //
-// v5 computes the Moore aggregate as sum_t (R_t @ X) @ C_t^T, the rank-1
-// banded products of the SVD of the 3x3 weights, over P window slots per
-// CTA. Its f32 multiply-adds make it bound by operations at small rho.
-// The factors are irrational (sqrt(sigma) folded in), so the products run
-// in plain f32 FMAs (no TF32 or bf16); each slot uses its own w x w
-// operands, never a block-diagonal (P w, P w) matrix, and only the three
-// nonzero band entries of each row are visited (the skipped products are
-// exact zeros). Integer aggregates are rounded with rintf. It works on the
-// whole window at every substep, so each thread owns one slot cell (its
-// index arithmetic runs once per launch) and keeps the cell's aggregate in
-// registers; the v3/v4 kernel loops instead, which measured faster there.
+// v5 computes each window slot's Moore aggregate as sum_t (R_t X) C_t^T,
+// the rank-1 banded products of the SVD of the 3x3 weights (two terms for
+// every shipped workload), for P slots per CTA work item. What bounds it
+// is not bytes (it reads each state byte about 9 times from L2, 0.23 ms of
+// device memory at the r=16 LIFE shape) nor its products (0.32 ms at the
+// tensor cores' TF32 rate) but the instructions and shared-memory accesses
+// each slot costs: a thread per window cell with f32 FMA band passes and
+// block-wide barriers took 35 ms there. The design:
+//   * the products on the tensor cores, mma.sync m16n8k8 TF32: the two
+//     terms' R stacked in M ([R_0; R_1] X gives Y_0 and Y_1 of one slot);
+//     that accumulator is the second product's A operand as it stands,
+//     with two slots stacked in M and the K index permuted (column 2t + h
+//     at t + 4h, the same permutation in the operators' B fragment), so Y
+//     never leaves the registers; windows wider than 8 cells are padded to
+//     W = 8 ceil(w / 8) with zero operator rows and columns, and only the
+//     band tiles (|I - J| <= 1) are multiplied;
+//   * precision by state type: the uint8 CA states take one TF32 pass (X
+//     in {0, 1} is exact; the operators and Y rounded to nearest); every
+//     one of the 512 Moore patterns then aggregates within 1.2e-3 of its
+//     count at w = 5..12 (numpy emulation, tests/test_torch_mxu.py), far
+//     inside rintf's 0.5, so CA states are bit-exact. float32 takes
+//     3xTF32 (a = a_hi + a_lo, a_lo b_hi + a_hi b_lo + a_hi b_hi), within
+//     6.4e-7 of the float64 aggregate for HEAT and GRAY_SCOTT;
+//   * a warp per pair of slots, CTAs of up to 8 warps in a persistent grid
+//     over the (simulation, macro-tile) items: each warp stages its pair's
+//     nine whole blocks (or the four halo pieces) with 16-byte cp.async
+//     loads where aligned, the next pair's neighbor ids loading while this
+//     pair computes, keeps its own cells in registers across the k
+//     substeps, exchanges the rest through two window buffers of its own
+//     and stores whole center rows; no block-wide barrier at all.
+// Conversions between u8 and f32 and the rounding of the aggregate run on
+// the FP32 pipe (the conversion instructions run at a quarter of its rate).
+// The wide instance (W > 8) runs the same products tile by tile with
+// everything read at the point of use.
 //
 // The two shard-local entries of the distributed engine run the same v4 and
 // v5 kernels on one shard's blocks. Their halo comes as four pieces
@@ -60,18 +83,21 @@
 // A window reads its pieces whatever the existence says, as the reference
 // assembles its padded tile (kPieces staging).
 //
-// Compiled with -fmad=false so v1-v4 round each operation as the plain
-// PyTorch version does; v5 uses explicit fmaf.
+// Compiled with -fmad=false so v1-v4 and the rules round each operation as
+// the plain PyTorch version does; it does not touch mma.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <numeric>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;           // threads of one v1-v4 CTA
 constexpr int kCellsPerCta = 1024;      // window cells one v1-v4 CTA holds
-constexpr int kMaxThreads = 1024;       // threads of one v5 CTA
-constexpr int kMaxCellsPerThread = 8;   // window cells one v5 thread owns
-constexpr int kMaxTerms = 3;
+constexpr int kMxuWarps = 8;            // most warps of one v5 CTA
+constexpr int kMaxTerms = 2;     // rank-1 terms of ring-uniform weights
 constexpr size_t kMaxSmem = 232448;     // shared bytes one Hopper CTA can use
 
 struct RuleArgs {
@@ -114,13 +140,35 @@ __device__ __forceinline__ A moore_agg(const T* p, int y, int x, int w,
   return agg;
 }
 
+// Conversions between the states and float32 on the FP32 pipe (the
+// conversion instructions run at a quarter of its rate): a uint8 to float,
+// an integer-valued float in [0, 256) to its uint8, and rintf of |a| <=
+// 2^22 as an int (round to nearest even, as rintf).
+__device__ __forceinline__ float u8_to_f32(unsigned v) {
+  return __uint_as_float(0x4B000000u | v) - 8388608.f;
+}
+__device__ __forceinline__ unsigned f32_to_u8(float v) {
+  return __float_as_uint(v + 8388608.f) & 0xffu;
+}
+__device__ __forceinline__ int rint_small(float a) {
+  return __float_as_int(a + 12582912.f) - 0x4B400000;
+}
+__device__ __forceinline__ float to_f32(uint8_t v) { return u8_to_f32(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <class T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (sizeof(T) == 1) return (T)f32_to_u8(v);
+  else return v;
+}
+
 // Each rule updates one cell position (all channels) given its aggregates.
 // `cur` and `out` point at channel 0 of one slot; channels are ww apart.
+// `update` is the same on one cell held in registers (v5), its mask m 1.f
+// or 0.f.
 struct Totalistic {
   using T = uint8_t;
   using A = int;
   static constexpr int C = 1;
-  __device__ static A from_f32(float a) { return (A)rintf(a); }
   __device__ static void apply(const T* cur, T* out, int i, int ww,
                                const A* agg, int m, const RuleArgs& ra) {
     int set = cur[i] > 0 ? ra.survive : ra.born;
@@ -128,18 +176,29 @@ struct Totalistic {
     int v = (a >= 0 && a <= 8) ? ((set >> a) & 1) : 0;
     out[i] = (T)(v * m);
   }
+  __device__ static void update(const float* u, const float* agg, float m,
+                                const RuleArgs& ra, float* out) {
+    int set = u[0] > 0.f ? ra.survive : ra.born;
+    int a = rint_small(agg[0]);   // the aggregate rounded, as rintf
+    int v = (a >= 0 && a <= 8) ? ((set >> a) & 1) : 0;
+    out[0] = v ? m : 0.f;
+  }
 };
 
 struct Heat {
   using T = float;
   using A = float;
   static constexpr int C = 1;
-  __device__ static A from_f32(float a) { return a; }
   __device__ static void apply(const T* cur, T* out, int i, int ww,
                                const A* agg, int m, const RuleArgs& ra) {
     float u = cur[i];
     float nx = u + ra.p0 * (agg[0] - ra.p1 * u);
     out[i] = nx * (float)m;
+  }
+  __device__ static void update(const float* u, const float* agg, float m,
+                                const RuleArgs& ra, float* out) {
+    float nx = u[0] + ra.p0 * (agg[0] - ra.p1 * u[0]);
+    out[0] = nx * m;
   }
 };
 
@@ -147,7 +206,6 @@ struct GrayScott {
   using T = float;
   using A = float;
   static constexpr int C = 2;
-  __device__ static A from_f32(float a) { return a; }
   __device__ static void apply(const T* cur, T* out, int i, int ww,
                                const A* agg, int m, const RuleArgs& ra) {
     float u = cur[i], v = cur[ww + i];
@@ -157,6 +215,15 @@ struct GrayScott {
     float nv = v + ra.p1 * lv + uvv - ra.p3 * v;
     out[i] = nu * (float)m;
     out[ww + i] = nv * (float)m;
+  }
+  __device__ static void update(const float* u, const float* agg, float m,
+                                const RuleArgs& ra, float* out) {
+    float lu = agg[0] - u[0], lv = agg[1] - u[1];
+    float uvv = u[0] * u[1] * u[1];
+    float nu = u[0] + ra.p0 * lu - uvv + ra.p2 * (1.f - u[0]);
+    float nv = u[1] + ra.p1 * lv + uvv - ra.p3 * u[1];
+    out[0] = nu * m;
+    out[1] = nv * m;
   }
 };
 
@@ -436,167 +503,697 @@ step_kernel(const typename Rule::T* __restrict__ src,
   store_centers<Rule>(cur, ids, dst, slots, blk0, nb, b, rho, k);
 }
 
-// The window cells one thread owns, t = threadIdx.x + i * blockDim.x for
-// i < CPT, over `slots` windows of w x w cells. The index arithmetic runs
-// once here, not in the substep loops. Each cell's mask is window_mask(k)
-// gated by the existence of the block that owns its halo region.
-template <int CPT>
-struct Cells {
-  int g[CPT], y[CPT], x[CPT], cell[CPT], m[CPT];
-  bool on[CPT];
+// ---------------------------------------------------------------------
+// v5 on the tensor cores (see the note at the top of the file).
+// ---------------------------------------------------------------------
+constexpr unsigned kFull = 0xffffffffu;
+
+// The launch geometry (``mxu_plan`` in squeeze_stencil.py picks nt, spw
+// and the warps by shape; the launcher fills in the rest).
+struct Geom {
+  int nb, n_macro;         // blocks (of the shard, for kPieces), macro-tiles
+  int batch, rho, k, w;
+  int P;                   // slots per macro-tile (one CTA's work item)
+  int n_terms;
+  int nt;                  // 8 x 8 tiles per window side, W = 8 nt
+  int spw;                 // slots per warp: a pair, or one
+  int slot_elems;          // staged elements per slot and channel
+  int vin, vout;           // bytes per staging load and per center store
+  int n_in, n_out;         // staging loads and center stores per unit
+  int stage_bytes, win_bytes;  // one staging buffer, one window buffer
 };
 
-template <class Rule, int CPT, int H>
-__device__ void stage(Cells<CPT>& cs, const typename Rule::T* __restrict__ src,
-                      const Pieces& pc, typename Rule::T* buf, const int* ids,
-                      const uint8_t* __restrict__ wmask, int slots,
-                      long long blk0, long long nb, int b, int rho, int k) {
-  using T = typename Rule::T;
-  constexpr int C = Rule::C;
-  const int w = rho + 2 * k, ww = w * w;
-  const long long cells = (long long)rho * rho;
+// x rounded to TF32, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 does on this card: half an ulp of TF32 (bit 12) added,
+// the 13 low bits left for the tensor cores to ignore (finite x).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return __float_as_uint(x) + 0x1000u;
+}
+
+// x = hi + lo, both rounded to TF32 by round-to-nearest (hi's low bits
+// cleared, so that x - hi is exact); lo is left 0 (never multiplied) in the
+// one-pass form.
+struct Split {
+  uint32_t hi, lo;
+};
+
+template <bool X3>
+__device__ __forceinline__ Split split(float x) {
+  Split s;
+  s.hi = X3 ? tf32(x) & 0xffffe000u : tf32(x);
+  s.lo = X3 ? tf32(x - __uint_as_float(s.hi)) : 0u;
+  return s;
+}
+
+// A window value as the first product's B operand: as it is for the
+// uint8 CA states (0 and 1, or any byte, are exact in TF32), else split.
+template <bool X3>
+__device__ __forceinline__ Split state_operand(float x) {
+  return X3 ? split<true>(x) : Split{__float_as_uint(x), 0u};
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d = a b, the accumulator input zero.
+__device__ __forceinline__ void mma0(float (&d)[4], uint32_t a0, uint32_t a1,
+                                     uint32_t a2, uint32_t a3, uint32_t b0,
+                                     uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// d (+)= a b in one TF32 product, or in three (3xTF32: a_lo b_hi + a_hi b_lo
+// + a_hi b_hi, the small terms first); `zero` starts d from 0.
+template <bool X3>
+__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
+                                     const Split (&b)[2], bool zero) {
+  if (X3) {
+    if (zero)
+      mma0(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+    else
+      mma(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+    mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+    mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+  } else if (zero) {
+    mma0(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+  } else {
+    mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+  }
+}
+
+// Operator entry op[tau][y][x], zero in the padding past w.
+__device__ __forceinline__ float op_at(const float* __restrict__ op, int tau,
+                                       int y, int x, int w) {
+  return (y < w && x < w) ? __ldg(op + ((size_t)tau * w + y) * w + x) : 0.f;
+}
+
+// The first product's A operand, the terms' R stacked in M (rows 0-7 and
+// 8-15; a missing second term zero): this lane's row y = 8 I + g, columns
+// x = 8 K + 2t and x + 1 (the K index permuted so that column 2t + h sits
+// at t + 4h).
+template <bool X3>
+__device__ __forceinline__ void a_frag(Split (&a)[4],
+                                       const float* __restrict__ rop,
+                                       int n_terms, int y, int x, int w) {
 #pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    int t = threadIdx.x + i * blockDim.x;
-    cs.on[i] = t < slots * ww;
-    int g = t / ww, cell = t - g * ww, y = cell / w;
-    cs.g[i] = g; cs.cell[i] = cell; cs.y[i] = y; cs.x[i] = cell - y * w;
-    cs.m[i] = 0;
-    if (!cs.on[i]) continue;
-    int ry, rx;
-    int d = region(y, cs.x[i], rho, k, &ry, &rx);
-    long long id = ids[g * 9 + d];
-    int sy = y - k - (ry - 1) * rho, sx = cs.x[i] - k - (rx - 1) * rho;
-    cs.m[i] = wmask[cell] * (d == 8 || id < nb);
-    for (int c = 0; c < C; ++c) {
-      T v = (T)0;
-      if constexpr (H == kPieces) {
-        if (blk0 + g < nb)
-          v = piece_at(src, pc, ((long long)b * C + c) * nb + blk0 + g, y,
-                       cs.x[i], rho, k);
-      } else if (id < nb) {
-        v = src[((long long)b * C + c) * nb * cells + id * cells +
-                sy * rho + sx];
+  for (int tau = 0; tau < 2; ++tau) {
+    a[tau] = split<X3>(tau < n_terms ? op_at(rop, tau, y, x, w) : 0.f);
+    a[tau + 2] = split<X3>(tau < n_terms ? op_at(rop, tau, y, x + 1, w)
+                                         : 0.f);
+  }
+}
+
+// The second product's B operand of term tau: C_tau[y][x], C_tau[y][x + 1]
+// with y = 8 J + g, x = 8 J' + 2t (same permutation).
+template <bool X3>
+__device__ __forceinline__ void b_frag(Split (&b)[2],
+                                       const float* __restrict__ cop,
+                                       int tau, int y, int x, int w) {
+  b[0] = split<X3>(op_at(cop, tau, y, x, w));
+  b[1] = split<X3>(op_at(cop, tau, y, x + 1, w));
+}
+
+// A one-tile window's operator fragments, loaded once per warp: terms 0
+// and 1 of R (the first product's A) and C_0, C_1 (the second's B).
+template <bool X3>
+struct Frags {
+  Split a[4];
+  Split b[2][2];
+};
+
+// The aggregate of output tile (ti, tj) of a pair of windows, one channel:
+// sum_t (R_t X) C_t^T with both products on the tensor cores. xa and xb
+// are the two slots' W x W windows (xb null: no second slot). The first
+// product takes X as its B operand (lane: X[8K + 2t + h][8J' + g]) and
+// gives [Y_0; Y_1] of one slot in its accumulator; that accumulator is
+// the second product's A operand as it stands (two slots stacked in M,
+// the K index permuted as above), so Y never leaves the registers. e gets
+// this lane's cells (8 ti + g, 8 tj + 2t + h): slot a in e[h], slot b in
+// e[2 + h]. Only band tiles (|I - K| <= 1, |J - J'| <= 1) are multiplied.
+template <bool X3>
+__device__ __forceinline__ void products(int nt, int ti, int tj, int w,
+                                         int lane,
+                                         const float* xa, const float* xb,
+                                         const float* __restrict__ rop,
+                                         const float* __restrict__ cop,
+                                         int n_terms, float (&e)[4]) {
+  const int g = lane >> 2, t = lane & 3, W = 8 * nt;
+  const int k0 = max(0, ti - 1), k1 = min(nt - 1, ti + 1);
+  bool e_zero = true;
+  for (int jp = max(0, tj - 1); jp <= min(nt - 1, tj + 1); ++jp) {
+    float d[2][4] = {};   // the pair's Y tile (ti, jp) of both terms
+    for (int kk = k0; kk <= k1; ++kk) {
+      const int at = (8 * kk + 2 * t) * W + 8 * jp + g;
+      Split bx[2][2], a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bx[0][h] = state_operand<X3>(xa[at + h * W]);
+        if (xb) bx[1][h] = state_operand<X3>(xb[at + h * W]);
       }
-      buf[(g * C + c) * ww + cell] = v;
+      a_frag<X3>(a, rop, n_terms, 8 * ti + g, 8 * kk + 2 * t, w);
+      mma3<X3>(d[0], a, bx[0], kk == k0);
+      if (xb) mma3<X3>(d[1], a, bx[1], kk == k0);
+    }
+#pragma unroll
+    for (int tau = 0; tau < 2; ++tau) {
+      if (tau >= n_terms) break;
+      Split y[4] = {split<X3>(d[0][2 * tau]), split<X3>(d[1][2 * tau]),
+                    split<X3>(d[0][2 * tau + 1]),
+                    split<X3>(d[1][2 * tau + 1])};
+      Split b[2];
+      b_frag<X3>(b, cop, tau, 8 * tj + g, 8 * jp + 2 * t, w);
+      mma3<X3>(e, y, b, e_zero);
+      e_zero = false;
     }
   }
 }
 
-template <class Rule, int CPT>
-__device__ void store_cells(const Cells<CPT>& cs,
-                            const typename Rule::T* buf,
-                            typename Rule::T* __restrict__ dst,
-                            long long blk0, long long nb, int b, int rho,
-                            int k) {
-  constexpr int C = Rule::C;
-  const int w = rho + 2 * k, ww = w * w;
-  const long long cells = (long long)rho * rho;
+// products for a one-tile window (W = 8), the operators in registers: two
+// first products (one a slot), then the two terms' k8 steps of the second
+// into two accumulators, summed. A missing second term has zero operators
+// and adds exact zeros.
+template <bool X3>
+__device__ __forceinline__ void products1(const Frags<X3>& f, int lane,
+                                          const float* xa, const float* xb,
+                                          float (&e)[4]) {
+  const int at = 16 * (lane & 3) + (lane >> 2);   // X[2t][g]
+  Split ba[2] = {state_operand<X3>(xa[at]), state_operand<X3>(xa[at + 8])};
+  Split bb[2] = {state_operand<X3>(xb[at]), state_operand<X3>(xb[at + 8])};
+  float d[2][4], e1[4];
+  mma3<X3>(d[0], f.a, ba, true);
+  mma3<X3>(d[1], f.a, bb, true);
+  const Split y0[4] = {split<X3>(d[0][0]), split<X3>(d[1][0]),
+                       split<X3>(d[0][1]), split<X3>(d[1][1])};
+  const Split y1[4] = {split<X3>(d[0][2]), split<X3>(d[1][2]),
+                       split<X3>(d[0][3]), split<X3>(d[1][3])};
+  mma3<X3>(e, y0, f.b[0], true);
+  mma3<X3>(e1, y1, f.b[1], true);
 #pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    int y = cs.y[i] - k, x = cs.x[i] - k;
-    long long blk = blk0 + cs.g[i];
-    if (!cs.on[i] || y < 0 || y >= rho || x < 0 || x >= rho || blk >= nb)
-      continue;
-    for (int c = 0; c < C; ++c)
-      dst[((long long)b * C + c) * nb * cells + blk * cells + y * rho + x] =
-          buf[(cs.g[i] * C + c) * ww + cs.cell[i]];
+  for (int i = 0; i < 4; ++i) e[i] = e[i] + e1[i];
+}
+
+// What a warp works on: slot pair `pair` of macro-tile m of simulation b.
+struct Unit {
+  int b, m, pair;
+};
+
+// The warp's next unit: its next pair of the macro-tile, else its first
+// pair of the CTA's next macro-tile (the grid strides over (b, m)).
+__device__ __forceinline__ void advance(Unit& u, int warp, int warps,
+                                        int npairs, const Geom& gm) {
+  u.pair += warps;
+  if (u.pair < npairs) return;
+  u.pair = warp;
+  u.m += gridDim.x;
+  while (u.m >= gm.n_macro) {
+    u.m -= gm.n_macro;
+    ++u.b;
   }
 }
 
-// v5: grid (n_macro, B); P window slots per CTA, one thread per slot cell
-// (CPT cells when the slots exceed the CTA); each substep computes the
-// aggregate of the whole window as sum_t (R_t @ X) @ C_t^T in f32, kept in
-// registers, and updates the window in place. Slot borders pick up
+// Block of slot s of u, or -1 when the slot is past the macro-tile, the
+// blocks or the batch (a zero slot).
+__device__ __forceinline__ int slot_block(const Unit& u, int s,
+                                          const Geom& gm) {
+  const int sl = u.pair * gm.spw + s, blk = u.m * gm.P + sl;
+  return (u.b < gm.batch && s < gm.spw && sl < gm.P && blk < gm.nb) ? blk
+                                                                    : -1;
+}
+
+// Lane 8 s + d's row of the neighbor table (kInKernel: the neighbor id,
+// ghost nb) or of the existence table (kPieces) for slot s of u.
+template <int H>
+__device__ __forceinline__ int load_row(const int* __restrict__ nbr,
+                                        const Pieces& pc, const Unit& u,
+                                        const Geom& gm, int lane) {
+  const int blk = slot_block(u, lane >> 3, gm);
+  const long long at = (long long)blk * 8 + (lane & 7);
+  if (H == kPieces) return blk >= 0 ? pc.ex[at] : 0;
+  return blk >= 0 ? nbr[at] : gm.nb;
+}
+
+// Staging load i of a unit: vin bytes at element o of the staged region of
+// slot-and-channel sc (s * C + c), which is block d (kInKernel: the
+// neighbors in MOORE_DIRS order, 8 the block itself, rho^2 elements each)
+// or the center and its four halo pieces (kPieces, see piece_src).
+struct Chunk {
+  int sc, o, d;
+};
+
+template <class Rule, int H>
+__device__ __forceinline__ Chunk chunk_at(int i, const Geom& gm) {
+  const int per = gm.vin / (int)sizeof(typename Rule::T);
+  const int cps = gm.slot_elems / per;
+  Chunk ch;
+  ch.sc = i / cps;
+  ch.o = (i - ch.sc * cps) * per;
+  ch.d = H == kPieces ? 0 : ch.o / (gm.rho * gm.rho);
+  return ch;
+}
+
+__device__ __forceinline__ void cp_async(void* to, const void* from,
+                                         int bytes, bool on) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(to);
+  const int n = on ? bytes : 0;   // 0: the bytes are zero-filled
+  if (bytes == 16)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(s), "l"(from), "r"(n) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+                 :: "r"(s), "l"(from), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(s), "l"(from), "r"(n) : "memory");
+}
+
+// Element `o` of the kPieces staged region of row sc = (b C + c) nb + blk:
+// [center rho^2 | top k w | bottom k w | west rho k | east rho k].
+template <class T>
+__device__ __forceinline__ const T* piece_src(const T* src, const Pieces& pc,
+                                              long long sc, int o,
+                                              const Geom& gm) {
+  const int rho2 = gm.rho * gm.rho, kw = gm.k * gm.w, rk = gm.rho * gm.k;
+  if (o < rho2) return src + sc * rho2 + o;
+  o -= rho2;
+  if (o < kw) return static_cast<const T*>(pc.top) + sc * kw + o;
+  o -= kw;
+  if (o < kw) return static_cast<const T*>(pc.bot) + sc * kw + o;
+  o -= kw;
+  if (o < rk) return static_cast<const T*>(pc.west) + sc * rk + o;
+  return static_cast<const T*>(pc.east) + sc * rk + (o - rk);
+}
+
+// Issue the loads of u's slots into a staging buffer: whole blocks (self
+// and its 8 neighbors, a ghost as zeros; kInKernel) or the center and its
+// four halo pieces (kPieces), vin bytes a lane and load, cp.async where
+// vin >= 4. `first` is this lane's load of the first round (i = lane).
+template <class Rule, int H>
+__device__ __forceinline__ void issue(const typename Rule::T* __restrict__ src,
+                                      const Pieces& pc,
+                                      typename Rule::T* buf, const Unit& u,
+                                      int row, const Chunk& first,
+                                      const Geom& gm, int lane) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C;
+  const int rho2 = gm.rho * gm.rho;
+  for (int base = 0; base < gm.n_in; base += 32) {
+    const Chunk ch = base ? chunk_at<Rule, H>(base + lane, gm) : first;
+    const int s = ch.sc / C, c = ch.sc - s * C;
+    const int blk = slot_block(u, s, gm);
+    const long long sc = ((long long)u.b * C + c) * gm.nb;
+    bool on = blk >= 0;
+    const T* from = src;
+    if (H == kPieces) {
+      if (on) from = piece_src(src, pc, sc + blk, ch.o, gm);
+    } else {
+      int id = __shfl_sync(kFull, row, (8 * s + min(ch.d, 7)) & 31);
+      if (ch.d == 8) id = blk;
+      on = on && id < gm.nb;   // a ghost reads as zeros
+      if (on) from = src + (sc + id) * rho2 + (ch.o - ch.d * rho2);
+    }
+    if (base + lane >= gm.n_in) break;
+    T* to = buf + ch.sc * gm.slot_elems + ch.o;
+    if (gm.vin >= 4)
+      cp_async(to, from, gm.vin, on);
+    else
+      *to = on ? *from : (T)0;
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Element offset of window cell (y, x) in a slot and channel's staged
+// region, -1 in the padding past w.
+template <int H>
+__device__ __forceinline__ int stage_off(int y, int x, const Geom& gm) {
+  const int rho = gm.rho, k = gm.k, w = gm.w;
+  if (y >= w || x >= w) return -1;
+  if (H == kPieces) {
+    const int rho2 = rho * rho, kw = k * w;
+    if (y < k) return rho2 + y * w + x;
+    if (y >= k + rho) return rho2 + kw + (y - k - rho) * w + x;
+    if (x < k) return rho2 + 2 * kw + (y - k) * k + x;
+    if (x >= k + rho) return rho2 + 2 * kw + rho * k + (y - k) * k +
+                             (x - k - rho);
+    return (y - k) * rho + (x - k);
+  }
+  int ry, rx;
+  const int d = region(y, x, rho, k, &ry, &rx);
+  return d * rho * rho + (y - k - (ry - 1) * rho) * rho +
+         (x - k - (rx - 1) * rho);
+}
+
+// Window cell (y, x)'s mask as a bit set: 1 << its halo region (8 for the
+// center) where window_mask(k) is set, else 0. ANDed with a slot's
+// existence bits it gives the cell's mask.
+__device__ __forceinline__ unsigned cell_bits(const uint8_t* __restrict__ wm,
+                                              int y, int x, const Geom& gm) {
+  if (y >= gm.w || x >= gm.w || !wm[y * gm.w + x]) return 0u;
+  int ry, rx;
+  return 1u << region(y, x, gm.rho, gm.k, &ry, &rx);
+}
+
+// Center store i of a unit: E = vout / sizeof(T) cells (E divides rho)
+// from element o of the block of slot-and-channel sc, the first at `at` in
+// the slot's W x W window.
+struct Out {
+  int sc, o, at;
+};
+
+template <class Rule>
+__device__ __forceinline__ Out out_at(int i, const Geom& gm) {
+  const int e = gm.vout / (int)sizeof(typename Rule::T);
+  const int per = gm.rho * gm.rho / e;
+  Out ot;
+  ot.sc = i / per;
+  ot.o = (i - ot.sc * per) * e;
+  ot.at = (gm.k + ot.o / gm.rho) * 8 * gm.nt + gm.k + ot.o % gm.rho;
+  return ot;
+}
+
+// Store the centers of u's slots from the window buffer, vout bytes a lane
+// and store. `first` is this lane's store of the first round (i = lane).
+template <class Rule>
+__device__ __forceinline__ void store_pair(const float* win,
+                                           typename Rule::T* __restrict__ dst,
+                                           const Unit& u, const Out& first,
+                                           const Geom& gm, int lane) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C;
+  const int E = gm.vout / (int)sizeof(T), WW = 64 * gm.nt * gm.nt;
+  for (int base = 0; base < gm.n_out; base += 32) {
+    if (base + lane >= gm.n_out) break;
+    const Out ot = base ? out_at<Rule>(base + lane, gm) : first;
+    const int s = ot.sc / C, c = ot.sc - s * C;
+    const int blk = slot_block(u, s, gm);
+    if (blk < 0) continue;
+    const float* from = win + ot.sc * WW + ot.at;
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < E) v[q] = from[q];
+    T* to = dst + (((long long)u.b * C + c) * gm.nb + blk) * gm.rho * gm.rho +
+            ot.o;
+    if (sizeof(T) == 1) {
+      if (E == 1)
+        *to = (T)f32_to_u8(v[0]);
+      else
+        *reinterpret_cast<uint32_t*>(to) =
+            f32_to_u8(v[0]) | f32_to_u8(v[1]) << 8 | f32_to_u8(v[2]) << 16 |
+            f32_to_u8(v[3]) << 24;
+    } else if (E == 1) {
+      *to = (T)v[0];
+    } else if (E == 2) {
+      *reinterpret_cast<float2*>(to) = make_float2(v[0], v[1]);
+    } else {
+      *reinterpret_cast<float4*>(to) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The k substeps of a warp's pair of one-tile windows (W = 8), from the
+// staged blocks in `stage`, and the store of the centers. The lane keeps
+// its own cells (g, 2t) and (g, 2t+1) of each slot and channel in
+// registers and stores those that lie in the center (bit h of `cen` for
+// cell h, at element coff + h of the block; 7: both, in one aligned
+// store); the window buffers (win + i * win_step) carry the values other
+// lanes read as the first product's B operand.
+template <class Rule>
+__device__ __forceinline__ void pair_one_tile(
+    const typename Rule::T* stage, float* win, int win_step,
+    typename Rule::T* __restrict__ dst, const Unit& u,
+    const Frags<std::is_same<typename Rule::T, float>::value>& f,
+    const int (&soff)[2], const unsigned (&bits)[2], const unsigned (&ex)[2],
+    unsigned cen, int coff, const Geom& gm, int lane, const RuleArgs& ra) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C;
+  constexpr bool X3 = std::is_same<T, float>::value;
+  const int own = (lane >> 2) * 8 + 2 * (lane & 3);
+  float st[2][C][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        st[s][c][h] = soff[h] >= 0
+            ? to_f32(stage[(s * C + c) * gm.slot_elems + soff[h]]) : 0.f;
+      *reinterpret_cast<float2*>(win + (s * C + c) * 64 + own) =
+          make_float2(st[s][c][0], st[s][c][1]);
+    }
+  __syncwarp();
+  int cur = 0;
+  for (int j = 0; j < gm.k; ++j) {
+    const float* wc = win + cur * win_step;
+    float* wn = win + (cur ^ 1) * win_step;
+    float e[C][4];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      products1<X3>(f, lane, wc + c * 64, wc + (C + c) * 64, e[c]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float m = (ex[s] & bits[h]) ? 1.f : 0.f;
+        float v[C], agg[C], nx[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          v[c] = st[s][c][h];
+          agg[c] = e[c][2 * s + h];
+        }
+        Rule::update(v, agg, m, ra, nx);
+#pragma unroll
+        for (int c = 0; c < C; ++c) st[s][c][h] = nx[c];
+      }
+    if (j + 1 == gm.k) break;   // the last substep's cells go out below
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        *reinterpret_cast<float2*>(wn + (s * C + c) * 64 + own) =
+            make_float2(st[s][c][0], st[s][c][1]);
+    __syncwarp();
+    cur ^= 1;
+  }
+  if (!cen) return;
+  const long long cells = (long long)gm.rho * gm.rho;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int blk = slot_block(u, s, gm);
+    if (blk < 0) continue;
+    T* to = dst + ((long long)u.b * C * gm.nb + blk) * cells;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      T* cell = to + c * gm.nb * cells + coff;
+      if (cen == 7u) {   // both cells, 2-element aligned: one store
+        if (sizeof(T) == 1)
+          *reinterpret_cast<uint16_t*>(cell) = (uint16_t)(
+              f32_to_u8(st[s][c][0]) | f32_to_u8(st[s][c][1]) << 8);
+        else
+          *reinterpret_cast<float2*>(cell) =
+              make_float2(st[s][c][0], st[s][c][1]);
+        continue;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (cen >> h & 1) cell[h] = from_f32<T>(st[s][c][h]);
+    }
+  }
+}
+
+// The same for windows of W = 8 nt (any nt): the windows assembled whole
+// into the buffers, every cell read back from them, the operators, masks
+// and staging offsets found at the point of use, band tiles only.
+template <class Rule, int H>
+__device__ __forceinline__ int pair_wide(
+    const typename Rule::T* stage, float* win, int win_step,
+    const unsigned (&ex)[2], const uint8_t* __restrict__ wmask,
+    const float* __restrict__ rop, const float* __restrict__ cop,
+    const Geom& gm, int lane, const RuleArgs& ra) {
+  constexpr int C = Rule::C;
+  constexpr bool X3 = std::is_same<typename Rule::T, float>::value;
+  const int nt = gm.nt, W = 8 * nt, WW = W * W, spw = gm.spw;
+  const int g = lane >> 2, t = lane & 3;
+  for (int cell = lane; cell < WW; cell += 32) {
+    const int o = stage_off<H>(cell / W, cell % W, gm);
+    for (int sc = 0; sc < spw * C; ++sc)
+      win[sc * WW + cell] = o >= 0 ? to_f32(stage[sc * gm.slot_elems + o])
+                                   : 0.f;
+  }
+  __syncwarp();
+  int cur = 0;
+  for (int j = 0; j < gm.k; ++j) {
+    const float* wc = win + cur * win_step;
+    float* wn = win + (cur ^ 1) * win_step;
+    for (int ti = 0; ti < nt; ++ti) {
+      for (int tj = 0; tj < nt; ++tj) {
+        float e[C][4];
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          products<X3>(nt, ti, tj, gm.w, lane, wc + c * WW,
+                       spw > 1 ? wc + (C + c) * WW : nullptr, rop, cop,
+                       gm.n_terms, e[c]);
+        const int y = 8 * ti + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = 8 * tj + 2 * t + h, at = y * W + x;
+          const unsigned cb = cell_bits(wmask, y, x, gm);
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            if (s >= spw) break;
+            const float m = (ex[s] & cb) ? 1.f : 0.f;
+            float u[C], agg[C], nx[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              u[c] = wc[(s * C + c) * WW + at];
+              agg[c] = e[c][2 * s + h];
+            }
+            Rule::update(u, agg, m, ra, nx);
+#pragma unroll
+            for (int c = 0; c < C; ++c) wn[(s * C + c) * WW + at] = nx[c];
+          }
+        }
+      }
+    }
+    __syncwarp();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+// v5: a persistent grid of CTAs of `warps` warps; each CTA strides over
+// the (simulation, macro-tile) items of P slots, each warp over the slot
+// pairs of its CTA's items. A warp stages its pair's blocks with cp.async,
+// assembles the two w x w windows (padded to W = 8 nt) and runs the k
+// substeps: per output tile the aggregate on the tensor cores, then the
+// rule under the window mask; then it stores the centers. While a pair
+// computes, the next pair's neighbor ids load and, for NT == 1, its blocks
+// too (into the other staging buffer). No block-wide barrier: each warp
+// waits on its own loads and __syncwarp only. Slot borders pick up
 // truncated-band values ring by ring; the center sits at distance >= k
-// from them and is exact. H is kInKernel (windows read through the
-// neighbor table) or kPieces (the shard-local entry).
-template <class Rule, int CPT, int H>
-__global__ void __launch_bounds__(kMaxThreads)
+// from them and is exact. NT is 1 (one tile, W = 8, a pair a warp:
+// pair_one_tile) or 0 (the wide instance, W = 8 gm.nt: pair_wide).
+template <class Rule, int H, int NT>
+__global__ void __launch_bounds__(kMxuWarps * 32)
 mxu_kernel(const typename Rule::T* __restrict__ src,
            typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
-           const uint8_t* __restrict__ wmask,
-           const float* __restrict__ rop, const float* __restrict__ cop,
-           int n_terms, long long nb, int rho, int k, int P, Pieces pc,
-           RuleArgs ra) {
+           const uint8_t* __restrict__ wmask, const float* __restrict__ rop,
+           const float* __restrict__ cop, Pieces pc, Geom gm, RuleArgs ra) {
   using T = typename Rule::T;
-  using A = typename Rule::A;
   constexpr int C = Rule::C;
-  const int w = rho + 2 * k, ww = w * w;
+  constexpr bool X3 = std::is_same<T, float>::value;   // 3xTF32 for floats
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int spw = NT ? 2 : gm.spw;
+  const int g = lane >> 2, t = lane & 3;
+  const int npairs = (gm.P + spw - 1) / spw;
+  if (warp >= npairs) return;
+  // this warp's staging buffers (stage + i * stage_step; two for NT == 1,
+  // one for the wide instance) and window buffers (win + i * win_step,
+  // i < 2)
+  constexpr int kStages = NT == 1 ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ybuf = reinterpret_cast<float*>(smem);      // (P, C, ww)
-  float* rs = ybuf + (size_t)P * C * ww;             // (T, ww)
-  float* cs_op = rs + (size_t)n_terms * ww;          // (T, ww)
-  T* cur = reinterpret_cast<T*>(cs_op + (size_t)n_terms * ww);  // (P, C, ww)
-  int* ids = reinterpret_cast<int*>(
-      reinterpret_cast<unsigned char*>(cur) +
-      (((size_t)P * C * ww * sizeof(T) + 15) & ~(size_t)15));
+  unsigned char* mine = smem + (size_t)warp * (kStages * gm.stage_bytes +
+                                               2 * gm.win_bytes);
+  T* const stage = reinterpret_cast<T*>(mine);
+  const int stage_step = gm.stage_bytes / (int)sizeof(T);
+  float* const win = reinterpret_cast<float*>(mine + kStages *
+                                                         gm.stage_bytes);
+  const int win_step = gm.win_bytes / (int)sizeof(float);
 
-  const long long blk0 = (long long)blockIdx.x * P;
-  const int b = blockIdx.y;
-  if constexpr (H == kPieces)
-    load_ex_ids(pc.ex, ids, P, blk0, nb);
-  else
-    load_ids(nbr, ids, P, blk0, nb);
-  for (int t = threadIdx.x; t < n_terms * ww; t += blockDim.x) {
-    rs[t] = rop[t];
-    cs_op[t] = cop[t];
+  Frags<X3> f;
+  int soff[2] = {0, 0}, coff = 0;
+  unsigned bits[2] = {0u, 0u}, cen = 0u;
+  if (NT == 1) {
+    a_frag<X3>(f.a, rop, gm.n_terms, g, 2 * t, gm.w);
+#pragma unroll
+    for (int tau = 0; tau < 2; ++tau) {
+      if (tau < gm.n_terms) {
+        b_frag<X3>(f.b[tau], cop, tau, g, 2 * t, gm.w);
+      } else {
+        f.b[tau][0] = f.b[tau][1] = Split{0u, 0u};
+      }
+    }
+    const int y = g - gm.k, x = 2 * t - gm.k;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      soff[h] = stage_off<H>(g, 2 * t + h, gm);
+      bits[h] = cell_bits(wmask, g, 2 * t + h, gm);
+      if (y >= 0 && y < gm.rho && x + h >= 0 && x + h < gm.rho)
+        cen |= 1u << h;
+    }
+    coff = y * gm.rho + x;
+    // both cells in one store where the pair is aligned to two elements
+    if (cen == 3u && gm.rho % 2 == 0 && coff % 2 == 0 &&
+        (unsigned long long)dst % (2 * sizeof(T)) == 0)
+      cen = 7u;
   }
-  __syncthreads();
-  Cells<CPT> cs;
-  stage<Rule, CPT, H>(cs, src, pc, cur, ids, wmask, P, blk0, nb, b, rho, k);
-  __syncthreads();
+  const Chunk first_in = chunk_at<Rule, H>(lane, gm);
+  const Out first_out = out_at<Rule>(lane, gm);
 
-  for (int j = 0; j < k; ++j) {
-    float acc[CPT][C];
-#pragma unroll
-    for (int i = 0; i < CPT; ++i)
-      for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-    for (int term = 0; term < n_terms; ++term) {
-      const float* R = rs + term * ww;
-      const float* Cm = cs_op + term * ww;
-      // Y = R_t @ X, per slot and channel
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        if (!cs.on[i]) continue;
-        int y = cs.y[i], x = cs.x[i];
-        int lo = max(0, y - 1), hi = min(w - 1, y + 1);
-        for (int c = 0; c < C; ++c) {
-          const T* X = cur + (size_t)(cs.g[i] * C + c) * ww;
-          float s = 0.f;
-          for (int ii = lo; ii <= hi; ++ii)
-            s = fmaf(R[y * w + ii], (float)X[ii * w + x], s);
-          ybuf[(cs.g[i] * C + c) * ww + cs.cell[i]] = s;
-        }
-      }
-      __syncthreads();
-      // acc += Y @ C_t^T
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        if (!cs.on[i]) continue;
-        int y = cs.y[i], x = cs.x[i];
-        int lo = max(0, x - 1), hi = min(w - 1, x + 1);
-        for (int c = 0; c < C; ++c) {
-          const float* Y = ybuf + (size_t)(cs.g[i] * C + c) * ww + y * w;
-          float s = 0.f;
-          for (int ii = lo; ii <= hi; ++ii)
-            s = fmaf(Y[ii], Cm[x * w + ii], s);
-          acc[i][c] = acc[i][c] + s;
-        }
-      }
-      __syncthreads();
+  // the pipeline: this pair computes while the next pair's blocks (NT ==
+  // 1: into the other staging buffer) and the one after's neighbor ids
+  // load
+  Unit cu{(int)(blockIdx.x / gm.n_macro), (int)(blockIdx.x % gm.n_macro),
+          warp};
+  bool has = cu.b < gm.batch;
+  int row_c = load_row<H>(nbr, pc, cu, gm, lane);
+  Unit nu = cu;
+  advance(nu, warp, warps, npairs, gm);
+  bool has_next = has && nu.b < gm.batch;
+  int row_n = load_row<H>(nbr, pc, nu, gm, lane);
+  if (has) issue<Rule, H>(src, pc, stage, cu, row_c, first_in, gm, lane);
+  int buf = 0;
+  while (has) {
+    const bool ahead = NT == 1 && has_next;
+    if (ahead)
+      issue<Rule, H>(src, pc, stage + (buf ^ 1) * stage_step, nu, row_n,
+                     first_in, gm, lane);
+    Unit nn = nu;
+    advance(nn, warp, warps, npairs, gm);
+    const bool has_nn = has_next && nn.b < gm.batch;
+    const int row_nn = load_row<H>(nbr, pc, nn, gm, lane);
+    if (ahead)
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+
+    // the slots' existence bits: lane 8 s + d holds direction d of slot s
+    const unsigned ball = __ballot_sync(
+        kFull, H == kPieces ? row_c != 0 : row_c < gm.nb);
+    const unsigned ex[2] = {(ball & 0xffu) | 0x100u,
+                            ((ball >> 8) & 0xffu) | 0x100u};
+    const T* sb = stage + buf * stage_step;
+    if (NT == 1) {
+      pair_one_tile<Rule>(sb, win, win_step, dst, cu, f, soff, bits, ex,
+                          cen, coff, gm, lane, ra);
+    } else {
+      const int cur = pair_wide<Rule, H>(sb, win, win_step, ex, wmask, rop,
+                                         cop, gm, lane, ra);
+      store_pair<Rule>(win + cur * win_step, dst, cu, first_out, gm, lane);
     }
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      if (!cs.on[i]) continue;
-      A agg[C];
-      for (int c = 0; c < C; ++c) agg[c] = Rule::from_f32(acc[i][c]);
-      T* tile = cur + (size_t)cs.g[i] * C * ww;
-      Rule::apply(tile, tile, cs.cell[i], ww, agg, cs.m[i], ra);
-    }
-    __syncthreads();
+    __syncwarp();   // the staging and window buffers are free again
+
+    if (!ahead && has_next)
+      issue<Rule, H>(src, pc, stage + buf * stage_step, nu, row_n, first_in,
+                     gm, lane);
+    if (ahead) buf ^= 1;
+    cu = nu;
+    row_c = row_n;
+    has = has_next;
+    nu = nn;
+    row_n = row_nn;
+    has_next = has_nn;
   }
-  store_cells<Rule, CPT>(cs, cur, dst, blk0, nb, b, rho, k);
 }
 
 RuleArgs make_args(int born, int survive, float p0, float p1, float p2,
@@ -640,34 +1237,39 @@ int launch_step(const void* src, void* dst, const int* nbr,
   return (int)cudaGetLastError();
 }
 
-// Threads for `cells` window cells: one per cell up to kMaxThreads, in
-// whole warps; *cpt receives the cells each thread owns.
-int threads_for(long long cells, int* cpt) {
-  long long threads = cells < kMaxThreads ? cells : kMaxThreads;
-  threads = (threads + 31) / 32 * 32;
-  *cpt = (int)((cells + threads - 1) / threads);
-  return (int)threads;
+// The widest of 16, 8 and 4 bytes (at most `cap`) that divides `bytes`
+// and the address bits in `addr`, else one element: a lane's load or store
+// width.
+int vec_width(unsigned long long addr, long long bytes, int elem, int cap) {
+  for (int v = 16; v >= 4; v /= 2)
+    if (v <= cap && bytes % v == 0 && addr % v == 0) return v;
+  return elem;
 }
 
-template <class Rule, int CPT, int H>
-int launch_mxu_cpt(const void* src, void* dst, const int* nbr,
-                   const uint8_t* wmask, const float* rop, const float* cop,
-                   int n_terms, long long nb, int batch, int rho, int k,
-                   int P, int threads, const Pieces& pc, const RuleArgs& ra,
-                   cudaStream_t stream) {
+template <class Rule, int H, int NT>
+int launch_mxu_nt(const void* src, void* dst, const int* nbr,
+                  const uint8_t* wmask, const float* rop, const float* cop,
+                  const Pieces& pc, const Geom& gm, int warps,
+                  const RuleArgs& ra, cudaStream_t stream) {
   using T = typename Rule::T;
-  const int ww = (rho + 2 * k) * (rho + 2 * k);
-  size_t cur_bytes = ((size_t)P * Rule::C * ww * sizeof(T) + 15) &
-                     ~(size_t)15;
-  size_t smem = (size_t)(P * Rule::C + 2 * n_terms) * ww * sizeof(float) +
-                cur_bytes + (size_t)P * 9 * sizeof(int);
-  auto kernel = mxu_kernel<Rule, CPT, H>;
+  const size_t smem = (size_t)warps * ((NT == 1 ? 2 : 1) * gm.stage_bytes +
+                                       2 * gm.win_bytes);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = mxu_kernel<Rule, H, NT>;
   int rc = set_smem(kernel, smem);
   if (rc) return rc;
-  dim3 grid((unsigned)((nb + P - 1) / P), (unsigned)batch);
-  kernel<<<grid, threads, smem, stream>>>(
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((rc = (int)cudaGetDevice(&dev)) ||
+      (rc = (int)cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev)) ||
+      (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, warps * 32, smem)))
+    return rc;
+  const long long items = (long long)gm.n_macro * gm.batch;
+  const long long ctas = std::min(items, (long long)std::max(per_sm, 1) * sms);
+  kernel<<<(unsigned)ctas, warps * 32, smem, stream>>>(
       static_cast<const T*>(src), static_cast<T*>(dst), nbr, wmask, rop, cop,
-      n_terms, nb, rho, k, P, pc, ra);
+      pc, gm, ra);
   return (int)cudaGetLastError();
 }
 
@@ -675,22 +1277,48 @@ template <class Rule, int H>
 int launch_mxu(const void* src, void* dst, const int* nbr,
                const uint8_t* wmask, const float* rop, const float* cop,
                int n_terms, long long nb, int batch, int rho, int k, int P,
-               const Pieces& pc, const RuleArgs& ra, cudaStream_t stream) {
-  const int ww = (rho + 2 * k) * (rho + 2 * k);
-  int cpt;
-  int threads = threads_for((long long)P * ww, &cpt);
-#define SQ_LAUNCH_MXU(CPT)                                                  \
-  launch_mxu_cpt<Rule, CPT, H>(src, dst, nbr, wmask, rop, cop, n_terms, nb, \
-                               batch, rho, k, P, threads, pc, ra, stream)
-  switch (cpt) {
-    case 1: return SQ_LAUNCH_MXU(1);
-    case 2: return SQ_LAUNCH_MXU(2);
-    case 3: case 4: return SQ_LAUNCH_MXU(4);
-    default:
-      if (cpt <= kMaxCellsPerThread) return SQ_LAUNCH_MXU(kMaxCellsPerThread);
-      return (int)cudaErrorInvalidValue;
+               int nt, int spw, int warps, const Pieces& pc,
+               const RuleArgs& ra, cudaStream_t stream) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C, sz = (int)sizeof(T);
+  const int w = rho + 2 * k;
+  if (P < 1 || nt < 1 || 8 * nt < w || spw < 1 || spw > 2 ||
+      (nt == 1 && spw != 2) || warps < 1 || warps > kMxuWarps)
+    return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nb >= (1LL << 31) - P) return (int)cudaErrorInvalidValue;
+  Geom gm;
+  gm.nb = (int)nb;
+  gm.n_macro = (int)((nb + P - 1) / P);
+  gm.batch = batch;
+  gm.rho = rho;
+  gm.k = k;
+  gm.w = w;
+  gm.P = P;
+  gm.n_terms = n_terms;
+  gm.nt = nt;
+  gm.spw = spw;
+  unsigned long long in_addr = (unsigned long long)src;
+  long long in_bytes = (long long)rho * rho * sz;
+  if (H == kPieces) {
+    gm.slot_elems = w * w;
+    in_addr |= (unsigned long long)pc.top | (unsigned long long)pc.bot |
+               (unsigned long long)pc.west | (unsigned long long)pc.east;
+    in_bytes = (long long)std::gcd(std::gcd(rho * rho, k * w), rho * k) * sz;
+  } else {
+    gm.slot_elems = 9 * rho * rho;
   }
-#undef SQ_LAUNCH_MXU
+  gm.vin = vec_width(in_addr, in_bytes, sz, 16);
+  gm.vout = vec_width((unsigned long long)dst, (long long)rho * sz, sz,
+                      4 * sz);
+  gm.n_in = spw * C * gm.slot_elems / (gm.vin / sz);
+  gm.n_out = spw * C * rho * rho / (gm.vout / sz);
+  gm.stage_bytes = (spw * C * gm.slot_elems * sz + 15) & ~15;
+  gm.win_bytes = spw * C * 64 * nt * nt * (int)sizeof(float);
+  if (nt == 1)
+    return launch_mxu_nt<Rule, H, 1>(src, dst, nbr, wmask, rop, cop, pc, gm,
+                                     warps, ra, stream);
+  return launch_mxu_nt<Rule, H, 0>(src, dst, nbr, wmask, rop, cop, pc, gm,
+                                   warps, ra, stream);
 }
 
 template <int H>
@@ -716,23 +1344,22 @@ template <int H>
 int mxu_entry(int rule, const void* src, void* dst, const int* nbr,
               const uint8_t* wmask, const float* rop, const float* cop,
               int n_terms, long long nb, int batch, int rho, int k, int P,
-              const Pieces& pc, int born, int survive, float p0, float p1,
-              float p2, float p3, float wd, float wo, float wc,
-              void* stream) {
+              int nt, int spw, int warps, const Pieces& pc,
+              int born, int survive, float p0, float p1, float p2, float p3,
+              float wd, float wo, float wc, void* stream) {
   if (n_terms < 1 || n_terms > kMaxTerms) return (int)cudaErrorInvalidValue;
   RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SQ_MXU(RULE)                                                       \
+  launch_mxu<RULE, H>(src, dst, nbr, wmask, rop, cop, n_terms, nb, batch, \
+                      rho, k, P, nt, spw, warps, pc, ra, s)
   switch (rule) {
-    case 0: return launch_mxu<Totalistic, H>(src, dst, nbr, wmask, rop, cop,
-                                             n_terms, nb, batch, rho, k, P,
-                                             pc, ra, s);
-    case 1: return launch_mxu<Heat, H>(src, dst, nbr, wmask, rop, cop, n_terms,
-                                       nb, batch, rho, k, P, pc, ra, s);
-    case 2: return launch_mxu<GrayScott, H>(src, dst, nbr, wmask, rop, cop,
-                                            n_terms, nb, batch, rho, k, P, pc,
-                                            ra, s);
+    case 0: return SQ_MXU(Totalistic);
+    case 1: return SQ_MXU(Heat);
+    case 2: return SQ_MXU(GrayScott);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SQ_MXU
 }
 
 }  // namespace
@@ -786,16 +1413,20 @@ int sq_stencil_step_fused_k(int rule, const void* src, void* dst,
                                p3, wd, wo, wc, stream);
 }
 
-// v5: k exact steps per launch over a (n_macro, B) grid of P-slot CTAs.
+// v5: k exact steps per launch of B simulations, in macro-tiles of P
+// slots, with the geometry (tiles a side, slots a warp, warps a CTA) that
+// mxu_plan picked.
 int sq_stencil_step_mxu(int rule, const void* src, void* dst, const int* nbr,
                         const uint8_t* wmask, const float* rop,
                         const float* cop, int n_terms, long long nb,
-                        int batch, int rho, int k, int P, int born,
-                        int survive, float p0, float p1, float p2, float p3,
-                        float wd, float wo, float wc, void* stream) {
+                        int batch, int rho, int k, int P, int nt, int spw,
+                        int warps, int born, int survive, float p0, float p1,
+                        float p2, float p3, float wd, float wo, float wc,
+                        void* stream) {
   return mxu_entry<kInKernel>(rule, src, dst, nbr, wmask, rop, cop, n_terms,
-                              nb, batch, rho, k, P, Pieces{}, born, survive,
-                              p0, p1, p2, p3, wd, wo, wc, stream);
+                              nb, batch, rho, k, P, nt, spw, warps, Pieces{},
+                              born, survive, p0, p1, p2, p3, wd, wo, wc,
+                              stream);
 }
 
 // Shard-local v4: k exact steps of the nbl blocks of one shard from their
@@ -815,18 +1446,20 @@ int sq_stencil_step_fused_k_local(int rule, const void* src, void* dst,
 }
 
 // Shard-local v5: k exact steps of B simulations over the nbl blocks of one
-// shard, P slots per CTA, from their halo pieces and existence table.
+// shard, in macro-tiles of P slots, from their halo pieces and existence
+// table; geometry as for sq_stencil_step_mxu.
 int sq_stencil_step_mxu_k_local(int rule, const void* src, void* dst,
                                 const void* top, const void* bot,
                                 const void* west, const void* east,
                                 const int* ex, const uint8_t* wmask,
                                 const float* rop, const float* cop,
                                 int n_terms, long long nbl, int batch, int rho,
-                                int k, int P, int born, int survive, float p0,
-                                float p1, float p2, float p3, float wd,
-                                float wo, float wc, void* stream) {
+                                int k, int P, int nt, int spw, int warps,
+                                int born, int survive, float p0, float p1,
+                                float p2, float p3, float wd, float wo,
+                                float wc, void* stream) {
   return mxu_entry<kPieces>(rule, src, dst, nullptr, wmask, rop, cop, n_terms,
-                            nbl, batch, rho, k, P,
+                            nbl, batch, rho, k, P, nt, spw, warps,
                             Pieces{top, bot, west, east, ex}, born, survive,
                             p0, p1, p2, p3, wd, wo, wc, stream);
 }

@@ -12,8 +12,12 @@ its plain PyTorch version.
   * ``stencil_step_fused_k``     (v4) -- k exact steps per launch on a
     depth-k window (1 <= k <= rho); replaces ``stencil_step_fused_k``.
   * ``stencil_step_mxu_batched`` (v5) -- k exact steps of B simulations in
-    one launch, the Moore aggregate as rank-1 banded products over P window
-    slots per CTA; replaces ``stencil_step_mxu_batched``.
+    one launch, the Moore aggregate as rank-1 banded products on the tensor
+    cores (TF32 ``mma.sync``: one pass for the uint8 CA states, 3xTF32 for
+    float32), a warp per pair of window slots, P slots per CTA work item;
+    replaces ``stencil_step_mxu_batched``. ``mxu_plan`` picks the launch
+    geometry by shape; windows wider than 8 cells run the kernel's wide
+    instance, counted as ``<name>[wide]``.
   * ``stencil_step_fused_k_local`` and ``stencil_step_mxu_k_local`` -- v4
     and v5 over one shard's blocks, their halo given as four pieces
     assembled from the exchanged strips and their neighbors as an (nbl, 8)
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,7 +54,8 @@ LAUNCHES = build.LAUNCHES
 LAUNCHES.update(dict.fromkeys(
     ("stencil_step_blocks", "stencil_step_strips", "stencil_step_fused",
      "stencil_step_fused_k", "stencil_step_mxu_batched",
-     "stencil_step_fused_k_local", "stencil_step_mxu_k_local"), 0))
+     "stencil_step_mxu_batched[wide]", "stencil_step_fused_k_local",
+     "stencil_step_mxu_k_local", "stencil_step_mxu_k_local[wide]"), 0))
 reset_launches = build.reset_launches
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -63,18 +68,18 @@ _SIGNATURES = {
     "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
     "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL, _I, _I, _I]
     + _RULE_ARGS,
-    # rule, src, dst, nbr, wmask, R, C, n_terms, nb, batch, rho, k, P, ...
-    "sq_stencil_step_mxu": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
-                            _I] + _RULE_ARGS,
+    # rule, src, dst, nbr, wmask, R, C, n_terms, nb, batch, rho, k, P,
+    # nt, spw, warps, ...
+    "sq_stencil_step_mxu": [_I, _P, _P, _P, _P, _P, _P, _I, _LL]
+    + [_I] * 7 + _RULE_ARGS,
     # rule, src, dst, top, bot, west, east, existence, wmask, nbl, batch,
     # rho, k, ...
     "sq_stencil_step_fused_k_local": [_I] + [_P] * 8 + [_LL, _I, _I, _I]
     + _RULE_ARGS,
-    # ... wmask, R, C, n_terms, nbl, batch, rho, k, P, ...
-    "sq_stencil_step_mxu_k_local": [_I] + [_P] * 10 + [_I, _LL, _I, _I, _I,
-                                                      _I] + _RULE_ARGS,
+    # ... wmask, R, C, n_terms, nbl, batch, rho, k, P, nt, spw, warps, ...
+    "sq_stencil_step_mxu_k_local": [_I] + [_P] * 10 + [_I, _LL]
+    + [_I] * 7 + _RULE_ARGS,
 }
-_MAX_CTA_CELLS = 8 * 1024  # window cells of one CTA: 8 per thread
 
 
 def _c_function(fn: str):
@@ -279,6 +284,54 @@ def _mxu_operators_on(workload: StencilWorkload, w: int, device: str):
     return (torch.from_numpy(rm).to(device), torch.from_numpy(cm).to(device))
 
 
+#: most warps of one v5 CTA (``kMxuWarps`` in the source)
+MXU_WARPS = 8
+
+
+class MxuPlan(NamedTuple):
+    """The v5 launch geometry of one shape (``mxu_plan``)."""
+    nt: int       # 8 x 8 tiles a window side: W = 8 nt >= w
+    passes: int   # TF32 products per product: 1 (uint8) or 3 (float32)
+    warps: int    # warps of a CTA
+    spw: int      # window slots a warp: a pair, or one
+    smem: int     # shared bytes of a CTA
+    body: str     # '' (one tile) or '[wide]'
+
+
+def mxu_plan(dtype: torch.dtype, n_channels: int, rho: int, k: int, p: int,
+             pieces: bool = False) -> MxuPlan:
+    """The launch geometry of v5 (``pieces=False``) or of its shard-local
+    entry (``pieces=True``) for P slots of ``n_channels`` channels of
+    ``dtype``: the window w = rho + 2k padded to W = 8 ceil(w / 8); one
+    TF32 pass for uint8 CA states, three (3xTF32) for float32; a warp per
+    pair of slots, up to ``MXU_WARPS`` warps; each warp with staging
+    buffers (nine whole blocks, or the center and its four halo pieces, per
+    slot and channel) and two W x W float32 window buffers per slot and
+    channel. The body is the kernel's one-tile instance for W = 8 (two
+    staging buffers: the next pair's loads fly while this pair computes),
+    else its wide instance (``[wide]``, one).
+    Where that exceeds a CTA's shared memory, fewer warps, then one slot a
+    warp. Raises when nothing fits."""
+    w = rho + 2 * k
+    nt = -(-w // 8)
+    body = "" if nt == 1 else "[wide]"
+    esize = torch.empty((), dtype=dtype).element_size()
+    slot = w * w if pieces else 9 * rho * rho
+
+    def smem(warps, spw):
+        stage = -(-spw * n_channels * slot * esize // 16) * 16
+        return warps * ((1 if body else 2) * stage
+                        + 2 * spw * n_channels * 256 * nt * nt)
+    for spw in (2, 1):
+        for warps in range(min(MXU_WARPS, -(-p // spw)), 0, -1):
+            if smem(warps, spw) <= build.MAX_SMEM:
+                return MxuPlan(nt, 3 if dtype == torch.float32 else 1, warps,
+                               spw, smem(warps, spw), body)
+    raise ValueError(f"a {w}x{w} window of {n_channels} channel(s) exceeds "
+                     f"one CTA's {build.MAX_SMEM} bytes of shared memory "
+                     f"({smem(1, 1)} bytes)")
+
+
 # ======================================================================
 # CUDA launches
 # ======================================================================
@@ -429,10 +482,11 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
                              p: Optional[int] = None,
                              out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """v5: ``k`` exact steps of B simulations in one launch over a
-    (n_macro, B) grid; states (B, C?, nb, rho, rho) -> same. ``p``
-    overrides the slots per CTA (None = ``layout.macro_tiles`` default);
-    the result does not depend on it."""
+    """v5: ``k`` exact steps of B simulations in one launch, in (B,
+    n_macro) work items of P slots spread over a persistent grid (geometry
+    from ``mxu_plan``); states (B, C?, nb, rho, rho) -> same. ``p``
+    overrides the slots per CTA work item (None = ``layout.macro_tiles``
+    default); the result does not depend on it."""
     _check_k(layout, k, "the mxu kernel")
     if states.device.type == "cpu":
         return _into(states, stencil_step_mxu_batched_plain(
@@ -444,10 +498,9 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's 65535")
     p, n_macro, _ = layout.macro_tiles(k, p=p)
-    w = layout.rho + 2 * k
     dev = states.device
-    rm, cm = _mxu_operands(workload, states, w, p, n_macro)
-    n_terms = rm.shape[0]
+    rm, cm, plan = _mxu_operands(layout, workload, states, k, p, n_macro,
+                                 pieces=False)
     nbr = layout.device_table("neighbor_table", dev)
     wmask = layout.device_table("window_mask", dev, k)
     with torch.cuda.device(dev):
@@ -455,28 +508,27 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
         rc = fn(
             _rule(workload), states.data_ptr(), out.data_ptr(),
             nbr.data_ptr(), wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(),
-            n_terms, layout.n_blocks, b, layout.rho, k, p,
-            *_rule_args(workload, stream))
-    build.finish_launch(rc, "stencil_step_mxu_batched")
+            rm.shape[0], layout.n_blocks, b, layout.rho, k, p, plan.nt,
+            plan.spw, plan.warps, *_rule_args(workload, stream))
+    build.finish_launch(rc, "stencil_step_mxu_batched" + plan.body)
     return out
 
 
-def _mxu_operands(workload: StencilWorkload, states: torch.Tensor, w: int,
-                  p: int, n_macro: int):
-    """The banded operators on the states' device, after checking that P
-    slots of w x w cells fit one v5 CTA and the grid."""
+def _mxu_operands(layout: BlockLayout, workload: StencilWorkload,
+                  states: torch.Tensor, k: int, p: int, n_macro: int,
+                  pieces: bool):
+    """The banded operators on the states' device and the launch's
+    ``mxu_plan``, after checking the grid."""
+    w = layout.rho + 2 * k
     rm, cm = _mxu_operators_on(workload, w, str(states.device))
-    n_terms = rm.shape[0]
-    smem = ((p * workload.n_channels + 2 * n_terms) * w * w * 4
-            + p * workload.n_channels * w * w * states.element_size()
-            + 16 + p * 36)
-    if smem > build.MAX_SMEM or p * w * w > _MAX_CTA_CELLS:
-        raise ValueError(f"P={p} slots of {w}x{w} cells exceed one CTA "
-                         f"({smem} bytes of {build.MAX_SMEM} shared, "
-                         f"{p * w * w} cells of {_MAX_CTA_CELLS})")
+    if rm.shape[0] > 2:   # ring-uniform weights (_rule_args) have rank <= 2
+        raise ValueError(f"the mxu kernel takes at most 2 rank-1 terms, got "
+                         f"{rm.shape[0]}")
     if n_macro >= 2 ** 31:
         raise ValueError(f"{n_macro} macro-tiles exceed the grid")
-    return rm, cm
+    plan = mxu_plan(states.dtype, workload.n_channels, layout.rho, k, p,
+                    pieces)
+    return rm, cm, plan
 
 
 # ======================================================================
@@ -550,7 +602,7 @@ def stencil_step_mxu_k_local(layout: BlockLayout, states: torch.Tensor,
                              out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """Shard-local v5: ``k`` exact steps of B simulations over one shard's
-    blocks in one launch over a (n_macro, B) grid, packed with
+    blocks in one launch, in work items packed with
     ``layout.macro_tiles_for(nbl, k, p)``. ``states`` (B, C, nbl, rho,
     rho), the pieces with the same (B, C) axes, ``existence`` (nbl, 8)."""
     _check_k(layout, k, "the mxu kernel")
@@ -563,8 +615,8 @@ def stencil_step_mxu_k_local(layout: BlockLayout, states: torch.Tensor,
     b, nbl, out = _check_local(layout, states, halo, existence, workload, k,
                                out)
     p, n_macro, _ = layout.macro_tiles_for(nbl, k, p=p)
-    w = layout.rho + 2 * k
-    rm, cm = _mxu_operands(workload, states, w, p, n_macro)
+    rm, cm, plan = _mxu_operands(layout, workload, states, k, p, n_macro,
+                                 pieces=True)
     dev = states.device
     wmask = layout.device_table("window_mask", dev, k)
     with torch.cuda.device(dev):
@@ -572,8 +624,9 @@ def stencil_step_mxu_k_local(layout: BlockLayout, states: torch.Tensor,
         rc = fn(_rule(workload), states.data_ptr(), out.data_ptr(),
                 *(h.data_ptr() for h in halo), existence.data_ptr(),
                 wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(), rm.shape[0],
-                nbl, b, layout.rho, k, p, *_rule_args(workload, stream))
-    build.finish_launch(rc, "stencil_step_mxu_k_local")
+                nbl, b, layout.rho, k, p, plan.nt, plan.spw, plan.warps,
+                *_rule_args(workload, stream))
+    build.finish_launch(rc, "stencil_step_mxu_k_local" + plan.body)
     return out
 
 

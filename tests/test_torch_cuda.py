@@ -562,3 +562,79 @@ def test_cuda_local_wrappers_refuse_bad_inputs(cuda):
         with pytest.raises(ValueError, match="k <= rho"):
             fn(lay, x, halo, ex, wl, k=lay.rho + 1)
     assert sk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# v5 and kernel 7 on the tensor cores: every window width, packing and body
+# ---------------------------------------------------------------------------
+#: (fractal, r, m, k) giving the windows w = rho + 2k = 5, 6, 7, 8 (one 8 x 8
+#: tile) and 9, 12 (k = rho: the wide instance)
+MXU_WINDOWS = [(tf.CARPET, 4, 1, 1), (tf.SIERPINSKI, 7, 2, 1),
+               (tf.CARPET, 4, 1, 2), (tf.SIERPINSKI, 7, 2, 2),
+               (tf.CARPET, 4, 1, 3), (tf.SIERPINSKI, 7, 2, 4)]
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+@pytest.mark.parametrize("case", MXU_WINDOWS,
+                         ids=[f"{c[0].name}-k{c[3]}" for c in MXU_WINDOWS])
+def test_cuda_mxu_every_window_and_packing(cuda, wl_name, case):
+    """v5 on B=3 at P = 1, 5 (odd: a warp with a zero slot), 7 (nb not a
+    multiple of P) and the default, each one launch of the body its width
+    picks, against the plain version."""
+    frac, r, m, k = case
+    wl = trules.WORKLOADS[wl_name]
+    lay = BlockLayout(frac, r, m)
+    assert lay.n_blocks % 7 and lay.n_blocks % 5
+    x = _state(lay, wl, 3, seed=k).to(cuda)
+    want = sk.stencil_step_mxu_batched_plain(lay, x.cpu(), wl, k=k)
+    name = "stencil_step_mxu_batched" + \
+        ("" if lay.rho + 2 * k <= 8 else "[wide]")
+    for p in (1, 5, 7, None):
+        sk.reset_launches()
+        got = sk.stencil_step_mxu_batched(lay, x, wl, k=k, p=p)
+        assert sk.LAUNCHES[name] == 1 and sum(sk.LAUNCHES.values()) == 1
+        _close(got, want, wl)
+
+
+@pytest.mark.parametrize("wl_name", ["life", "highlife"])
+def test_cuda_mxu_fully_alive_windows(cuda, wl_name):
+    """Every fractal cell alive: counts reach 8 and the aggregate's TF32
+    rounding still gives them exactly."""
+    wl = trules.WORKLOADS[wl_name]
+    for frac, r, m in CASES:
+        lay = BlockLayout(frac, r, m)
+        x = torch.from_numpy(np.broadcast_to(
+            lay.micro_mask, (2, lay.n_blocks, lay.rho, lay.rho)).copy())
+        for k in (1, 2):
+            _close(sk.stencil_step_mxu_batched(lay, x.to(cuda), wl, k=k),
+                   sk.stencil_step_mxu_batched_plain(lay, x, wl, k=k), wl)
+
+
+def test_cuda_runner_mxu_heat_64_steps(cuda):
+    """HEAT through the cuda-mxu runner for 64 steps (32 launches of 3xTF32
+    products) stays within the float bar of the CPU path."""
+    frac, r, m = tf.SIERPINSKI, 7, 2
+    states = _state(BlockLayout(frac, r, m), trules.HEAT, 2, seed=4)
+    sk.reset_launches()
+    got = BatchedRunner().run("cuda-mxu", frac, r, states.to(cuda), 64, m=m,
+                              workload=trules.HEAT)
+    assert sk.LAUNCHES["stencil_step_mxu_batched"] == 32
+    want = BatchedRunner(device="cpu").run("cuda-mxu", frac, r, states, 64,
+                                           m=m, workload=trules.HEAT)
+    _close(got, want, trules.HEAT)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+@pytest.mark.parametrize("wl_name", ["life", "gray-scott"])
+def test_cuda_dist_mxu_shards_match_single_device(cuda, wl_name, n_shards):
+    """Kernel 7 from the halo pieces over 1, 3 and 8 shards (p2p) equals
+    the single-device cuda-mxu run."""
+    wl = trules.WORKLOADS[wl_name]
+    single = make_engine("cuda-mxu", tf.SIERPINSKI, 7, 2, workload=wl)
+    dist = make_engine("dist-mxu", tf.SIERPINSKI, 7, 2, workload=wl,
+                       n_shards=n_shards, exchange="p2p")
+    x = single.init_random(seed=6)
+    sk.reset_launches()
+    out = dist.run(dist.from_dense(x), 6)
+    assert sk.LAUNCHES["stencil_step_mxu_k_local"] > 0
+    _close(dist.to_dense(out), single.run(x, 6), wl)
