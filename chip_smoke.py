@@ -10,12 +10,16 @@ jax or the reference package). Phases, each printing one JSON line:
   2. build   -- the kernels built from ``src/repro_torch/kernels/csrc`` by
                 nvcc for sm_90a;
   3. kernels against their plain PyTorch versions on the card: v1 and v2
-     (one simulation and B=3), v3, v4 (k in {2, rho}) and v5 (k in {1, 2},
-     two packings, B=3) on LIFE, HIGHLIFE, HEAT and GRAY_SCOTT over
+     (one simulation and B=3), v3, v4 (k in {1, 2, rho}) and v5 (k in {1,
+     2}, two packings, B=3) on LIFE, HIGHLIFE, HEAT and GRAY_SCOTT over
      sierpinski (m=2), carpet and vicsek (m=1) at about 10^6 compact cells
      or more, <= 8 steps each; CA bit-exact, floats to rtol=1e-5 and
      atol=1e-5 * min(1, max|plain|), so a field that has decayed is still
-     compared at its own scale; then nu and lambda, bit-exact, on all five
+     compared at its own scale, v4 bit for bit for every rule; then v4 at
+     every body ``fused_plan`` picks (``FUSED_CHECK``: windows of W = 16 and
+     32 lanes at rho = 8, 9 and 27, and the CTA body ``[wide]`` at rho = 27,
+     k = 3 and 27), one simulation and B=3, bit for bit, with the launches
+     by body; then nu and lambda, bit-exact, on all five
      registry fractals at r=3 and at the largest r whose coordinates fit
      int32, 10^6 coordinates each (nu's past both edges of the grid,
      lambda's negative and past the compact edges);
@@ -43,7 +47,13 @@ jax or the reference package). Phases, each printing one JSON line:
      plain version, time, plain time and bound; v5's row (and kernel 7's,
      phase 13) also with the operation bound of its padded TF32 products
      (``bound_ops_design_ms``) and the registers and spills of each
-     instance of its kernel (``registers``). v5 computes each window slot's
+     instance of its kernel (``registers``), v4's (and kernel 6's) with the
+     registers and spills of its warp body's instances by W and of its
+     CTA body (``registers``). v4 and kernel 6 hold a window column a lane,
+     its rows in registers, 32 / W windows a warp, and stage a group's
+     blocks into fixed slots of a warp-private buffer (the centers as one
+     run, a lane a neighbor block, only the rows a window reads; kernel 6
+     its five piece runs); v5 computes each window slot's
      Moore aggregate as sum_t (R_t X) C_t^T on the tensor cores
      (``mma.sync`` m16n8k8 TF32: one pass for the uint8 CA states, exact
      after rintf; 3xTF32 for float32), a warp per pair of slots in a
@@ -78,8 +88,10 @@ jax or the reference package). Phases, each printing one JSON line:
      versions on the card, on every call the distributed engine makes:
      phase 3's shapes sharded over 1, 3 and 8 shards (all on cuda:0), both
      exchanges, k in {1, 2, rho}, B=1 and 3, two packings for v5, LIFE,
-     HIGHLIFE, HEAT and GRAY_SCOTT; each run's result also against the
-     single-device cuda-fused or cuda-mxu engine;
+     HIGHLIFE, HEAT and GRAY_SCOTT (kernel 6 bit for bit); each run's
+     result also against the single-device cuda-fused (bit for bit) or
+     cuda-mxu engine; then kernel 6 at every body ``fused_plan`` picks, as
+     v4 in phase 3, from random halo pieces and existence rows;
  12. the distributed main path at the paper's size, sierpinski r=16 (4
      shards, all on cuda:0 on one card), each timed run after a warm-up:
      ``make_engine('dist-fused')`` LIFE and GRAY_SCOTT with the p2p
@@ -93,8 +105,8 @@ jax or the reference package). Phases, each printing one JSON line:
      share of a launch on CUDA events, the decomposition's build seconds
      and the wire bytes per device for 2, 4 and 8 shards;
  13. kernels 6 and 7 at phase 12's per-shard shapes (LIFE, k=2, B=4 for
-     v5), with their plain versions' times and bounds; their rows join the
-     ``kernels`` line;
+     v5), with their plain versions' times and bounds, and kernel 6's
+     registers by instance; their rows join the ``kernels`` line;
  14. the flash-attention and SSD chunk kernels against their plain
      versions: the reference tests' attention shapes (one block, several,
      Sq < Sk, windows 128 and 256, softcap 50, decode Sq=1), non-causal,
@@ -231,6 +243,13 @@ GLOBAL3D = ("menger", 5, 3)
 
 #: the shard-local kernels (6 and 7), each checked against its plain version
 LOCAL = ("stencil_step_fused_k_local", "stencil_step_mxu_k_local")
+#: (fractal, r, m, ks) of the v4 and kernel 6 checks at every body
+#: ``fused_plan`` picks beyond phase 3's shapes (w = rho + 2k <= 8 and 16):
+#: rho = 8 at w = 10 and 24, rho = 9 at 17 and 27, rho = 27 at 29 and 31
+#: (W = 32, one window a warp) and 33 and 81 (the CTA body, [wide]); about
+#: 10^6 compact cells or more each
+FUSED_CHECK = [("sierpinski", 13, 3, (1, 8)), ("vicsek", 9, 2, (4, 9)),
+               ("carpet", 7, 3, (1, 2, 3, 27))]
 #: (fractal, r, m) of the shard-local kernel checks (phase 3's shapes)
 DIST_CHECK = [("sierpinski", 13, 2), ("carpet", 7, 1), ("vicsek", 9, 1)]
 #: the distributed main path: sierpinski r=16 m=2 over 4 shards (round the
@@ -274,6 +293,29 @@ def mxu_registers(log: str) -> dict:
         halo = "pieces" if m.group(2) == "3" else "in-kernel"
         body = "one-tile" if m.group(3) == "1" else "wide"
         out[halo][f"{m.group(1)}/{body}"] = (
+            f"{regs.group(1) if regs else '?'}/"
+            f"{spill.group(1) if spill else 0}")
+    return out
+
+
+def fused_registers(log: str) -> dict:
+    """{"in-kernel" | "pieces": {"<rule>/<body>": "registers/spill
+    bytes"}}: the warp body's instances of v4 (row 4) and kernel 6 (row 6)
+    by W (8, 16, 32), and the CTA body (``step_kernel``, their [wide]
+    instance, which v3 shares for kInKernel) from nvcc's log."""
+    out = {"in-kernel": {}, "pieces": {}}
+    for e in ptxas_summary(log):
+        m = re.search(r"warp_kernelINS_\d+(\w+?)ELi(\d)ELi(\d+)E",
+                      e["entry"])
+        c = re.search(r"step_kernelINS_\d+(\w+?)ELi([03])EE", e["entry"])
+        if not (m or c):
+            continue
+        text = " ".join(e["ptxas"])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        rule, halo = (m or c).group(1), (m or c).group(2)
+        body = f"W{m.group(3)}" if m else "wide"
+        out["pieces" if halo == "3" else "in-kernel"][f"{rule}/{body}"] = (
             f"{regs.group(1) if regs else '?'}/"
             f"{spill.group(1) if spill else 0}")
     return out
@@ -376,12 +418,12 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
             x = (x * mask.to(x.dtype)).contiguous()
             errs = {}
 
-            def run(name, fn, plain, state, n):
+            def run(name, fn, plain, state, n, bit=exact):
                 got, want = state, state
                 for _ in range(n):
                     got, want = fn(got), plain(want)
                 errs[name] = chk.check(f"{frac.name}/{wl.name}/{name}",
-                                       fn.kernel, got, want, exact)
+                                       fn.kernel, got, want, bit)
 
             def tag(fn, kernel):
                 fn.kernel = kernel
@@ -398,12 +440,12 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
             run("v3", tag(lambda s: sk.stencil_step_fused(lay, s, wl),
                           "stencil_step_fused"),
                 lambda s: sk.stencil_step_fused_plain(lay, s, wl), x[0], 8)
-            for k in sorted({2, lay.rho}):
+            for k in sorted({1, 2, lay.rho}):   # bit for bit
                 run(f"v4_k{k}",
                     tag(lambda s, k=k: sk.stencil_step_fused_k(
                         lay, s, wl, k=k), "stencil_step_fused_k"),
                     lambda s, k=k: sk.stencil_step_fused_k_plain(
-                        lay, s, wl, k=k), x[0], 8 // k)
+                        lay, s, wl, k=k), x[0], 8 // k, bit=True)
             for k in (1, 2):
                 for p in (None, 7):
                     run(f"v5_k{k}_p{lay.macro_tiles(k, p)[0]}",
@@ -416,6 +458,65 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
             emit("kernel_vs_plain", fractal=frac.name, r=r, m=m,
                  compact_cells=frac.volume(r), workload=wl.name,
                  tolerance="exact" if exact else FLOAT_TOL, max_err=errs,
+                 seconds=time.perf_counter() - t0)
+
+
+def phase_fused_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk, local):
+    """v4 (``local=False``) or kernel 6 (``local=True``: random pieces and
+    existence rows) at the shapes of ``FUSED_CHECK``, all four rules, one
+    simulation and B=3, bit for bit against the plain version; v4 steps
+    max(1, 8 // k) times. Emits the launches by body."""
+    kname = "stencil_step_fused_k_local" if local else "stencil_step_fused_k"
+    fn, plain = getattr(sk, kname), getattr(sk, kname + "_plain")
+    for name, r, m, ks in FUSED_CHECK:
+        lay = BlockLayout(F.REGISTRY[name], r, m)
+        for wl in (R.LIFE, R.HIGHLIFE, R.HEAT, R.GRAY_SCOTT):
+            t0 = time.perf_counter()
+            g = torch.Generator(device="cuda")
+            g.manual_seed(13)
+            nc, rho = wl.n_channels, lay.rho
+            x = torch.stack([wl.init(g, (lay.n_blocks, rho, rho), "cuda")
+                             for _ in range(3)])
+            x = (x * lay.device_table("micro_mask", "cuda").to(x.dtype))
+            if local:
+                x = x if nc > 1 else x[:, None]
+            x = x.contiguous()
+
+            def rand(shape):
+                """Random halo pieces: CA states, or floats in [0, 0.25)
+                (Gray-Scott stays finite over k = rho substeps)."""
+                if wl.dtype == torch.uint8:
+                    return torch.randint(0, 2, shape, generator=g,
+                                         device="cuda", dtype=torch.uint8)
+                return 0.25 * torch.rand(shape, generator=g, device="cuda")
+            errs, bodies = {}, {}
+            sk.reset_launches()
+            for k in ks:
+                w = rho + 2 * k
+                bodies[k] = sk.fused_plan(wl.dtype, nc, rho, k, local).body
+                for label, s in (("b1", x[0]), ("b3", x)):
+                    what = f"fused/{name}/{wl.name}/k{k}/{label}"
+                    if local:
+                        halo = tuple(rand(s.shape[:-2] + tail) for tail in
+                                     ((k, w), (k, w), (rho, k), (rho, k)))
+                        ex = torch.randint(0, 2, (lay.n_blocks, 8),
+                                           generator=g, device="cuda",
+                                           dtype=torch.int32)
+                        got = fn(lay, s, halo, ex, wl, k=k)
+                        want = plain(lay, s, halo, ex, wl, k=k)
+                    else:
+                        got, want = s, s
+                        for _ in range(max(1, 8 // k)):
+                            got = fn(lay, got, wl, k=k)
+                            want = plain(lay, want, wl, k=k)
+                    errs[f"k{k}/{label}"] = chk.check(what, kname, got, want,
+                                                      True)
+                    del got, want
+            torch.cuda.synchronize()
+            emit("fused_bodies_vs_plain", kernel=kname, fractal=name, r=r,
+                 m=m, rho=rho, workload=wl.name, tolerance="exact",
+                 bodies=bodies, max_err=errs, launches={
+                     n: v for n, v in sk.LAUNCHES.items() if v},
                  seconds=time.perf_counter() - t0)
 
 
@@ -697,7 +798,9 @@ def checked_local_kernels(chk, sk, what, errs):
         def call(layout, s, halo, existence, wl, **kw):
             want = plain(layout, s, halo, existence, wl, k=kw["k"])
             got = fn(layout, s, halo, existence, wl, **kw)
+            # kernel 6 bit for bit, kernel 7 exact for the CA states
             err = chk.check(f"{what}/{name}", name, got, want,
+                            name == LOCAL[0] or
                             str(wl.dtype) == "torch.uint8")
             errs[name] = max(errs.get(name, 0.0), err)
             return got
@@ -750,7 +853,8 @@ def phase_dist_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk,
                         want = single[f"cuda-{compute}"].run(x, k + 1)
                         runs.append(label)
                         chk.check(f"dist/{frac.name}/{wl.name}/{label}/"
-                                  "engine", None, got, want, exact)
+                                  "engine", None, got, want,
+                                  exact or compute == "fused")
             torch.cuda.synchronize()
             emit("dist_kernel_vs_plain", fractal=frac.name, r=r, m=m,
                  compact_cells=frac.volume(r), workload=wl.name,
@@ -920,9 +1024,11 @@ def phase_dist_main(torch, chk, F, R, sk, make_engine, shared_layout,
                                                             n), n)
         kernel = None if label.startswith("dist-block") \
             else "stencil_step_fused_k_local"
+        # dist-fused equals cuda-fused bit for bit
         checks[label] = chk.check(f"dist_main/{label}", kernel,
                                   e.to_dense(outs[label]), want,
-                                  e.workload.dtype == torch.uint8)
+                                  e.workload.dtype == torch.uint8 or
+                                  kernel is not None)
     dense4 = mxu_eng.to_dense(mxu_states)
     want = single_run("runner dist-mxu life", lambda: runner.run(
         "cuda-mxu", frac, r, dense4, 64, m=m, workload=R.LIFE), 64)
@@ -985,7 +1091,7 @@ def phase_dist_main(torch, chk, F, R, sk, make_engine, shared_layout,
 
 
 def phase_dist_timing(torch, chk, R, sk, lay, k, launches, fused_eng,
-                      mxu_eng, state1, states4, mxu_regs):
+                      mxu_eng, state1, states4, mxu_regs, fused_regs):
     """Kernels 6 and 7 at the per-shard shapes of the main path: shard 0's
     whole-domain pass (interior-view table), LIFE, k=2; B=4 for v5.
     Bounds: the state read and written once, the four pieces read once
@@ -1027,6 +1133,8 @@ def phase_dist_timing(torch, chk, R, sk, lay, k, launches, fused_eng,
                 bound_ops_design_ms=mxu_design_ms(s5.shape[0], s5.shape[2],
                                                   k, 1),
                 registers=mxu_regs["pieces"])
+        else:
+            rows[-1].update(registers=fused_regs["pieces"])
         del halo, o
     return rows
 
@@ -1422,11 +1530,13 @@ def main() -> int:
                       "ptxas": ptxas_summary(v["log"])}
                   for n, v in built.items()})
     mxu_regs = mxu_registers(built["squeeze_stencil"]["log"])
+    fused_regs = fused_registers(built["squeeze_stencil"]["log"])
 
     chk = Checker(torch)
 
     # 3. kernels against plain ------------------------------------------
     phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk)
+    phase_fused_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk, False)
     phase_maps_vs_plain(torch, chk, F, nm, lm)
 
     # 4. the main path at the paper's size --------------------------------
@@ -1527,8 +1637,9 @@ def main() -> int:
     check("runner cuda-mxu heat", "stencil_step_mxu_batched", torch.stack(
         [plain_run(R.HEAT, s, 64) for s in heat_states]), False)
     for n, wl in (("life", R.LIFE), ("gray-scott", R.GRAY_SCOTT)):
+        # v4 and v3 bit for bit
         check(f"cuda-fused {n}", "stencil_step_fused_k",
-              plain_run(wl, fused_init[n], 63), wl.dtype == torch.uint8)
+              plain_run(wl, fused_init[n], 63), True)
     check("cuda life", "stencil_step_fused_k",
           plain_run(R.LIFE, cuda_init, 63), True)
     for (kind, n), e in singles.items():
@@ -1709,6 +1820,8 @@ def main() -> int:
             rows[-1].update(
                 bound_ops_design_ms=mxu_design_ms(*sb.shape[:2], k, 1),
                 registers=mxu_regs["in-kernel"])
+        if kname == "stencil_step_fused_k":
+            rows[-1].update(registers=fused_regs["in-kernel"])
         if "kernel_alone_bytes" in spec:
             extra_ms["kernel_alone_bytes_ms"] = \
                 1e3 * spec["kernel_alone_bytes"] / HBM_BYTES_PER_S
@@ -1739,6 +1852,7 @@ def main() -> int:
     # 11-13. the distributed slice -----------------------------------------
     phase_dist_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk,
                                 make_engine, make_distributed_engine)
+    phase_fused_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk, True)
     torch.cuda.empty_cache()
     launches_d, lay_d, fused_d, mxu_d, state1, states4 = phase_dist_main(
         torch, chk, F, R, sk, make_engine, shared_layout, default_fusion_k,
@@ -1746,7 +1860,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_dist_timing(torch, chk, R, sk, lay_d,
                               default_fusion_k(lay_d.rho), launches_d,
-                              fused_d, mxu_d, state1, states4, mxu_regs)
+                              fused_d, mxu_d, state1, states4, mxu_regs,
+                              fused_regs)
     del lay_d, fused_d, mxu_d, state1, states4
     torch.cuda.empty_cache()
 

@@ -19,17 +19,52 @@
 // defined, so the kernels read the neighbor table alone.
 //
 // What bounds them on this card: v1-v4 do a few integer or float operations
-// per cell and step, so they are bound by device-memory bytes: each launch
-// needs to read the state and the neighbor table once and write the state
-// once.
-// The design keeps everything else on chip: one CTA stages G compact blocks
-// as (rho+2k)^2 windows in shared memory, read straight through the
-// neighbor table (no halo tensor in device memory), builds the per-block
-// window mask from window_mask(k) and the neighbor existence, runs the k
-// substeps between two shared buffers and writes the center once, so the
-// bytes per simulated step fall by ~k. G packs several small blocks per CTA
-// (rho is 3..9 for the shipped fractals; one block per CTA would leave most
-// threads idle); its threads stride over the live cells of each substep.
+// per cell and step, so the least they need is device-memory bytes: each
+// launch reads the state and the neighbor table once and writes the state
+// once. Both designs keep everything else on chip: each window is read
+// straight through the neighbor table (no halo tensor in device memory),
+// its mask built from window_mask(k) and the neighbor existence, its k
+// substeps run on chip and its center written once, so the bytes per
+// simulated step fall by ~k.
+//
+// The CTA body (step_kernel: v1-v3, and v4 and kernel 6 for windows over
+// 32 cells or ring weights that are not their rule's, their [wide]
+// instance): one CTA of 256 threads stages G compact
+// blocks as (rho+2k)^2 windows in shared memory and runs the k substeps
+// between two shared buffers, its threads striding over the live cells of
+// each substep, the phases joined by block-wide barriers. Taken apart on
+// the card (tools/ab_fused.py) it spends v4's time on index arithmetic per
+// cell (divisions by runtime w, span and area, region() per cell),
+// one-byte staging loads and the barriers, some 30x over its bytes.
+//
+// The warp body (warp_kernel: v4 and kernel 6 for windows of w <= 32
+// cells; fused_plan in squeeze_stencil.py picks the body and its geometry,
+// the launcher checks them) does per cell only the arithmetic of the
+// stencil:
+//   * lanes are window columns and registers window rows: a warp holds
+//     32 / W windows (W the power of two >= max(w, 8): 4, 2 or 1), each
+//     lane its column's w cells of every channel, across the k substeps;
+//   * the aggregate's vertical sums are taken in the lane, the left and
+//     right ones come from the lanes beside it (__shfl with width W),
+//     summed in weighted_moore_agg's order, so the float rules stay bit
+//     for bit; only the sum of the rule's own weights is compiled (1 on
+//     both rings for the CA rules, 1 orthogonal for heat, two scaled rings
+//     for Gray-Scott); rows update in place, the old row above carried
+//     along;
+//   * each lane's staged element per row and its column's mask bits (by
+//     halo region, gated per window by one ballot of the existence) are
+//     computed once per kernel: no division or region() per cell, and one
+//     shared load a row;
+//   * a warp stages its group's blocks into a fixed layout of a
+//     warp-private buffer with 16-byte cp.async loads where aligned: the
+//     group's centers as one contiguous run, each window's 8 neighbors by
+//     the 8 lanes that hold their ids (a lane a block), or, for kernel 6,
+//     the group's five contiguous piece runs, the next group's loads in
+//     flight while this group computes; the neighbor ids of four windows
+//     come as one coalesced load; centers are stored from the registers; a
+//     persistent grid, no block-wide barrier. Loading each distinct block
+//     once (__match_any_sync and a block list) moved fewer bytes but took
+//     more instructions than it saved.
 //
 // v1 and v2 are the same one-step kernel with other halo staging. v1, the
 // paper's per-block scheme, stages the center block and its 8 Moore-neighbor
@@ -165,10 +200,26 @@ __device__ __forceinline__ T from_f32(float v) {
 // `cur` and `out` point at channel 0 of one slot; channels are ww apart.
 // `update` is the same on one cell held in registers (v5), its mask m 1.f
 // or 0.f.
+// `cell` is the same on one cell held in a lane's registers (v4 and kernel
+// 6), its value and aggregate in A, its mask m 1 or 0; `kForm` is the
+// aggregate's sum for the weights the rule's workloads have (AggForm): the
+// warp body computes that sum only (form_holds).
+enum AggForm { kRingUnit = 1, kOrthUnit = 2, kRingScaled = 3 };
+
 struct Totalistic {
   using T = uint8_t;
   using A = int;
   static constexpr int C = 1;
+  static constexpr int kForm = kRingUnit;
+  __device__ static void cell(const A* u, const A* agg, unsigned m,
+                              const RuleArgs& ra, A* out) {
+    const int set = u[0] > 0 ? ra.survive : ra.born;
+    // a count of 0..26 picks its bit; shr clamps a shift past 31 (any
+    // other count, or a negative one as unsigned) to 0
+    unsigned bit;
+    asm("shr.b32 %0, %1, %2;" : "=r"(bit) : "r"(set), "r"(agg[0]));
+    out[0] = (int)(bit & m & 1u);
+  }
   __device__ static void apply(const T* cur, T* out, int i, int ww,
                                const A* agg, int m, const RuleArgs& ra) {
     int set = cur[i] > 0 ? ra.survive : ra.born;
@@ -189,6 +240,11 @@ struct Heat {
   using T = float;
   using A = float;
   static constexpr int C = 1;
+  static constexpr int kForm = kOrthUnit;
+  __device__ static void cell(const A* u, const A* agg, unsigned m,
+                              const RuleArgs& ra, A* out) {
+    update(u, agg, m ? 1.f : 0.f, ra, out);
+  }
   __device__ static void apply(const T* cur, T* out, int i, int ww,
                                const A* agg, int m, const RuleArgs& ra) {
     float u = cur[i];
@@ -206,6 +262,11 @@ struct GrayScott {
   using T = float;
   using A = float;
   static constexpr int C = 2;
+  static constexpr int kForm = kRingScaled;
+  __device__ static void cell(const A* u, const A* agg, unsigned m,
+                              const RuleArgs& ra, A* out) {
+    update(u, agg, m ? 1.f : 0.f, ra, out);
+  }
   __device__ static void apply(const T* cur, T* out, int i, int ww,
                                const A* agg, int m, const RuleArgs& ra) {
     float u = cur[i], v = cur[ww + i];
@@ -1196,6 +1257,392 @@ mxu_kernel(const typename Rule::T* __restrict__ src,
   }
 }
 
+// ---------------------------------------------------------------------
+// v4 and kernel 6: the warp body (see the note at the top of the file).
+// ---------------------------------------------------------------------
+constexpr int kWarpWarps = 8;   // most warps of one warp-body CTA
+
+// The warp body's launch geometry (launch_fused fills it in from the W and
+// warps that fused_plan in squeeze_stencil.py picked). A warp takes a group
+// of G = 32 / W windows of consecutive blocks; an item is one group of one
+// simulation.
+struct WGeom {
+  int nb, groups, batch, rho, k, w;
+  int cstride;             // elements of one channel's staged region, its
+                           // 16 zero bytes and alignment included
+  int vin, per;            // bytes and elements of one staging load
+  int cpc;                 // kPieces: staging loads of one channel
+  int ends[4];             // kPieces: where the center, top, bottom and
+                           // west runs of a channel end, in loads
+};
+
+// The Moore aggregate at this lane's cell of a row from the lane's up, mid
+// and dn values; the columns left and right of it are the lanes beside it
+// in its W-lane window (shuffles; the lanes at a window's edge read their
+// own, and are never live). Each form is moore_agg's sum for its weights,
+// in its order: kOrthUnit (1 orthogonal, 0 diagonal), kRingUnit (1 on both
+// rings) and kRingScaled (both ring weights other than 0 and 1).
+template <int F, int W, class A>
+__device__ __forceinline__ A lane_agg(A up, A mid, A dn, const RuleArgs& ra) {
+  if (F == kOrthUnit) {
+    const A wv = __shfl_up_sync(kFull, mid, 1, W);
+    const A e = __shfl_down_sync(kFull, mid, 1, W);
+    A agg = (A)0;
+    agg = agg + up; agg = agg + wv; agg = agg + e; agg = agg + dn;
+    return agg;
+  }
+  const A col = up + mid + dn;
+  const A l = __shfl_up_sync(kFull, col, 1, W);
+  const A r = __shfl_down_sync(kFull, col, 1, W);
+  const A agg = l + col + r - mid;
+  if (F == kRingUnit) return agg;
+  const A ml = __shfl_up_sync(kFull, mid, 1, W);
+  const A mr = __shfl_down_sync(kFull, mid, 1, W);
+  return agg * (A)ra.wd + (up + ml + mr + dn) * (A)ra.wc;
+}
+
+// Whether the ring weights are form f's (the launcher refuses the warp body
+// otherwise; fused_plan gives such weights the CTA body).
+bool form_holds(int f, const RuleArgs& ra) {
+  return f == kRingUnit ? ra.wd == 1.f && ra.wc == 0.f
+       : f == kOrthUnit ? ra.wd == 0.f && ra.wo == 1.f
+       : f == kRingScaled && ra.wd != 0.f && ra.wd != 1.f && ra.wc != 0.f &&
+             ra.wc != 1.f;
+}
+
+// One substep of the windows whose columns the warp's lanes hold, rows in
+// registers: rows [J0, W - J0) of every lane are computed from the old
+// rows (one straight-line block, so the rows' shuffles and arithmetic
+// interleave), the old row above carried along.
+template <class Rule, int F, int W, int J0>
+__device__ __forceinline__ void substep(typename Rule::A (&v)[W][Rule::C],
+                                        unsigned colmask,
+                                        const RuleArgs& ra) {
+  using A = typename Rule::A;
+  constexpr int C = Rule::C;
+  A up[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) up[c] = v[J0 - 1][c];
+#pragma unroll
+  for (int y = J0; y < W - J0; ++y) {
+    A mid[C], agg[C], nx[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      mid[c] = v[y][c];
+      agg[c] = lane_agg<F, W>(up[c], mid[c], v[y + 1][c], ra);
+    }
+    Rule::cell(mid, agg, (colmask >> y) & 1u, ra, nx);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      v[y][c] = nx[c];
+      up[c] = mid[c];
+    }
+  }
+}
+
+// The k substeps. Substep j needs rows and columns [j, w - j): the first
+// computes rows [1, W - 1), the later ones [2, W - 2) for W = 8 (the main
+// path's w = 8 at k = 2) and [1, W - 1) for wider W (one copy of the rows
+// each). The rows and columns outside [j, w - j) get values nothing reads
+// again: the next substep reads rows [j, w - j) only.
+template <class Rule, int F, int W>
+__device__ __forceinline__ void substeps(
+    typename Rule::A (&v)[W][Rule::C], unsigned colmask, int k,
+    const RuleArgs& ra) {
+  for (int j = 1; j <= k; ++j) {  // substeps
+    if (W > 8 || j == 1)
+      substep<Rule, F, W, 1>(v, colmask, ra);
+    else
+      substep<Rule, F, W, 2>(v, colmask, ra);
+  }
+}
+
+// What a warp works on: group g (blocks g G ..) of simulation b; it is
+// past the work when b >= batch.
+struct Item {
+  int b, g;
+};
+
+__device__ __forceinline__ void next_item(Item& it, int stride,
+                                          const WGeom& gm) {
+  it.g += stride;
+  while (it.g >= gm.groups) {
+    it.g -= gm.groups;
+    ++it.b;
+  }
+}
+
+// Lane 8 q + d's row of the neighbor table (kInKernel: the neighbor id,
+// ghost nb) or of the existence table (kPieces: 0 for none) for window q of
+// the item.
+template <int H, int G>
+__device__ __forceinline__ int group_row(const int* __restrict__ nbr,
+                                         const Pieces& pc, const Item& it,
+                                         const WGeom& gm, int lane) {
+  const int blk = it.g * G + (lane >> 3);
+  const bool on = it.b < gm.batch && lane < 8 * G && blk < gm.nb;
+  const size_t at = (size_t)blk * 8 + (lane & 7);
+  if (H == kPieces) return on ? pc.ex[at] : 0;
+  return on ? nbr[at] : gm.nb;
+}
+
+// One staging load of `bytes` (vin) bytes, cp.async where vin >= 4 (zeros
+// where !on), else one element.
+template <class T>
+__device__ __forceinline__ void stage_load(T* to, const T* from, int bytes,
+                                           bool on) {
+  if (bytes >= 4)
+    cp_async(to, from, bytes, on);
+  else
+    *to = on ? *from : (T)0;
+}
+
+// A run of n contiguous elements into a staging buffer, vin bytes a lane
+// and load; elements past `valid` as zeros.
+template <class T>
+__device__ __forceinline__ void stage_run(T* to, const T* from, int n,
+                                          int valid, const WGeom& gm,
+                                          int lane) {
+  for (int i = lane * gm.per; i < n; i += 32 * gm.per)
+    stage_load(to + i, from + i, gm.vin, i < valid);
+}
+
+// Issue the staging loads of an item into the warp's buffer and commit
+// them as one group (an empty one past the work). Each channel's region of
+// the buffer is followed by 16 zero bytes (the rows past a window read
+// them).
+//
+// kInKernel: [c][G centers | 8 G neighbor slots][rho^2]. The centers are
+// consecutive blocks, one contiguous run; lane 8 q + d loads its neighbor
+// `row` (direction d of window q, a ghost nb as zeros) into slot G + 8 q +
+// d, of it the loads [olo, ohi) that hold the rows the window reads (the
+// bottom k rows of a northern neighbor, the top k of a southern one).
+//
+// kPieces: [c][centers | tops | bottoms | wests | easts], each run
+// contiguous in device memory for consecutive blocks: load j of a channel
+// is the walk's, 32 a round.
+template <class Rule, int H, int G>
+__device__ __forceinline__ void issue_group(
+    const typename Rule::T* __restrict__ src, const Pieces& pc,
+    typename Rule::T* buf, const Item& it, int row, int olo, int ohi,
+    const WGeom& gm, int lane) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C;
+  if (it.b < gm.batch) {
+    const int rho2 = gm.rho * gm.rho, blk0 = it.g * G;
+    const int nv = min(G, gm.nb - blk0);   // windows of the group in nb
+    if (H == kPieces) {
+      const int kw = gm.k * gm.w, rk = gm.rho * gm.k;
+      int c = 0, j = lane;
+      while (j >= gm.cpc) {
+        j -= gm.cpc;
+        ++c;
+      }
+      for (int base = 0; base < C * gm.cpc; base += 32) {
+        const int r = j < gm.ends[0] ? 0 : j < gm.ends[1] ? 1
+                    : j < gm.ends[2] ? 2 : j < gm.ends[3] ? 3 : 4;
+        const int start = r == 0 ? 0 : r == 1 ? gm.ends[0]
+                        : r == 2 ? gm.ends[1] : r == 3 ? gm.ends[2]
+                                              : gm.ends[3];
+        const int pb = r == 0 ? rho2 : (r <= 2 ? kw : rk);
+        const T* p = r == 0 ? src
+                   : static_cast<const T*>(r == 1 ? pc.top : r == 2 ? pc.bot
+                                           : r == 3 ? pc.west : pc.east);
+        const int e = (j - start) * gm.per;
+        const bool on = e < nv * pb;
+        const T* from =
+            on ? p + ((size_t)(it.b * C + c) * gm.nb + blk0) * pb + e : src;
+        if (base + lane < C * gm.cpc)
+          stage_load(buf + c * gm.cstride + j * gm.per, from, gm.vin, on);
+        j += 32;
+        while (j >= gm.cpc) {
+          j -= gm.cpc;
+          ++c;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const size_t sc = (size_t)(it.b * C + c) * gm.nb;
+        T* const to = buf + c * gm.cstride;
+        stage_run(to, src + (sc + blk0) * rho2, G * rho2, nv * rho2, gm,
+                  lane);
+        const bool on = row < gm.nb;
+        const T* from = src + (sc + (on ? row : 0)) * rho2;
+        T* const slot = to + (G + lane) * rho2;
+        for (int o = olo; o < ohi; o += gm.per)
+          stage_load(slot + o, from + o, gm.vin, on);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// A lane's column of its window, all channels, from the staging buffer
+// into registers: row y at off[y] (past the window: the zero bytes), one
+// load a row and channel.
+template <class Rule, int W>
+__device__ __forceinline__ void stage_column(
+    const typename Rule::T* sb, const int (&off)[W], int cstride,
+    typename Rule::A (&v)[W][Rule::C]) {
+#pragma unroll
+  for (int y = 0; y < W; ++y)
+#pragma unroll
+    for (int c = 0; c < Rule::C; ++c)
+      v[y][c] = (typename Rule::A)sb[off[y] + c * cstride];
+}
+
+// A lane's column mask: window_mask(k)'s bits of the column, and for each
+// of the three halo regions the column crosses (rows [0, k), [k, k + rho),
+// [k + rho, w)) its rows and the MOORE_DIRS index (8: the center) of the
+// block that owns it.
+struct ColMask {
+  unsigned wm, rows[3];
+  int dir[3];
+};
+
+// Bit y set where window_mask(k) is set and the region's block exists;
+// e holds a window's existence bits, bit 8 (the center) set.
+__device__ __forceinline__ unsigned column_mask(const ColMask& cm,
+                                                unsigned e) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    if ((e >> cm.dir[r]) & 1u) m |= cm.rows[r];
+  return cm.wm & m;
+}
+
+__device__ __forceinline__ unsigned low_bits(int n) {
+  return n >= 32 ? ~0u : (1u << n) - 1u;
+}
+
+// v4 (kInKernel) and kernel 6 (kPieces) for windows of w <= 32 cells: a
+// persistent grid of CTAs of up to kWarpWarps warps; each warp strides over
+// the (simulation, group) items on its own, no block-wide barrier. Lane
+// q W + x holds column x of window q (block g G + q) in registers, all
+// channels, across the k substeps (lanes past w hold zeros). The column's
+// staged element of each row, its mask bits and halo regions are computed
+// once per lane. A group's blocks are staged with cp.async into a
+// warp-private buffer; once its columns are in registers, the next
+// group's loads are issued into the same buffer and fly while this group
+// runs its substeps (a second buffer, two groups ahead, was slower). The
+// centers are stored from the registers.
+template <class Rule, int H, int W>
+__global__ void __launch_bounds__(kWarpWarps * 32)
+warp_kernel(const typename Rule::T* __restrict__ src,
+            typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
+            const uint8_t* __restrict__ wmask, Pieces pc, WGeom gm,
+            RuleArgs ra) {
+  using T = typename Rule::T;
+  using A = typename Rule::A;
+  constexpr int C = Rule::C, G = 32 / W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane / W, x = lane % W;
+  const int rho = gm.rho, k = gm.k, w = gm.w, rho2 = rho * rho;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const stage = reinterpret_cast<T*>(smem) +
+                   (size_t)warp * C * gm.cstride;   // this warp's buffer
+  // each channel's region ends in 16 zero bytes, at `zero`
+  const int zero = (((H == kPieces ? G * w * w : 9 * G * rho2) *
+                     (int)sizeof(T) + 15) & ~15) / (int)sizeof(T);
+  if (lane < C)
+    *reinterpret_cast<uint4*>(stage + lane * gm.cstride + zero) =
+        make_uint4(0u, 0u, 0u, 0u);
+
+  // this lane's column: the staged element of each row (the zero bytes
+  // past the window), its mask bits and regions
+  int off[W];
+  ColMask cm;
+  cm.wm = 0u;
+  const int rx = x < k ? 0 : (x < k + rho ? 1 : 2);
+#pragma unroll
+  for (int y = 0; y < W; ++y) {
+    off[y] = zero;
+    if (x >= w || y >= w) continue;
+    if (wmask[y * w + x]) cm.wm |= 1u << y;
+    const int ry = y < k ? 0 : (y < k + rho ? 1 : 2);
+    if (H == kPieces) {
+      const int kw = k * w, rk = rho * k, runs = G * rho2;
+      if (ry == 0)
+        off[y] = runs + q * kw + y * w + x;
+      else if (ry == 2)
+        off[y] = runs + G * kw + q * kw + (y - k - rho) * w + x;
+      else if (rx == 0)
+        off[y] = runs + 2 * G * kw + q * rk + (y - k) * k + x;
+      else if (rx == 2)
+        off[y] = runs + 2 * G * kw + G * rk + q * rk + (y - k) * k +
+                 (x - k - rho);
+      else
+        off[y] = q * rho2 + (y - k) * rho + (x - k);
+    } else {
+      // the block of the region: the center, or the slot of direction d
+      const int raster = ry * 3 + rx;
+      const int d = raster < 4 ? raster : raster - 1;
+      const int blk = raster == 4 ? q : G + 8 * q + d;
+      off[y] = blk * rho2 + (y - k - (ry - 1) * rho) * rho +
+               (x - k - (rx - 1) * rho);
+    }
+  }
+  cm.rows[0] = low_bits(k);
+  cm.rows[1] = low_bits(k + rho) & ~low_bits(k);
+  cm.rows[2] = low_bits(w) & ~low_bits(k + rho);
+  cm.dir[0] = rx;
+  cm.dir[1] = rx == 0 ? 3 : (rx == 1 ? 8 : 4);
+  cm.dir[2] = 5 + rx;
+  const bool center = x >= k && x < k + rho;
+  // kInKernel: the loads [olo, ohi) of this lane's neighbor block (lanes
+  // 8 q + d, d < 8) that hold the rows its window reads
+  int olo = 0, ohi = 0;
+  if (H != kPieces && lane < 8 * G) {
+    const int d = lane & 7;
+    olo = d < 3 ? (rho - k) * rho / gm.per * gm.per : 0;
+    ohi = d > 4 ? (k * rho + gm.per - 1) / gm.per * gm.per : rho2;
+  }
+
+  const int warps = blockDim.x >> 5, stride = gridDim.x * warps;
+  const int first = blockIdx.x * warps + warp;
+  Item it0{first / gm.groups, first % gm.groups};
+  Item it1 = it0;
+  next_item(it1, stride, gm);
+  int r0 = group_row<H, G>(nbr, pc, it0, gm, lane);
+  int r1 = group_row<H, G>(nbr, pc, it1, gm, lane);
+  __syncwarp();
+  issue_group<Rule, H, G>(src, pc, stage, it0, r0, olo, ohi, gm, lane);
+  while (it0.b < gm.batch) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+    // the windows' existence bits: lane 8 q + d holds direction d of q
+    const unsigned ball = __ballot_sync(
+        kFull, H == kPieces ? r0 != 0 : r0 < gm.nb);
+    const unsigned e = ((ball >> (8 * q)) & 0xffu) | 0x100u;
+    const unsigned colmask = column_mask(cm, e);
+    A v[W][C];
+    stage_column<Rule, W>(stage, off, gm.cstride, v);
+    __syncwarp();   // every lane has read the buffer: it takes the next
+                    // group's loads, which fly while this group computes
+    issue_group<Rule, H, G>(src, pc, stage, it1, r1, olo, ohi, gm, lane);
+    Item it2 = it1;
+    next_item(it2, stride, gm);
+    const int r2 = group_row<H, G>(nbr, pc, it2, gm, lane);
+
+    substeps<Rule, Rule::kForm, W>(v, colmask, k, ra);
+
+    const int blk = it0.g * G + q;
+    if (center && blk < gm.nb) {
+      T* to = dst + ((size_t)it0.b * C * gm.nb + blk) * rho2 + (x - k);
+#pragma unroll
+      for (int y = 0; y < W; ++y) {
+        if (y < k || y >= k + rho) continue;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          to[(size_t)c * gm.nb * rho2 + (y - k) * rho] = (T)v[y][c];
+      }
+    }
+    it0 = it1; r0 = r1;
+    it1 = it2; r1 = r2;
+  }
+}
+
 RuleArgs make_args(int born, int survive, float p0, float p1, float p2,
                    float p3, float wd, float wo, float wc) {
   RuleArgs ra;
@@ -1321,6 +1768,97 @@ int launch_mxu(const void* src, void* dst, const int* nbr,
                                    warps, ra, stream);
 }
 
+template <class Rule, int H, int W>
+int launch_warp_w(const void* src, void* dst, const int* nbr,
+                  const uint8_t* wmask, const Pieces& pc, const WGeom& gm,
+                  int warps, const RuleArgs& ra, cudaStream_t stream) {
+  using T = typename Rule::T;
+  const size_t smem = (size_t)warps * Rule::C * gm.cstride * sizeof(T);
+  auto kernel = warp_kernel<Rule, H, W>;
+  int rc = set_smem(kernel, smem);
+  if (rc) return rc;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((rc = (int)cudaGetDevice(&dev)) ||
+      (rc = (int)cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev)) ||
+      (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, warps * 32, smem)))
+    return rc;
+  const long long items = (long long)gm.groups * gm.batch;
+  const long long ctas = std::min((items + warps - 1) / warps,
+                                  (long long)std::max(per_sm, 1) * sms);
+  kernel<<<(unsigned)ctas, warps * 32, smem, stream>>>(
+      static_cast<const T*>(src), static_cast<T*>(dst), nbr, wmask, pc, gm,
+      ra);
+  return (int)cudaGetLastError();
+}
+
+// v4 and kernel 6 with the body fused_plan picked: W = 0 the CTA body
+// (step_kernel, the wide instance), else the warp body with W lanes a
+// window (8, 16 or 32, at least w) and `warps` warps a CTA, which the
+// launcher checks and lays out. Each channel's staging region (kInKernel:
+// G centers and 8 G neighbor slots; kPieces: w^2 elements a window) is
+// 16-byte aligned and followed by 16 zero bytes.
+template <class Rule, int H>
+int launch_fused(const void* src, void* dst, const int* nbr,
+                 const uint8_t* wmask, const Pieces& pc, long long nb,
+                 int batch, int rho, int k, int W, int warps,
+                 const RuleArgs& ra, cudaStream_t stream) {
+  using T = typename Rule::T;
+  constexpr int C = Rule::C, sz = (int)sizeof(T);
+  const int w = rho + 2 * k;
+  if (W == 0)
+    return launch_step<Rule, H>(src, dst, nbr, nullptr, wmask, pc, nb, batch,
+                                rho, k, ra, stream);
+  if ((W != 8 && W != 16 && W != 32) || w > W || warps < 1 ||
+      warps > kWarpWarps || !form_holds(Rule::kForm, ra))
+    return (int)cudaErrorInvalidValue;
+  const int G = 32 / W;
+  const long long region_bytes =
+      (((H == kPieces ? (long long)G * w * w : 9LL * G * rho * rho) * sz +
+        15) & ~15LL) + 16;
+  if ((long long)warps * C * region_bytes > (long long)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  // 32-bit geometry: blocks, items and the grid's stride stay below 2^30
+  if (nb < 1 || batch < 1 || nb >= (1LL << 30) ||
+      (long long)batch * ((nb + G - 1) / G) >= (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  WGeom gm;
+  gm.nb = (int)nb;
+  gm.groups = (int)((nb + G - 1) / G);
+  gm.batch = batch;
+  gm.rho = rho;
+  gm.k = k;
+  gm.w = w;
+  gm.cstride = (int)(region_bytes / sz);
+  const int rho2 = rho * rho, kw = k * w, rk = rho * k;
+  unsigned long long in_addr = (unsigned long long)src;
+  long long in_bytes = (long long)rho2 * sz;
+  if (H == kPieces) {
+    in_addr |= (unsigned long long)pc.top | (unsigned long long)pc.bot |
+               (unsigned long long)pc.west | (unsigned long long)pc.east;
+    in_bytes = (long long)std::gcd(std::gcd(rho2, kw), rk) * sz;
+  }
+  gm.vin = vec_width(in_addr, in_bytes, sz, 16);
+  gm.per = gm.vin / sz;
+  gm.cpc = G * w * w / gm.per;
+  gm.ends[0] = G * rho2 / gm.per;
+  gm.ends[1] = gm.ends[0] + G * kw / gm.per;
+  gm.ends[2] = gm.ends[1] + G * kw / gm.per;
+  gm.ends[3] = gm.ends[2] + G * rk / gm.per;
+  switch (W) {
+    case 8:
+      return launch_warp_w<Rule, H, 8>(src, dst, nbr, wmask, pc, gm, warps,
+                                       ra, stream);
+    case 16:
+      return launch_warp_w<Rule, H, 16>(src, dst, nbr, wmask, pc, gm, warps,
+                                        ra, stream);
+    default:
+      return launch_warp_w<Rule, H, 32>(src, dst, nbr, wmask, pc, gm, warps,
+                                        ra, stream);
+  }
+}
+
 template <int H>
 int step_entry(int rule, const void* src, void* dst, const int* nbr,
                const void* strips, const uint8_t* mask, const Pieces& pc,
@@ -1338,6 +1876,26 @@ int step_entry(int rule, const void* src, void* dst, const int* nbr,
                                              nb, batch, rho, k, ra, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int H>
+int fused_entry(int rule, const void* src, void* dst, const int* nbr,
+                const uint8_t* wmask, const Pieces& pc, long long nb,
+                int batch, int rho, int k, int W, int warps, int born,
+                int survive, float p0, float p1, float p2, float p3, float wd,
+                float wo, float wc, void* stream) {
+  RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SQ_FUSED(RULE)                                                   \
+  launch_fused<RULE, H>(src, dst, nbr, wmask, pc, nb, batch, rho, k, W, \
+                        warps, ra, s)
+  switch (rule) {
+    case 0: return SQ_FUSED(Totalistic);
+    case 1: return SQ_FUSED(Heat);
+    case 2: return SQ_FUSED(GrayScott);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SQ_FUSED
 }
 
 template <int H>
@@ -1401,16 +1959,18 @@ int sq_stencil_step_fused(int rule, const void* src, void* dst,
                                p3, wd, wo, wc, stream);
 }
 
-// v4: k exact steps per launch, 1 <= k <= rho.
+// v4: k exact steps per launch, 1 <= k <= rho, with the body (W lanes a
+// window and warps a CTA, or W = 0 for the CTA body) that fused_plan
+// picked.
 int sq_stencil_step_fused_k(int rule, const void* src, void* dst,
                             const int* nbr, const uint8_t* wmask,
-                            long long nb, int batch, int rho, int k,
-                            int born, int survive, float p0, float p1,
-                            float p2, float p3, float wd, float wo, float wc,
-                            void* stream) {
-  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, Pieces{},
-                               nb, batch, rho, k, born, survive, p0, p1, p2,
-                               p3, wd, wo, wc, stream);
+                            long long nb, int batch, int rho, int k, int W,
+                            int warps, int born, int survive, float p0,
+                            float p1, float p2, float p3, float wd, float wo,
+                            float wc, void* stream) {
+  return fused_entry<kInKernel>(rule, src, dst, nbr, wmask, Pieces{}, nb,
+                                batch, rho, k, W, warps, born, survive, p0,
+                                p1, p2, p3, wd, wo, wc, stream);
 }
 
 // v5: k exact steps per launch of B simulations, in macro-tiles of P
@@ -1430,19 +1990,21 @@ int sq_stencil_step_mxu(int rule, const void* src, void* dst, const int* nbr,
 }
 
 // Shard-local v4: k exact steps of the nbl blocks of one shard from their
-// halo pieces and existence table, 1 <= k <= rho.
+// halo pieces and existence table, 1 <= k <= rho; body as for
+// sq_stencil_step_fused_k.
 int sq_stencil_step_fused_k_local(int rule, const void* src, void* dst,
                                   const void* top, const void* bot,
                                   const void* west, const void* east,
                                   const int* ex, const uint8_t* wmask,
                                   long long nbl, int batch, int rho, int k,
-                                  int born, int survive, float p0, float p1,
-                                  float p2, float p3, float wd, float wo,
-                                  float wc, void* stream) {
-  return step_entry<kPieces>(rule, src, dst, nullptr, nullptr, wmask,
-                             Pieces{top, bot, west, east, ex}, nbl, batch,
-                             rho, k, born, survive, p0, p1, p2, p3, wd, wo,
-                             wc, stream);
+                                  int W, int warps, int born, int survive,
+                                  float p0, float p1, float p2, float p3,
+                                  float wd, float wo, float wc,
+                                  void* stream) {
+  return fused_entry<kPieces>(rule, src, dst, nullptr, wmask,
+                              Pieces{top, bot, west, east, ex}, nbl, batch,
+                              rho, k, W, warps, born, survive, p0, p1, p2, p3,
+                              wd, wo, wc, stream);
 }
 
 // Shard-local v5: k exact steps of B simulations over the nbl blocks of one

@@ -11,6 +11,11 @@ its plain PyTorch version.
     ``stencil_step_fused``.
   * ``stencil_step_fused_k``     (v4) -- k exact steps per launch on a
     depth-k window (1 <= k <= rho); replaces ``stencil_step_fused_k``.
+    Windows of up to 32 cells a side run the warp body (a lane a window
+    column, its cells in registers, 32 / W windows a warp); ``fused_plan``
+    picks the body and its geometry, and wider windows (or ring weights
+    that are not the rule's own) run the CTA body, counted as
+    ``<name>[wide]``.
   * ``stencil_step_mxu_batched`` (v5) -- k exact steps of B simulations in
     one launch, the Moore aggregate as rank-1 banded products on the tensor
     cores (TF32 ``mma.sync``: one pass for the uint8 CA states, 3xTF32 for
@@ -22,7 +27,8 @@ its plain PyTorch version.
     and v5 over one shard's blocks, their halo given as four pieces
     assembled from the exchanged strips and their neighbors as an (nbl, 8)
     existence table (the distributed engine's compute); replace the
-    reference's entries of the same names.
+    reference's entries of the same names; the same bodies and launch
+    names as v4 and v5.
 
 The kernels live in ``csrc/squeeze_stencil.cu``. A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
@@ -46,15 +52,16 @@ from repro_torch.core.compact import BlockLayout, halo_regions
 from repro_torch.kernels import build
 from repro_torch.workloads.base import (StencilWorkload, banded_operators,
                                         halo_needs)
-from repro_torch.workloads.rules import LIFE
+from repro_torch.workloads.rules import LIFE, RULE_HEAT, RULE_TOTALISTIC
 
 #: kernel name -> launches since the last ``reset_launches`` (shared by
 #: every kernel wrapper module)
 LAUNCHES = build.LAUNCHES
 LAUNCHES.update(dict.fromkeys(
     ("stencil_step_blocks", "stencil_step_strips", "stencil_step_fused",
-     "stencil_step_fused_k", "stencil_step_mxu_batched",
-     "stencil_step_mxu_batched[wide]", "stencil_step_fused_k_local",
+     "stencil_step_fused_k", "stencil_step_fused_k[wide]",
+     "stencil_step_mxu_batched", "stencil_step_mxu_batched[wide]",
+     "stencil_step_fused_k_local", "stencil_step_fused_k_local[wide]",
      "stencil_step_mxu_k_local", "stencil_step_mxu_k_local[wide]"), 0))
 reset_launches = build.reset_launches
 
@@ -66,15 +73,16 @@ _SIGNATURES = {
     "sq_stencil_step_blocks": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
     "sq_stencil_step_strips": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
     "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
-    "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL, _I, _I, _I]
+    # ..., k, W, warps (fused_plan; W = 0 for the CTA body), ...
+    "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL] + [_I] * 5
     + _RULE_ARGS,
     # rule, src, dst, nbr, wmask, R, C, n_terms, nb, batch, rho, k, P,
     # nt, spw, warps, ...
     "sq_stencil_step_mxu": [_I, _P, _P, _P, _P, _P, _P, _I, _LL]
     + [_I] * 7 + _RULE_ARGS,
     # rule, src, dst, top, bot, west, east, existence, wmask, nbl, batch,
-    # rho, k, ...
-    "sq_stencil_step_fused_k_local": [_I] + [_P] * 8 + [_LL, _I, _I, _I]
+    # rho, k, W, warps, ...
+    "sq_stencil_step_fused_k_local": [_I] + [_P] * 8 + [_LL] + [_I] * 5
     + _RULE_ARGS,
     # ... wmask, R, C, n_terms, nbl, batch, rho, k, P, nt, spw, warps, ...
     "sq_stencil_step_mxu_k_local": [_I] + [_P] * 10 + [_I, _LL]
@@ -333,6 +341,102 @@ def mxu_plan(dtype: torch.dtype, n_channels: int, rho: int, k: int, p: int,
 
 
 # ======================================================================
+# v4 and kernel 6 geometry
+# ======================================================================
+#: most warps of one CTA of the v4 warp body (``kWarpWarps`` in the source)
+FUSED_WARPS = 8
+#: threads of one CTA of the CTA body (``kThreads``), the cells of the
+#: windows it holds (``kCellsPerCta``)
+CTA_THREADS, CTA_CELLS = 256, 1024
+
+
+class FusedPlan(NamedTuple):
+    """The body and launch geometry of v4 or kernel 6 for one shape
+    (``fused_plan``); the C entries take W and warps."""
+    W: int        # lanes a window: a power of two >= w (0: the CTA body)
+    windows: int  # windows a warp, 32 / W (a CTA's for the CTA body)
+    warps: int    # warps a CTA
+    smem: int     # shared bytes of a CTA
+    body: str     # '' (the warp body) or '[wide]' (the CTA body)
+
+
+def fused_plan(dtype: torch.dtype, n_channels: int, rho: int, k: int,
+               pieces: bool = False, rule_form: bool = True) -> FusedPlan:
+    """The body and launch geometry of v4 (``pieces=False``) or of kernel 6
+    (``pieces=True``) for a window w = rho + 2k of ``n_channels`` channels
+    of ``dtype``. For w <= 32 the warp body: W the power of two >= max(w,
+    8), so G = 32 / W = 4, 2 or 1 windows a warp; a warp-private staging
+    buffer of one group's blocks, each channel's region (v4: the G centers
+    and a slot for each window's 8 neighbor blocks, whole blocks; kernel 6:
+    w^2 elements a window, its center and four halo pieces) 16-byte
+    aligned and followed by 16 zero bytes; the most warps (up to
+    ``FUSED_WARPS``) that fit a CTA's shared memory. Wider windows, and
+    ring weights that are not the rule's own (``rule_form`` false, see
+    ``_rule_form``: the warp body computes only that sum), run the CTA body
+    (``[wide]``, W = 0): the windows of up to 1024 cells of a CTA's 256
+    threads, two w^2 buffers of all channels each, ids and mask, as
+    ``launch_step`` in the source lays them out. Raises when nothing
+    fits."""
+    w = rho + 2 * k
+    esize = torch.empty((), dtype=dtype).element_size()
+    if w > 32 or not rule_form:
+        ww = w * w
+        g = max(1, CTA_CELLS // ww)
+        smem = -(-g * n_channels * 2 * ww * esize // 16) * 16 + g * 9 * 4 \
+            + ww
+        if smem > build.MAX_SMEM:
+            raise ValueError(f"a {w}x{w} window of {n_channels} channel(s) "
+                             f"exceeds one CTA's {build.MAX_SMEM} bytes of "
+                             f"shared memory ({smem} bytes)")
+        return FusedPlan(0, g, CTA_THREADS // 32, smem, "[wide]")
+    big_w = 8 if w <= 8 else 16 if w <= 16 else 32
+    g = 32 // big_w
+    region = -(-(g * w * w if pieces else 9 * g * rho * rho) * esize
+               // 16) * 16 + 16
+    per_warp = n_channels * region
+    warps = min(FUSED_WARPS, build.MAX_SMEM // per_warp)
+    if warps < 1:
+        raise ValueError(f"one group of {g} {w}x{w} window(s) of "
+                         f"{n_channels} channel(s) exceeds one CTA's "
+                         f"{build.MAX_SMEM} bytes of shared memory "
+                         f"({per_warp} bytes)")
+    return FusedPlan(big_w, g, warps, warps * per_warp, "")
+
+
+def _rule_form(workload: StencilWorkload) -> bool:
+    """Whether the workload's ring weights, as the float32 values the
+    kernel takes, are the one aggregate sum the warp body compiles for its
+    rule (``form_holds`` in the source): 1 on both rings for the CA rules,
+    1 orthogonal and 0 diagonal for heat, both rings other than 0 and 1
+    for Gray-Scott. Every shipped workload's are."""
+    wd, wo = workload.ring_weights
+    wd, wo, wc = (float(np.float32(x)) for x in (wd, wo, wo - wd))
+    rule = _rule(workload)
+    if rule == RULE_TOTALISTIC:
+        return wd == 1 and wc == 0
+    if rule == RULE_HEAT:
+        return wd == 0 and wo == 1
+    return wd not in (0, 1) and wc not in (0, 1)
+
+
+def _fused_plan_for(layout: BlockLayout, state: torch.Tensor,
+                    workload: StencilWorkload, k: int,
+                    pieces: bool) -> FusedPlan:
+    """``fused_plan`` for v4 or kernel 6 on ``state``, after checking the
+    warp body's 32-bit geometry."""
+    plan = fused_plan(state.dtype, workload.n_channels, layout.rho, k,
+                      pieces, _rule_form(workload))
+    if not plan.body:
+        n = state.shape[-3]
+        items = (state.numel() // (n * layout.rho ** 2)
+                 // workload.n_channels) * -(-n // plan.windows)
+        if n >= 2 ** 30 or items >= 2 ** 30:
+            raise ValueError(f"{n} blocks in {items} groups exceed the "
+                             "fused kernel's 32-bit geometry")
+    return plan
+
+
+# ======================================================================
 # CUDA launches
 # ======================================================================
 def _rule_args(workload: StencilWorkload, stream: int):
@@ -397,13 +501,17 @@ def _launch_step(name, layout, state, workload, k, out, strips=None):
         mask = layout.device_table("window_mask", dev, k)
     else:
         mask = layout.device_table("micro_mask", dev)
+    args = [_rule(workload), state.data_ptr(), out.data_ptr(),
+            halo.data_ptr(), mask.data_ptr(), layout.n_blocks, b, layout.rho]
+    body = ""
+    if name == "stencil_step_fused_k":
+        plan = _fused_plan_for(layout, state, workload, k, False)
+        args += [k, plan.W, plan.warps]
+        body = plan.body
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        args = [_rule(workload), state.data_ptr(), out.data_ptr(),
-                halo.data_ptr(), mask.data_ptr(), layout.n_blocks, b,
-                layout.rho] + ([k] if name == "stencil_step_fused_k" else [])
         rc = fn(*args, *_rule_args(workload, stream))
-    build.finish_launch(rc, name)
+    build.finish_launch(rc, name + body)
     return out
 
 
@@ -583,15 +691,16 @@ def stencil_step_fused_k_local(layout: BlockLayout, state: torch.Tensor,
     fn = _c_function("sq_stencil_step_fused_k_local")
     b, nbl, out = _check_local(layout, state, halo, existence, workload, k,
                                out)
+    plan = _fused_plan_for(layout, state, workload, k, True)
     dev = state.device
     wmask = layout.device_table("window_mask", dev, k)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(_rule(workload), state.data_ptr(), out.data_ptr(),
                 *(h.data_ptr() for h in halo), existence.data_ptr(),
-                wmask.data_ptr(), nbl, b, layout.rho, k,
+                wmask.data_ptr(), nbl, b, layout.rho, k, plan.W, plan.warps,
                 *_rule_args(workload, stream))
-    build.finish_launch(rc, "stencil_step_fused_k_local")
+    build.finish_launch(rc, "stencil_step_fused_k_local" + plan.body)
     return out
 
 

@@ -11,6 +11,7 @@ banded products in another order than the plain aggregate); the lambda/nu
 maps are bit-exact. The 3D kernels (cuda-3d, cuda-3d-mxu) are held the same
 way on the Menger sponge and the Sierpinski tetrahedron.
 """
+import dataclasses
 from unittest import mock
 
 import numpy as np
@@ -51,12 +52,15 @@ def _tol(wl):
         else dict(rtol=1e-5, atol=1e-5)
 
 
-def _state(lay, wl, batch, seed=0):
+def _state(lay, wl, batch, seed=0, scale=1.0):
+    """Random states (B, C?, nb, rho, rho) under the micro mask; floats in
+    [0, scale)."""
     rng = np.random.default_rng(seed)
     shape = (batch,) + ((wl.n_channels,) if wl.n_channels > 1 else ()) + \
         (lay.n_blocks, lay.rho, lay.rho)
     x = rng.integers(0, 2, shape).astype(np.uint8) \
-        if wl.dtype == torch.uint8 else rng.random(shape).astype(np.float32)
+        if wl.dtype == torch.uint8 \
+        else (scale * rng.random(shape)).astype(np.float32)
     return torch.from_numpy(x * lay.micro_mask)
 
 
@@ -64,6 +68,13 @@ def _close(got, want, wl):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **_tol(wl))
+
+
+def _equal(got, want):
+    """Bit for bit (v4 and kernel 6 round each float operation as their
+    plain versions do)."""
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.parametrize("wl_name", WORKLOADS)
@@ -74,9 +85,9 @@ def test_cuda_kernels_match_plain(cuda, wl_name):
         x = _state(lay, wl, 3).to(cuda)
         _close(sk.stencil_step_fused(lay, x[0], wl),
                sk.stencil_step_fused_plain(lay, x[0], wl), wl)
-        for k in (2, lay.rho):
-            _close(sk.stencil_step_fused_k(lay, x, wl, k=k),
-                   sk.stencil_step_fused_k_plain(lay, x, wl, k=k), wl)
+        for k in (1, 2, lay.rho):
+            _equal(sk.stencil_step_fused_k(lay, x, wl, k=k),
+                   sk.stencil_step_fused_k_plain(lay, x, wl, k=k))
         for k in (1, 2):
             for p in (1, 3, None):
                 _close(sk.stencil_step_mxu_batched(lay, x, wl, k=k, p=p),
@@ -194,6 +205,16 @@ def test_cuda_wrapper_refuses_bad_inputs(cuda):
         sk.stencil_step_fused(lay, x.transpose(-1, -2), trules.LIFE)
     with pytest.raises(ValueError, match="alias"):
         sk.stencil_step_fused_k(lay, x, trules.LIFE, k=2, out=x)
+    before = dict(sk.LAUNCHES)
+    with pytest.raises(TypeError):
+        sk.stencil_step_fused_k(lay, x.float(), trules.LIFE, k=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.stencil_step_fused_k(lay, x.transpose(-1, -2), trules.LIFE, k=2)
+    with pytest.raises(ValueError, match="k <= rho"):
+        sk.stencil_step_fused_k(lay, x, trules.LIFE, k=lay.rho + 1)
+    with pytest.raises(ValueError, match="does not match"):
+        sk.stencil_step_fused_k(lay, x[:, :3], trules.LIFE, k=2)
+    assert sk.LAUNCHES == before
 
 
 def test_cuda_new_wrappers_refuse_bad_inputs(cuda):
@@ -465,9 +486,10 @@ def test_cuda_attention_and_ssd_refuse_bad_inputs(cuda):
     assert build.LAUNCHES == before
 
 # ------------------------------------------------------- distributed
-def _pieces(lay, wl, lead, k, seed=0):
+def _pieces(lay, wl, lead, k, seed=0, scale=1.0):
     """Random halo pieces (top, bot, west, east) with leading axes
-    ``lead`` (..., C, nbl) for the shard-local entries."""
+    ``lead`` (..., C, nbl) for the shard-local entries; floats in [0,
+    scale)."""
     rng = np.random.default_rng(seed)
     rho, w = lay.rho, lay.rho + 2 * k
     out = []
@@ -475,7 +497,7 @@ def _pieces(lay, wl, lead, k, seed=0):
         shape = lead + tail
         x = rng.integers(0, 2, shape).astype(np.uint8) \
             if wl.dtype == torch.uint8 \
-            else rng.random(shape).astype(np.float32)
+            else (scale * rng.random(shape)).astype(np.float32)
         out.append(torch.from_numpy(x))
     return tuple(out)
 
@@ -499,14 +521,13 @@ def test_cuda_local_kernels_match_plain(cuda, wl_name):
             halo = tuple(h.to(cuda) for h in
                          _pieces(lay, wl, (3, nc, nbl), k, seed=k))
             x = x.to(cuda)
-            _close(sk.stencil_step_fused_k_local(
+            _equal(sk.stencil_step_fused_k_local(
                        lay, x[0], tuple(h[0] for h in halo), ex, wl, k=k),
                    sk.stencil_step_fused_k_local_plain(
-                       lay, x[0], tuple(h[0] for h in halo), ex, wl, k=k),
-                   wl)
-            _close(sk.stencil_step_fused_k_local(lay, x, halo, ex, wl, k=k),
+                       lay, x[0], tuple(h[0] for h in halo), ex, wl, k=k))
+            _equal(sk.stencil_step_fused_k_local(lay, x, halo, ex, wl, k=k),
                    sk.stencil_step_fused_k_local_plain(lay, x, halo, ex, wl,
-                                                       k=k), wl)
+                                                       k=k))
             for p in (None, 3):
                 _close(sk.stencil_step_mxu_k_local(lay, x, halo, ex, wl,
                                                    k=k, p=p),
@@ -638,3 +659,121 @@ def test_cuda_dist_mxu_shards_match_single_device(cuda, wl_name, n_shards):
     out = dist.run(dist.from_dense(x), 6)
     assert sk.LAUNCHES["stencil_step_mxu_k_local"] > 0
     _close(dist.to_dense(out), single.run(x, 6), wl)
+
+
+# ---------------------------------------------------------------------------
+# v4 and kernel 6: every body fused_plan picks
+# ---------------------------------------------------------------------------
+#: (fractal, r, m, k): windows w = rho + 2k of 6 and 8 (W = 8: four windows
+#: a warp), 12 and 9 (W = 16), 24, 27, 29 and 31 (W = 32), 33 and 81 (the
+#: CTA body, [wide]); k = 1 and k = rho among them; block counts 243, 125,
+#: 27, 25 and 5, none a multiple of the windows a CTA takes
+FUSED_BODIES = [(tf.SIERPINSKI, 7, 2, 1), (tf.SIERPINSKI, 7, 2, 2),
+                (tf.SIERPINSKI, 7, 2, 4), (tf.VICSEK, 4, 1, 3),
+                (tf.SIERPINSKI, 6, 3, 8), (tf.VICSEK, 4, 2, 9),
+                (tf.VICSEK, 4, 3, 1), (tf.VICSEK, 4, 3, 2),
+                (tf.VICSEK, 4, 3, 3), (tf.VICSEK, 4, 3, 27)]
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+@pytest.mark.parametrize("case", FUSED_BODIES,
+                         ids=[f"{c[0].name}-r{c[1]}m{c[2]}-k{c[3]}"
+                              for c in FUSED_BODIES])
+def test_cuda_fused_every_body(cuda, wl_name, case):
+    """v4 (one simulation and B=3) and kernel 6 (B=1 and 3, random pieces
+    and existence rows) at each body ``fused_plan`` picks, bit for bit
+    against their plain versions, each one launch under its body's name."""
+    frac, r, m, k = case
+    wl = trules.WORKLOADS[wl_name]
+    nc = wl.n_channels
+    lay = BlockLayout(frac, r, m)
+    body = sk.fused_plan(wl.dtype, nc, lay.rho, k).body
+    assert body == ("" if lay.rho + 2 * k <= 32 else "[wide]")
+    # floats in [0, 0.25): Gray-Scott stays finite over k = rho substeps
+    x = _state(lay, wl, 3, seed=k, scale=0.25).to(cuda)
+    for s in (x[0], x):
+        sk.reset_launches()
+        got = sk.stencil_step_fused_k(lay, s, wl, k=k)
+        assert sk.LAUNCHES["stencil_step_fused_k" + body] == 1
+        assert sum(sk.LAUNCHES.values()) == 1
+        want = sk.stencil_step_fused_k_plain(lay, s.cpu(), wl, k=k)
+        assert bool(torch.isfinite(want.float()).all())
+        _equal(got, want)
+    rng = np.random.default_rng(k)
+    nbl = lay.n_blocks - 1 if lay.n_blocks > 2 else lay.n_blocks
+    ex = torch.from_numpy(
+        rng.integers(0, 2, (nbl, 8)).astype(np.int32)).to(cuda)
+    xl = (x if nc > 1 else x[:, None])[:, :, :nbl].contiguous()
+    halo = tuple(h.to(cuda) for h in _pieces(lay, wl, (3, nc, nbl), k,
+                                             seed=k, scale=0.25))
+    for s, h in ((xl[0], tuple(p[0] for p in halo)), (xl, halo)):
+        sk.reset_launches()
+        got = sk.stencil_step_fused_k_local(lay, s, h, ex, wl, k=k)
+        assert sk.LAUNCHES["stencil_step_fused_k_local" + body] == 1
+        assert sum(sk.LAUNCHES.values()) == 1
+        want = sk.stencil_step_fused_k_local_plain(
+            lay, s.cpu(), tuple(p.cpu() for p in h), ex.cpu(), wl, k=k)
+        assert bool(torch.isfinite(want.float()).all())
+        _equal(got, want)
+
+
+@dataclasses.dataclass(frozen=True)
+class _OrthCA(trules.TotalisticCA):
+    """Life's rule over the 4 orthogonal neighbors: ring weights (0, 1)."""
+    name: str = "orth-life"
+
+    def weight(self, offset):
+        return 1 if sum(abs(d) for d in offset) == 1 else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _MooreHeat(trules.HeatDiffusion):
+    """Heat over all 8 neighbors: ring weights (1, 1)."""
+    name: str = "moore-heat"
+    degree: int = 8
+
+    def weight(self, offset):
+        return 1
+
+
+@pytest.mark.parametrize("wl", [_OrthCA(), _MooreHeat()],
+                         ids=["orth-life", "moore-heat"])
+def test_cuda_fused_other_weights_run_the_cta_body(cuda, wl):
+    """Ring weights other than the rule's own run the CTA body ([wide])
+    even where the window fits a warp (w = 8), v4 and kernel 6 bit for bit
+    with B = 3; the C entry refuses the warp body's plan for them."""
+    lay, k = BlockLayout(tf.SIERPINSKI, 7, 2), 2
+    assert not sk._rule_form(wl)
+    x = _state(lay, wl, 3, seed=5, scale=0.25).to(cuda)
+    sk.reset_launches()
+    got = sk.stencil_step_fused_k(lay, x, wl, k=k)
+    assert sk.LAUNCHES["stencil_step_fused_k[wide]"] == 1
+    assert sum(sk.LAUNCHES.values()) == 1
+    _equal(got, sk.stencil_step_fused_k_plain(lay, x.cpu(), wl, k=k))
+    nbl = lay.n_blocks
+    ex = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 2, (nbl, 8)).astype(np.int32)).to(cuda)
+    halo = tuple(h.to(cuda) for h in _pieces(lay, wl, (3, 1, nbl), k,
+                                             seed=5, scale=0.25))
+    xl = x[:, None].contiguous()
+    sk.reset_launches()
+    got = sk.stencil_step_fused_k_local(lay, xl, halo, ex, wl, k=k)
+    assert sk.LAUNCHES["stencil_step_fused_k_local[wide]"] == 1
+    assert sum(sk.LAUNCHES.values()) == 1
+    _equal(got, sk.stencil_step_fused_k_local_plain(
+        lay, xl.cpu(), tuple(h.cpu() for h in halo), ex.cpu(), wl, k=k))
+    # the warp body's plan, asked for with these weights: refused, nothing
+    # launched
+    plan = sk.fused_plan(wl.dtype, 1, lay.rho, k)
+    assert plan.body == ""
+    out = torch.zeros_like(x)
+    with torch.cuda.device(cuda):
+        rc = sk._c_function("sq_stencil_step_fused_k")(
+            sk._rule(wl), x.data_ptr(), out.data_ptr(),
+            lay.device_table("neighbor_table", cuda).data_ptr(),
+            lay.device_table("window_mask", cuda, k).data_ptr(),
+            lay.n_blocks, 3, lay.rho, k, plan.W, plan.warps,
+            *sk._rule_args(wl, torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert rc != 0
+    assert not bool(out.any())

@@ -1,0 +1,281 @@
+"""Take the fused-k stencil kernel body apart on one card: rows 4 and 6 of
+the kernel table (``stencil_step_fused_k``, v4, and
+``stencil_step_fused_k_local``, kernel 6: one template body) beside
+variants of the body with one part removed, to see where its time goes.
+
+    python3 tools/ab_fused.py [--rounds N] CHECKOUT [CHECKOUT ...]
+
+Run from the root of a checkout on a machine with an NVIDIA H100 and nvcc.
+Each CHECKOUT is the root of a checkout of this repository (for instance
+the parent commit unpacked with ``git archive`` into ``.scratch/parent``,
+then ``.``); its ``src/repro_torch/kernels/csrc/squeeze_stencil.cu`` is
+read, the body it holds is recognised (the warp body keeps each window
+column in a lane's registers, ``warp_kernel``; the body before it is a
+CTA of 256 threads over G windows in shared memory, ``step_kernel``), and
+so is whether its entries take ``fused_plan``'s W and warps (those of the
+running checkout are passed where they do), and
+each variant of that body is the source with one text edit, built with
+the port's nvcc flags into its own library under ``build/ab_fused/``
+(all in parallel) and called through ctypes:
+
+- ``shipped``: the source as it is;
+- ``stage-store``: no substep at all, the windows staged and the centers
+  stored;
+- ``no-rule``: the rule removed, the aggregate (times the mask) written
+  in its place;
+- ``no-mask``: every cell's mask 1 (no mask built or read);
+- ``ids-only``: the neighbor ids (or existence rows) loaded and the
+  centers stored, no block staged (after a warp's first group) and no
+  substep.
+
+Only ``shipped`` computes the function; it is held against the plain
+version bit for bit. The inputs are the main paths' (``chip_smoke.py``
+phases 6 and 13): row 4 is v4 over sierpinski r=16 m=2, B=1, k=2 with
+LIFE, and also with HEAT and GRAY_SCOTT; row 6 is shard 0's whole-domain
+pass of the ``dist-fused`` engine over 4 shards at the same size (p2p
+exchange, LIFE, k=2, ``DistributedSqueezeEngine.local_inputs``). Every
+variant is timed at each on CUDA events, 10 launches a reading, variants
+in turn and back (N rounds). One JSON line per result; the card's name
+and power limit first, each library's registers and spills (ptxas) next.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CU = Path("src/repro_torch/kernels/csrc/squeeze_stencil.cu")
+OUT = ROOT / "build" / "ab_fused"
+
+# ---- the CTA body: 256 threads over G windows in shared memory ----------
+CTA_SUBSTEPS = "  for (int j = 1; j <= k; ++j) {\n    const int lo = j,"
+CTA_RULE = ("      Rule::apply(tile, nxt + (size_t)g * C * ww, y * w + x, ww, "
+            "agg, m,\n                  ra);\n")
+CTA_NO_RULE = ("      for (int c = 0; c < C; ++c)\n"
+               "        nxt[((size_t)g * C + c) * ww + y * w + x] =\n"
+               "            (typename Rule::T)(agg[c] * m);\n")
+CTA_MASK = "      int m = cell_mask(wm, ids + g * 9, y, x, w, rho, k, nb);\n"
+CTA_LOADS = ("    load_windows<Rule>(src, buf0, ids, slots, nb, b, rho, k);\n",
+             "    load_pieces<Rule>(src, pc, buf0, slots, blk0, nb, b, rho, "
+             "k);\n")
+
+# ---- the warp body: a lane a window column, rows in registers -----------
+WARP_SUBSTEPS = "  for (int j = 1; j <= k; ++j) {  // substeps\n"
+WARP_RULE = "    Rule::cell(mid, agg, (colmask >> y) & 1u, ra, nx);\n"
+WARP_NO_RULE = ("    for (int c = 0; c < C; ++c)\n"
+                "      nx[c] = agg[c] * (A)((colmask >> y) & 1u);\n")
+WARP_MASK = "    const unsigned colmask = column_mask(cm, e);\n"
+WARP_STAGE = "    stage_column<Rule, W>(stage, off, gm.cstride, v);\n"
+WARP_ISSUE = ("    issue_group<Rule, H, G>(src, pc, stage, it1, r1, olo, ohi, gm, "
+              "lane);\n")
+
+
+def _swap(text: str, old: str, new: str, every: bool = False) -> str:
+    """``text`` with ``old`` (which must occur once, or at least once when
+    ``every``) replaced by ``new``."""
+    n = text.count(old)
+    if n != 1 and not (every and n):
+        raise SystemExit(f"ab_fused: the body no longer holds {old!r}")
+    return text.replace(old, new)
+
+
+def _no_substeps(t: str, marker: str) -> str:
+    return _swap(t, marker, marker.replace("j <= k", "j <= 0"))
+
+
+#: body -> variant -> the source's text -> the variant's
+EDITS = {
+    "cta": {
+        "shipped": lambda t: t,
+        "stage-store": lambda t: _no_substeps(t, CTA_SUBSTEPS),
+        "no-rule": lambda t: _swap(t, CTA_RULE, CTA_NO_RULE),
+        "no-mask": lambda t: _swap(t, CTA_MASK, "      int m = 1;\n"),
+        "ids-only": lambda t: _no_substeps(_swap(_swap(
+            t, CTA_LOADS[0], "    ;\n"), CTA_LOADS[1], "    ;\n"),
+            CTA_SUBSTEPS),
+    },
+    "warp": {
+        "shipped": lambda t: t,
+        "stage-store": lambda t: _no_substeps(t, WARP_SUBSTEPS),
+        "no-rule": lambda t: _swap(t, WARP_RULE, WARP_NO_RULE),
+        "no-mask": lambda t: _swap(
+            t, WARP_MASK, "    const unsigned colmask = ~0u;\n"),
+        "ids-only": lambda t: _no_substeps(_swap(_swap(
+            t, WARP_ISSUE, ""), WARP_STAGE, ""), WARP_SUBSTEPS),
+    },
+}
+
+
+def body_of(text: str) -> str:
+    return "warp" if "warp_kernel" in text else "cta"
+
+
+def takes_plan(text: str) -> bool:
+    """Whether the source's fused-k entries take (W, warps) after k."""
+    entry = re.search(r"int sq_stencil_step_fused_k\((.*?)\)", text, re.S)
+    return bool(entry) and "int warps" in entry.group(1)
+
+
+def build_variants(build, checkouts):
+    """{(tag, variant): (library, ptxas summary, takes the plan)} for every
+    checkout."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    sources = {}   # every edit first: a stale marker stops before any build
+    for i, co in enumerate(checkouts):
+        text = (co / CU).read_text()
+        body = body_of(text)
+        for name, edit in EDITS[body].items():
+            sources[(f"{i}:{body}", name)] = (f"{i}-{body}-{name}",
+                                              edit(text), takes_plan(text))
+    procs = {}
+    for key, (stem, text, _) in sources.items():
+        cu = OUT / f"{stem}.cu"
+        cu.write_text(text)
+        procs[key] = (stem, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+             str(OUT / f"{stem}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (stem, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"ab_fused: {stem} failed to build:\n{log}")
+        libs[key] = (ctypes.CDLL(str(OUT / f"{stem}.so")), ptxas(log),
+                     sources[key][2])
+    return libs
+
+
+def ptxas(log: str) -> dict:
+    """{fused-k kernel instance: "registers/spill bytes"} from nvcc's
+    log (the warp body's instances, or the CTA body's)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = {}
+    for e in chip_smoke.ptxas_summary(log):
+        if "warp_kernel" not in e["entry"] and \
+                "step_kernel" not in e["entry"]:
+            continue
+        text = " ".join(e["ptxas"])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        out[e["entry"][:48]] = (f"{regs.group(1) if regs else '?'}/"
+                                f"{spill.group(1) if spill else 0}")
+    return out
+
+
+def main(argv) -> int:
+    rounds = 2
+    if argv[:1] == ["--rounds"]:
+        rounds, argv = int(argv[1]), argv[2:]
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    checkouts = [Path(a).resolve() for a in argv]
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import fractals as F
+    from repro_torch.core.compact import shared_layout
+    from repro_torch.core.stencil import default_fusion_k, make_engine
+    from repro_torch.kernels import build
+    from repro_torch.kernels import squeeze_stencil as sk
+    from repro_torch.workloads import rules as R
+    if not torch.cuda.is_available():
+        print("ab_fused: no CUDA device", file=sys.stderr)
+        return 2
+    print(cs.nvidia_smi(), flush=True)
+    libs = build_variants(build, checkouts)
+    for (tag, name), (_, summary, _) in libs.items():
+        print(json.dumps({"build": tag, "variant": name,
+                          "ptxas": summary}), flush=True)
+
+    frac, r, m = F.SIERPINSKI, 16, 2
+    lay = shared_layout(frac, r, m)
+    k = default_fusion_k(lay.rho)
+    nbr = lay.device_table("neighbor_table", "cuda")
+    wmask = lay.device_table("window_mask", "cuda", k)
+    stream = torch.cuda.current_stream().cuda_stream
+    states = {wl.name: make_engine("cuda-fused", frac, r, m,
+                                   workload=wl).init_random(3)
+              for wl in (R.LIFE, R.HEAT, R.GRAY_SCOTT)}
+    dist = make_engine("dist-fused", frac, r, m, workload=R.LIFE,
+                       n_shards=4, exchange="p2p")
+    s5, halo, ex = dist.local_inputs(dist.from_dense(states["life"]), k)
+
+    def call(lib, name, args, x, wl, pieces):
+        """One launch of entry ``name`` of ``lib``; (W, warps) follow k
+        where the library's entries take them."""
+        f, _, planned = lib
+        f = getattr(f, name)
+        types = list(sk._SIGNATURES[name])
+        if planned:
+            plan = sk._fused_plan_for(lay, x, wl, k, pieces)
+            args = args + [plan.W, plan.warps]
+        else:   # an entry without the plan: no W, warps after k
+            del types[len(args):len(args) + 2]
+        f.argtypes = types
+        f.restype = ctypes.c_int
+        rc = f(*args, *sk._rule_args(wl, stream))
+        if rc:
+            raise RuntimeError(f"{name}: launch failed with error {rc}")
+
+    def row4(wl):
+        x = states[wl.name]
+
+        def launch(lib, out):
+            call(lib, "sq_stencil_step_fused_k",
+                 [sk._rule(wl), x.data_ptr(), out.data_ptr(),
+                  nbr.data_ptr(), wmask.data_ptr(), lay.n_blocks, 1,
+                  lay.rho, k], x, wl, False)
+        return launch, x, lambda: sk.stencil_step_fused_k_plain(
+            lay, x, wl, k=k)
+
+    def row6(lib, out):
+        call(lib, "sq_stencil_step_fused_k_local",
+             [sk._rule(R.LIFE), s5.data_ptr(), out.data_ptr(),
+              *(h.data_ptr() for h in halo), ex.data_ptr(),
+              wmask.data_ptr(), s5.shape[2], s5.shape[0], lay.rho, k],
+             s5, R.LIFE, True)
+
+    rows = {f"row4/{wl.name}": row4(wl)
+            for wl in (R.LIFE, R.HEAT, R.GRAY_SCOTT)}
+    rows["row6/life"] = (row6, s5, lambda: sk.stencil_step_fused_k_local_plain(
+        lay, s5, halo, ex, R.LIFE, k=k))
+    print(json.dumps({"shapes": {n: list(x.shape) for n, (_, x, _) in
+                                 rows.items()}, "k": k}), flush=True)
+    for rname, (launch, x, plain) in rows.items():
+        want = plain()
+        for (tag, name), lib in libs.items():
+            if name != "shipped":
+                continue
+            out = torch.empty_like(x)
+            launch(lib, out)
+            torch.cuda.synchronize()
+            err = float((out.double() - want.double()).abs().max())
+            print(json.dumps({"check": rname, "build": tag,
+                              "max_abs_err": err}), flush=True)
+            if err:
+                return 1
+        del want
+    times = {key: {n: [] for n in rows} for key in libs}
+    order = list(libs)
+    outs = {n: torch.empty_like(x) for n, (_, x, _) in rows.items()}
+    for _ in range(rounds):
+        for key in order + order[::-1]:
+            for rname, (launch, _, _) in rows.items():
+                times[key][rname].append(cs.cuda_ms(
+                    torch, lambda: launch(libs[key], outs[rname]), 10))
+    for (tag, name), t in times.items():
+        print(json.dumps({"build": tag, "variant": name, "ms": t}),
+              flush=True)
+    print(cs.nvidia_smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
