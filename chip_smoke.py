@@ -62,11 +62,19 @@ jax or the reference package). Phases, each printing one JSON line:
   7. the 3D kernels (cuda-3d's fused kernel, cuda-3d-mxu's z-slab banded
      kernel) against their plain versions on the Menger sponge (r=5 at m=1
      and m=2) and the Sierpinski tetrahedron (r=10, m=2): LIFE3D, HEAT3D
-     and the 2D rule LIFE, k in {1, 2, rho}, two packings of the mxu kernel
-     for k <= 2, one simulation and B=3, <= 8 steps, at phase 3's bar; then
-     the windows over one CTA's shared memory, on the Menger sponge r=5
-     m=3 (rho=27): HEAT3D at k=2 and 3 and LIFE3D at k=27 through cuda-3d
-     and cuda-3d-mxu, B=1 and 3, each one launch of the kernels' device-
+     and the 2D rule LIFE, k in {1, 2, 3, rho}, two packings of the mxu
+     kernel for k <= 2 where its plan runs the CTA body (the tensor-core
+     body takes no packing), one simulation and B=3, <= 8 steps (at least one),
+     at phase 3's bar, the fused kernel bit for bit; each run through the
+     body its plan names (``fused3_plan``: the column body, a thread a
+     window column with its cells in registers, at W = 8 and 16, or the CTA
+     body for w > 16, counted as ``<name>[wide]``; ``mxu3_plan``: the
+     tensor-core body, a warp a window plane with the banded products on
+     ``mma.sync`` TF32, or the CTA body), its launches counted under that
+     body's name, every body (``CLASSES3D``) reached; then the windows over
+     one CTA's shared memory, on the Menger sponge r=5 m=3 (rho=27):
+     HEAT3D at k=2 and 3 and LIFE3D at k=27 through cuda-3d and
+     cuda-3d-mxu, B=1 and 3, each one launch of the CTA body's device-
      workspace variant (counted under ``<name>[global]``), with a launch's
      time;
   8. the 3D main path at full size, the Menger sponge r=6, m=2 (160,000
@@ -74,15 +82,21 @@ jax or the reference package). Phases, each printing one JSON line:
      ``make_engine('cuda-3d')`` with LIFE3D and HEAT3D for 31 steps,
      ``make_engine('cuda-3d-mxu')`` with both for 16 steps,
      ``BatchedRunner.run('cuda-3d')`` with LIFE3D, B=2, 16 steps, each held
-     against the plain ``block3d`` engine on the card, and ``cell3d`` with
+     against the plain ``block3d`` engine on the card (cuda-3d bit for
+     bit, floats too), and ``cell3d`` with
      LIFE3D for 2 steps, held against cuda-3d through the expanded volume;
-     with the phase's launch counts, asserted to floor(steps/k) + steps % k;
+     with the phase's launch counts, asserted to floor(steps/k) + steps % k
+     under the plain names (the column and tensor-core bodies: 28 fused
+     and 12 mxu launches) and none under ``[wide]`` or ``[global]``;
   9. Fig. 12 in 3D: ``bb3d`` on the 729^3 volume against cell3d, cuda-3d
      and cuda-3d-mxu for LIFE3D from the same state (checked equal), time
      per step, speedup and memory;
  10. both 3D kernels at the main path's shapes (LIFE3D and HEAT3D), with
-     their plain versions' times and bounds; their rows join the
-     ``kernels`` line;
+     their plain versions' times and bounds, each line with its plan;
+     their rows join the ``kernels`` line with LIFE3D's numbers, HEAT3D's
+     beside them (``heat3d``), the registers and spills of each instance
+     (``registers``) and row 9's design bound (``bound_ops_design_ms``:
+     the tensor-core body's TF32 products as it runs them);
  11. the shard-local kernels (kernels 6 and 7: v4 and v5 over one shard's
      blocks from halo pieces and an existence table) against their plain
      versions on the card, on every call the distributed engine makes:
@@ -261,6 +275,14 @@ DIST_SHARDS = 4
 MAIN3D = ("menger", 6, 2)
 #: (fractal, r, m) of the 3D kernel checks
 CHECK3D = [("menger", 5, 1), ("menger", 5, 2), ("sierpinski3d", 10, 2)]
+#: the bodies phase 7 reaches: (wrapper, launch-name suffix, W) of the
+#: column body at W = 8 and 16, the tensor-core body and both CTA bodies
+#: (their workspace variant in ``phase_3d_global_windows``)
+CLASSES3D = {("stencil3d_step_fused_k", "", 8),
+             ("stencil3d_step_fused_k", "", 16),
+             ("stencil3d_step_fused_k", "[wide]", 0),
+             ("stencil3d_step_mxu_k", "", 16),
+             ("stencil3d_step_mxu_k", "[wide]", 0)}
 
 
 def ptxas_summary(log: str) -> list:
@@ -319,6 +341,68 @@ def fused_registers(log: str) -> dict:
             f"{regs.group(1) if regs else '?'}/"
             f"{spill.group(1) if spill else 0}")
     return out
+
+
+def stencil3d_registers(log: str) -> dict:
+    """{"fused" | "mxu": {"<rule>/<body>": "registers/spill bytes"}}: the
+    3D kernels' instances from nvcc's log: the column body by W
+    (``column_kernel``, row 8), the tensor-core body (``tc_kernel``, row
+    9, as '<rule>/tc'), and the CTA body of each
+    (``step3_kernel``: '[wide]' in shared memory, '[global]' in its
+    workspace)."""
+    out = {"fused": {}, "mxu": {}}
+    for e in ptxas_summary(log):
+        # (the entry's prefix strip takes column_kernel's leading 'c')
+        col = re.search(r"olumn_kernelINS_\d+(\w+?)ELi(\d+)E", e["entry"])
+        tc = re.search(r"tc_kernelINS_\d+(\w+?)EE", e["entry"])
+        cta = re.search(r"step3_kernelINS_\d+(\w+?)ELb([01])ELb([01])E",
+                        e["entry"])
+        if not (col or tc or cta):
+            continue
+        text = " ".join(e["ptxas"])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        val = (f"{regs.group(1) if regs else '?'}/"
+               f"{spill.group(1) if spill else 0}")
+        if col:
+            out["fused"][f"{col.group(1)}/W{col.group(2)}"] = val
+        elif tc:
+            out["mxu"][f"{tc.group(1)}/tc"] = val
+        else:
+            kernel = "mxu" if cta.group(2) == "1" else "fused"
+            body = "[global]" if cta.group(3) == "1" else "[wide]"
+            out[kernel][f"{cta.group(1)}/{body}"] = val
+    return out
+
+
+def tc_products(torch, k3, workload, w: int) -> int:
+    """16x8x8 TF32 products row 9's tensor-core body runs for one live
+    plane of a w-wide window: per operator group (the dz = -1 and +1 terms
+    one, each dz = 0 term one) R X and Y C^T, each in two n-tiles of two
+    k-steps, times its passes: one for uint8 states; for float32 three
+    (3xTF32), less the product of the operator's lo part where the
+    operator (R, C) is exact in TF32, as the body finds on the card
+    (HEAT3D's merged identity group: two)."""
+    import numpy as np
+    rm, cm, dzs = k3.mxu3_operators(workload, w)
+    terms = range(len(dzs) - 1)
+    if workload.dtype != torch.float32:
+        return 8 * len(terms)
+
+    def exact(op):
+        bits = op.view(np.uint32).astype(np.uint64)
+        return bool(np.all(((bits + 0x1000) & 0xFFFFE000) == bits))
+    return 4 * sum(6 - exact(rm[t]) - exact(cm[t]) for t in terms)
+
+
+def mxu3_design_ms(batch: int, n_blocks: int, k: int, w: int,
+                   products: int) -> float:
+    """The operation bound of row 9's tensor-core products as the body
+    runs them: per window the live planes of each substep (w - 2j at
+    substep j), ``products`` 16x8x8 TF32 products a plane
+    (``tc_products``), at the tensor cores' TF32 rate."""
+    planes = sum(w - 2 * j for j in range(1, k + 1))
+    return 1e3 * batch * n_blocks * planes * products * 2048 / TF32_FLOPS
 
 
 def mxu_design_ms(batch: int, n_blocks: int, k: int, passes: int) -> float:
@@ -567,6 +651,10 @@ def _init3d(torch, lay, wl, batch, seed):
 
 
 def phase_3d_kernels_vs_plain(torch, chk, F3, R, BlockLayout3D, k3):
+    """Both 3D kernels against their plain versions at every body their
+    plans pick (``CLASSES3D``); each run's launches counted under the name
+    of the body its plan names."""
+    seen = set()
     for name, r, m in CHECK3D:
         frac = F3.REGISTRY3D[name]
         lay = BlockLayout3D(frac, r, m)
@@ -574,30 +662,48 @@ def phase_3d_kernels_vs_plain(torch, chk, F3, R, BlockLayout3D, k3):
             t0 = time.perf_counter()
             exact = wl.dtype == torch.uint8
             x = _init3d(torch, lay, wl, 3, 13)
-            errs = {}
-            for k in sorted({1, 2, lay.rho}):
+            errs, bodies = {}, {}
+            for k in sorted({1, 2, 3, lay.rho}):
                 runs = [("fused", k3.stencil3d_step_fused_k,
-                         k3.stencil3d_step_fused_k_plain, {})]
+                         k3.stencil3d_step_fused_k_plain, {},
+                         k3.fused3_plan_for(lay, wl, k))]
                 runs += [(f"mxu_p{lay.macro_tiles(k, p)[0]}",
                           k3.stencil3d_step_mxu_k,
-                          k3.stencil3d_step_mxu_k_plain, {"p": p})
-                         for p in ((None, 2) if k <= 2 else (None,))]
-                for label, fn, plain, kw in runs:
+                          k3.stencil3d_step_mxu_k_plain, {"p": p},
+                          k3.mxu3_plan_for(lay, wl, k, p))
+                         for p in ((None, 2) if k <= 2 and k3.mxu3_plan_for(
+                             lay, wl, k).W == 0 else (None,))]
+                for label, fn, plain, kw, plan in runs:
+                    seen.add((fn.__name__, plan.body, plan.W))
+                    k3.reset_launches()
                     for tag, state in (("", x[0]), ("_b3", x)):
                         got, want = state, state
-                        for _ in range(8 // k):
+                        for _ in range(max(1, 8 // k)):
                             got = fn(lay, got, wl, k=k, **kw)
                             want = plain(lay, want, wl, k=k)
                         what = f"{label}_k{k}{tag}"
+                        # the fused kernel bit for bit, floats too
                         errs[what] = chk.check(
                             f"3d/{name}/{wl.name}/{what}", fn.__name__, got,
-                            want, exact)
+                            want, exact or label == "fused")
+                    launched = {n: v for n, v in k3.LAUNCHES.items() if v}
+                    want_launches = {fn.__name__ + plan.body:
+                                     2 * max(1, 8 // k)}
+                    if launched != want_launches:
+                        raise AssertionError(
+                            f"3d/{name}/{wl.name}/{label}_k{k}: launches "
+                            f"{launched}, expected {want_launches}")
+                    bodies[f"{label}_k{k}"] = f"{plan.body or 'new'}/W" \
+                                              f"{plan.W}"
             torch.cuda.synchronize()
             emit("kernel3d_vs_plain", fractal=name, r=r, m=m,
                  n_blocks=lay.n_blocks, compact_cells=frac.volume(r),
                  workload=wl.name,
                  tolerance="exact" if exact else FLOAT_TOL, max_err=errs,
-                 seconds=time.perf_counter() - t0)
+                 bodies=bodies, seconds=time.perf_counter() - t0)
+    if not CLASSES3D <= seen:
+        raise AssertionError(f"3D plan classes not reached: "
+                             f"{sorted(CLASSES3D - seen)}")
 
 
 def phase_3d_main(torch, chk, F3, R, make_engine, default_fusion_k,
@@ -677,7 +783,8 @@ def phase_3d_main(torch, chk, F3, R, make_engine, default_fusion_k,
         kernel = "stencil3d_step_mxu_k" if kind.endswith("mxu") \
             else "stencil3d_step_fused_k"
         checks[label] = chk.check(f"main3d/{label}", kernel, outs[label],
-                                  want, wl.dtype == torch.uint8)
+                                  want, wl.dtype == torch.uint8 or
+                                  kernel.endswith("fused_k"))
         if wl.dtype != torch.uint8:
             max_abs_plain[label] = float(want.abs().max())
     plain = make_engine("block3d", frac, r, m, workload=R.LIFE3D, fusion_k=k)
@@ -740,11 +847,13 @@ def phase_3d_bb(torch, chk, F3, R, make_engine, lay, engines, c3):
          live_cells_after_4_steps=alive)
 
 
-def phase_3d_timing(torch, chk, R, lay, k, launches, k3):
-    """Both 3D kernels at the main path's shapes; returns their rows.
-    Bounds: the state read and written once and the neighbor table read
-    once; about 10 operations a cell and substep (the separable 26-cell
-    sum: 6 adds and the center, then the rule)."""
+def phase_3d_timing(torch, chk, R, lay, k, launches, k3, regs3):
+    """Both 3D kernels at the main path's shapes, LIFE3D and HEAT3D;
+    returns their rows (LIFE3D's numbers, HEAT3D's beside them, the
+    registers and spills of each instance, row 9's design bound). Bounds:
+    the state read and written once and the neighbor table read once;
+    about 10 operations a cell and substep (the separable 26-cell sum: 6
+    adds and the center, then the rule)."""
     rows = []
     for kname, fn, plain in (
             ("stencil3d_step_fused_k", k3.stencil3d_step_fused_k,
@@ -757,7 +866,7 @@ def phase_3d_timing(torch, chk, R, lay, k, launches, k3):
             o1 = torch.empty_like(s1)
             chk.check(f"timing3d/{kname}/{wl.name}", kname,
                       fn(lay, s1, wl, k=k), plain(lay, s1, wl, k=k),
-                      wl.dtype == torch.uint8)
+                      wl.dtype == torch.uint8 or "fused" in kname)
             state_bytes = s1.numel() * s1.element_size()
             nbytes = 2 * state_bytes + lay.n_blocks * 26 * 4
             ops = 10 * k * s1.numel()
@@ -769,19 +878,30 @@ def phase_3d_timing(torch, chk, R, lay, k, launches, k3):
                                    bound_ms=max(bytes_ms, ops_ms),
                                    bound_by="bytes" if bytes_ms >= ops_ms
                                    else "operations")
+            if "mxu" in kname:
+                plan = k3.mxu3_plan_for(lay, wl, k)
+                per_wl[wl.name]["bound_ops_design_ms"] = mxu3_design_ms(
+                    1, lay.n_blocks, k, lay.rho + 2 * k, tc_products(
+                        torch, k3, wl, lay.rho + 2 * k))
+            else:
+                plan = k3.fused3_plan_for(lay, wl, k)
             emit("kernel_timing", name=kname, shape=list(s1.shape),
-                 workload=wl.name, k=k,
-                 p=lay.macro_tiles(k)[0] if "mxu" in kname else None,
-                 ms=ms, plain_ms=plain_ms, bytes=nbytes, bytes_ms=bytes_ms,
+                 workload=wl.name, k=k, plan=plan._asdict(), ms=ms,
+                 plain_ms=plain_ms, bytes=nbytes, bytes_ms=bytes_ms,
                  ops=ops, ops_ms=ops_ms)
             del s1, o1
         source, replaces = KERNELS[kname]
         row = per_wl["life3d"]
         rows.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=chk.max_err[kname],
+            launches=launches[kname] + launches[kname + "[wide]"] +
+            launches[kname + "[global]"], max_abs_err=chk.max_err[kname],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None))
+            bound_by=row["bound_by"], library_ms=None,
+            heat3d=per_wl["heat3d"],
+            registers=regs3["mxu" if "mxu" in kname else "fused"]))
+        if "mxu" in kname:
+            rows[-1]["bound_ops_design_ms"] = row["bound_ops_design_ms"]
     return rows
 
 
@@ -1531,6 +1651,7 @@ def main() -> int:
                   for n, v in built.items()})
     mxu_regs = mxu_registers(built["squeeze_stencil"]["log"])
     fused_regs = fused_registers(built["squeeze_stencil"]["log"])
+    regs3 = stencil3d_registers(built["squeeze_stencil3d"]["log"])
 
     chk = Checker(torch)
 
@@ -1845,7 +1966,7 @@ def main() -> int:
     phase_3d_bb(torch, chk, F3, R, make_engine, lay3, engines3, c3)
     torch.cuda.empty_cache()
     rows += phase_3d_timing(torch, chk, R, lay3, default_fusion_k(lay3.rho),
-                            launches3, k3)
+                            launches3, k3, regs3)
     del lay3, engines3
     torch.cuda.empty_cache()
 

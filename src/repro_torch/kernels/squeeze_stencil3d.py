@@ -12,11 +12,17 @@ each, its plain PyTorch version.
 The kernels live in ``csrc/squeeze_stencil3d.cu``. A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises: a failed build raises ``KernelBuildError``, a bad shape,
-dtype, workload or k raises ``ValueError`` or ``TypeError``. Each kernel
-holds its windows in one CTA's shared memory where they fit, else in a
-device workspace the wrapper allocates (``window_variant``; the same kernel
-body over a bounded persistent grid). Each wrapper counts its launches in
-``LAUNCHES``, a launch of the workspace variant under ``<name>[global]``.
+dtype, workload or k raises ``ValueError`` or ``TypeError``. The body is
+picked by shape before the launch, never after a failure (``fused3_plan``,
+``mxu3_plan``; the C entries take the plan's W and windows a CTA and only
+check them): for windows of w = rho + 2k <= 16 cells, the fused kernel runs
+the column body (a thread a window column, its cells in registers) and the
+banded kernel the tensor-core body (a warp a window plane, ``mma.sync``
+TF32); wider windows, and weights the new bodies do not compute, run the
+CTA body, counted as ``<name>[wide]``, or where its windows exceed one
+CTA's shared memory its device-workspace variant (``window_variant``; the
+same body over a bounded persistent grid), counted as ``<name>[global]``.
+Each wrapper counts its launches in ``LAUNCHES`` under the body's name.
 
 States are ``(B?, n_blocks, rho, rho, rho)`` (single-channel workloads
 only, as the 3D engines); both kernels take the optional leading batch
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,8 +48,8 @@ from repro_torch.workloads.rules import LIFE3D
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES = build.LAUNCHES
 LAUNCHES.update(dict.fromkeys((
-    "stencil3d_step_fused_k", "stencil3d_step_mxu_k",
-    "stencil3d_step_fused_k[global]", "stencil3d_step_mxu_k[global]"), 0))
+    f"stencil3d_step_{kernel}_k{body}" for kernel in ("fused", "mxu")
+    for body in ("", "[wide]", "[global]")), 0))
 reset_launches = build.reset_launches
 
 #: direction -> MOORE3_DIRS index (the neighbor table's column order)
@@ -52,17 +58,24 @@ DIR3_INDEX = {d: i for i, d in enumerate(MOORE3_DIRS)}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    # rule, src, dst, nbr, wmask, nb, batch, rho, k, G, born, survive,
+    # rule, src, dst, nbr, wmask, nb, batch, rho, k, W, G, born, survive,
     # alpha, degree, uniform, wu, weights (host), ws, n_ctas, stream
     "sq3_step_fused_k": [_I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _F, _P, _P, _I, _P],
+                         _I, _F, _F, _I, _F, _P, _P, _I, _P],
     # rule, src, dst, nbr, wmask, R, C, n_terms, t0, t1, nb, batch, rho, k,
-    # P, born, survive, alpha, degree, ws, n_ctas, stream
+    # P, W, born, survive, alpha, degree, ws, n_ctas, stream
     "sq3_step_mxu_k": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I,
-                       _I, _I, _I, _I, _F, _F, _P, _I, _P],
+                       _I, _I, _I, _I, _I, _F, _F, _P, _I, _P],
 }
-#: window cells one fused CTA holds (its G blocks)
+#: window cells one CTA of the fused kernel's CTA body holds (its G blocks)
 _CELLS_PER_CTA = 4096
+#: threads of a CTA of the column body (``kBodyThreads``): W^2 columns a
+#: window, BODY_THREADS // W^2 windows a CTA
+BODY_THREADS = 256
+#: the widest window of the column and tensor-core bodies
+BODY_MAX_W = 16
+#: most operator groups of the tensor-core body (``kGroups``)
+TC_GROUPS = 3
 
 
 def _c_function(fn: str):
@@ -105,44 +118,103 @@ def smem_bytes(slots: int, w: int, n_terms: int, itemsize: int) -> int:
     return off + 2 * n_terms * w * w * 4 + slots * 27 * 4 + w ** 3
 
 
-def fused_slots(layout: BlockLayout3D, k: int) -> int:
-    """Blocks per CTA of the fused kernel: ``_CELLS_PER_CTA`` window cells
-    (at least one block)."""
-    w = layout.rho + 2 * k
-    return max(1, min(layout.n_blocks, _CELLS_PER_CTA // w ** 3))
-
-
 def window_variant(layout: BlockLayout3D, workload: StencilWorkload, k: int,
                    kernel: str, p: Optional[int] = None) -> str:
     """Where ``kernel`` ('fused' or 'mxu', ``p`` its packing) holds the
-    windows of ``workload`` at depth ``k``: 'shared' when one CTA's shared
-    memory takes ``smem_bytes`` of its slots, else 'global' (a device
-    workspace of ``build.PERSISTENT_CTAS`` CTAs' windows)."""
-    return "global" if smem_bytes(*_window_shape(
-        layout, workload, k, kernel, p)) > build.MAX_SMEM else "shared"
-
-
-def _window_shape(layout, workload, k, kernel, p):
-    """(slots, w, n_terms, itemsize) of one CTA of ``kernel``."""
+    windows of ``workload`` at depth ``k``: 'global' where its plan runs
+    the CTA body's workspace variant (a device workspace of
+    ``build.PERSISTENT_CTAS`` CTAs' windows), else 'shared'."""
     _check_k(layout, k, f"the {kernel} 3D kernel")
-    w = layout.rho + 2 * k
-    if kernel == "fused":
-        return fused_slots(layout, k), w, 0, workload.dtype.itemsize
-    return layout.macro_tiles(k, p=p)[0], w, \
-        len(mxu3_operators(workload, w)[2]), workload.dtype.itemsize
+    plan = fused3_plan_for(layout, workload, k) if kernel == "fused" \
+        else mxu3_plan_for(layout, workload, k, p)
+    return "global" if plan.body == "[global]" else "shared"
 
 
-def _workspace(layout, workload, k, kernel, p, state, batch):
-    """(slots, workspace or None, its CTAs, launch name) of one launch."""
-    shape = _window_shape(layout, workload, k, kernel, p)
-    slots, w, _, itemsize = shape
-    name = f"stencil3d_step_{kernel}_k"
-    if smem_bytes(*shape) <= build.MAX_SMEM:
-        return slots, None, 0, name
+def _workspace(layout, slots, w, state, batch):
+    """(workspace, its CTAs) of one launch of the CTA body's workspace
+    variant: two buffers of ``slots`` windows a CTA, over at most
+    ``build.PERSISTENT_CTAS`` CTAs."""
     n_ctas = min(build.PERSISTENT_CTAS, -(-layout.n_blocks // slots) * batch)
-    ws = torch.empty(n_ctas * 2 * slots * w ** 3 * itemsize,
+    ws = torch.empty(n_ctas * 2 * slots * w ** 3 * state.element_size(),
                      dtype=torch.uint8, device=state.device)
-    return slots, ws, n_ctas, name + "[global]"
+    return ws, n_ctas
+
+
+def _cta_body(slots: int, w: int, n_terms: int, itemsize: int) -> str:
+    """The CTA body a launch of ``slots`` windows runs: '[wide]', or
+    '[global]' where its windows exceed one CTA's shared memory
+    (``smem_bytes``)."""
+    return "[wide]" if smem_bytes(slots, w, n_terms, itemsize) <= \
+        build.MAX_SMEM else "[global]"
+
+
+def weight_form(dtype: torch.dtype, weights) -> str:
+    """The aggregate sum the column body computes for these 26 weights
+    (MOORE3_DIRS order, as the float32 values the kernel takes), one per
+    rule: 'uniform' for a uint8 state (the totalistic rules) with every
+    weight 1, 'orth' for a float32 state (Heat) with the six faces 1 and
+    the rest 0; '' for any other set (no shipped workload has one)."""
+    w = [float(np.float32(x)) for x in weights]
+    if dtype == torch.uint8 and w == [1.0] * 26:
+        return "uniform"
+    faces = [float(sum(map(abs, d)) == 1) for d in MOORE3_DIRS]
+    if dtype == torch.float32 and w == faces:
+        return "orth"
+    return ""
+
+
+class Fused3Plan(NamedTuple):
+    """The body of the fused 3D kernel for one shape (``fused3_plan``); the
+    C entry takes W and windows."""
+    W: int        # columns a window side: 16 or 8 (0: the CTA body)
+    windows: int  # windows a CTA (the CTA body's G blocks)
+    body: str     # '' (column body), '[wide]' (CTA body), '[global]'
+
+
+def fused3_plan(dtype: torch.dtype, rho: int, k: int, weights,
+                n_blocks: int) -> Fused3Plan:
+    """The body of the fused 3D kernel for a window w = rho + 2k of
+    ``dtype`` states with these 26 weights over ``n_blocks`` blocks: the
+    column body where w <= 16 and the weights have the rule's own form
+    (``weight_form``), W = 8 (four windows a CTA) for w <= 8, else W = 16
+    (one); else the CTA body over G = 4096 // w^3 blocks a CTA (at least
+    one, at most ``n_blocks``), '[wide]', or '[global]' where its windows
+    exceed one CTA's shared memory."""
+    w = rho + 2 * k
+    if w <= BODY_MAX_W and weight_form(dtype, weights):
+        big_w = 8 if w <= 8 else 16
+        return Fused3Plan(big_w, BODY_THREADS // big_w ** 2, "")
+    g = max(1, min(n_blocks, _CELLS_PER_CTA // w ** 3))
+    return Fused3Plan(0, g, _cta_body(g, w, 0, _itemsize(dtype)))
+
+
+class Mxu3Plan(NamedTuple):
+    """The body of the banded 3D kernel for one shape (``mxu3_plan``); the
+    C entry takes W and windows (its P)."""
+    W: int        # plane side of the tensor-core body: 16 (0: CTA body)
+    windows: int  # windows a CTA (the CTA body's P slots)
+    body: str     # '' (tensor-core body), '[wide]' (CTA body), '[global]'
+
+
+def mxu3_plan(dtype: torch.dtype, rho: int, k: int, dzs, symmetric: bool,
+              p: int) -> Mxu3Plan:
+    """The body of the banded 3D kernel for a window w = rho + 2k of
+    ``dtype`` states whose rank-1 terms lie at the z shifts ``dzs``
+    (``mxu3_operators``; ``symmetric``: ``mxu3_symmetric``, the one dz = -1
+    term's operators equal the one dz = +1 term's), ``p`` the CTA body's
+    slots a CTA. The tensor-core body where w <= 16 and the terms are
+    symmetric and make at most three groups (the pair one group, on X[z -
+    1] + X[z + 1], and each dz = 0 term one): one window a CTA; else the
+    CTA body over ``p`` slots, '[wide]', or '[global]' where its windows
+    exceed one CTA's shared memory. The result never depends on ``p``."""
+    w = rho + 2 * k
+    if w <= BODY_MAX_W and symmetric and len(dzs) - 1 <= TC_GROUPS:
+        return Mxu3Plan(16, 1, "")
+    return Mxu3Plan(0, p, _cta_body(p, w, len(dzs), _itemsize(dtype)))
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 # ======================================================================
@@ -248,6 +320,16 @@ def mxu3_operators(workload: StencilWorkload, w: int):
 
 
 @functools.lru_cache(maxsize=64)
+def mxu3_symmetric(workload: StencilWorkload, w: int) -> bool:
+    """Whether the workload has one term at dz = -1 and one at dz = +1 with
+    equal operators (LIFE3D: the band of ones; HEAT3D: the identity): the
+    tensor-core body then multiplies X[z - 1] + X[z + 1] once."""
+    rm, cm, dzs = mxu3_operators(workload, w)
+    return dzs.count(-1) == 1 and dzs.count(1) == 1 and \
+        np.array_equal(rm[0], rm[-1]) and np.array_equal(cm[0], cm[-1])
+
+
+@functools.lru_cache(maxsize=64)
 def _mxu3_operators_on(workload: StencilWorkload, w: int, device: str):
     rm, cm, dzs = mxu3_operators(workload, w)
     return (torch.from_numpy(rm).to(device), torch.from_numpy(cm).to(device),
@@ -294,6 +376,24 @@ def stencil3d_step_mxu_k_plain(layout: BlockLayout3D, state: torch.Tensor,
 # ======================================================================
 # CUDA launches
 # ======================================================================
+def fused3_plan_for(layout: BlockLayout3D, workload: StencilWorkload,
+                    k: int) -> Fused3Plan:
+    """``fused3_plan`` for the fused kernel on ``layout`` at depth k."""
+    return fused3_plan(workload.dtype, layout.rho, k, workload.weights3d,
+                       layout.n_blocks)
+
+
+def mxu3_plan_for(layout: BlockLayout3D, workload: StencilWorkload, k: int,
+                  p: Optional[int] = None) -> Mxu3Plan:
+    """``mxu3_plan`` for the banded kernel on ``layout`` at depth k, the CTA
+    body's P from ``layout.macro_tiles(k, p)``."""
+    w = layout.rho + 2 * k
+    return mxu3_plan(workload.dtype, layout.rho, k,
+                     mxu3_operators(workload, w)[2],
+                     mxu3_symmetric(workload, w),
+                     layout.macro_tiles(k, p=p)[0])
+
+
 def _rule_params(workload: StencilWorkload):
     params = workload.kernel_params()
     return params["rule"], params["born"], params["survive"], \
@@ -317,8 +417,9 @@ def stencil3d_step_fused_k(layout: BlockLayout3D, state: torch.Tensor,
     out = _check_cuda(state, workload, out)
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the grid's 65535")
-    g, ws, n_ctas, name = _workspace(layout, workload, k, "fused", None,
-                                     state, batch)
+    plan = fused3_plan_for(layout, workload, k)
+    ws, n_ctas = _workspace(layout, plan.windows, layout.rho + 2 * k, state,
+                            batch) if plan.body == "[global]" else (None, 0)
     weights = workload.weights3d
     uniform = len(set(weights)) == 1 and weights[0] != 0
     host_w = (ctypes.c_float * 26)(*weights)
@@ -329,11 +430,11 @@ def stencil3d_step_fused_k(layout: BlockLayout3D, state: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(rule, state.data_ptr(), out.data_ptr(), nbr.data_ptr(),
-                wmask.data_ptr(), layout.n_blocks, batch, layout.rho, k, g,
-                born, survive, alpha, degree, int(uniform),
-                float(weights[0]), ctypes.addressof(host_w),
+                wmask.data_ptr(), layout.n_blocks, batch, layout.rho, k,
+                plan.W, plan.windows, born, survive, alpha, degree,
+                int(uniform), float(weights[0]), ctypes.addressof(host_w),
                 None if ws is None else ws.data_ptr(), n_ctas, stream)
-    build.finish_launch(rc, name)
+    build.finish_launch(rc, "stencil3d_step_fused_k" + plan.body)
     return out
 
 
@@ -354,8 +455,9 @@ def stencil3d_step_mxu_k(layout: BlockLayout3D, state: torch.Tensor,
     out = _check_cuda(state, workload, out)
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the grid's 65535")
-    p, ws, n_ctas, name = _workspace(layout, workload, k, "mxu", p, state,
-                                     batch)
+    plan = mxu3_plan_for(layout, workload, k, p)
+    ws, n_ctas = _workspace(layout, plan.windows, layout.rho + 2 * k, state,
+                            batch) if plan.body == "[global]" else (None, 0)
     rm, cm, dzs = _mxu3_operators_on(workload, layout.rho + 2 * k,
                                      str(state.device))
     t0, t1 = dzs.count(-1), dzs.count(-1) + dzs.count(0)
@@ -367,8 +469,8 @@ def stencil3d_step_mxu_k(layout: BlockLayout3D, state: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(rule, state.data_ptr(), out.data_ptr(), nbr.data_ptr(),
                 wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(), len(dzs), t0,
-                t1, layout.n_blocks, batch, layout.rho, k, p, born, survive,
-                alpha, degree, None if ws is None else ws.data_ptr(), n_ctas,
-                stream)
-    build.finish_launch(rc, name)
+                t1, layout.n_blocks, batch, layout.rho, k, plan.windows,
+                plan.W, born, survive, alpha, degree,
+                None if ws is None else ws.data_ptr(), n_ctas, stream)
+    build.finish_launch(rc, "stencil3d_step_mxu_k" + plan.body)
     return out

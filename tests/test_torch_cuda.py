@@ -11,6 +11,7 @@ banded products in another order than the plain aggregate); the lambda/nu
 maps are bit-exact. The 3D kernels (cuda-3d, cuda-3d-mxu) are held the same
 way on the Menger sponge and the Sierpinski tetrahedron.
 """
+import ctypes
 import dataclasses
 from unittest import mock
 
@@ -340,6 +341,133 @@ def test_cuda_3d_wrappers_refuse_bad_inputs(cuda):
                 fn(lay, x, trules.LIFE3D, k=1, out=x)
     assert k3.LAUNCHES == before
 
+
+
+#: (fractal, r, m) and the depths that reach every body of the 3D plans:
+#: rho = 3 and 4 at k <= 2 (the column body's W = 8), k = 3 and rho = 9 at
+#: k <= 3 (W = 16, the main path's w = 15), k = rho = 9 (the CTA body)
+BODIES3D = [(tf3.MENGER, 3, 1, (1, 2, 3)), (tf3.SIERPINSKI3D, 6, 2, (1, 2, 4)),
+            (tf3.MENGER, 4, 2, (1, 2, 3, 9))]
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS3D)
+def test_cuda_3d_bodies_at_every_plan_class(cuda, wl_name):
+    """Each body the plans pick, one simulation and a batch of 3: the
+    fused kernel bit for bit with its plain version (floats too), the
+    banded one exact for the CA states and within the float bar for
+    HEAT3D; each launch counted under the name of its plan's body."""
+    wl = trules.get_workload(wl_name)
+    seen = set()
+    for frac, r, m, ks in BODIES3D:
+        lay = BlockLayout3D(frac, r, m)
+        x = _state3(lay, wl, 3, seed=4).to(cuda)
+        for k in ks:
+            fplan = k3.fused3_plan_for(lay, wl, k)
+            mplan = k3.mxu3_plan_for(lay, wl, k)
+            seen |= {("fused", fplan.body, fplan.W),
+                     ("mxu", mplan.body, mplan.W)}
+            k3.reset_launches()
+            for s in (x[0], x):
+                _equal(k3.stencil3d_step_fused_k(lay, s, wl, k=k),
+                       k3.stencil3d_step_fused_k_plain(lay, s, wl, k=k))
+                _close(k3.stencil3d_step_mxu_k(lay, s, wl, k=k),
+                       k3.stencil3d_step_mxu_k_plain(lay, s, wl, k=k), wl)
+            assert {n: v for n, v in k3.LAUNCHES.items() if v} == {
+                "stencil3d_step_fused_k" + fplan.body: 2,
+                "stencil3d_step_mxu_k" + mplan.body: 2}
+    assert seen == {("fused", "", 8), ("fused", "", 16),
+                    ("fused", "[wide]", 0), ("mxu", "", 16),
+                    ("mxu", "[wide]", 0)}
+
+
+@dataclasses.dataclass(frozen=True)
+class _DownHeat3D(trules.HeatDiffusion):
+    """Heat without the z+1 face: three rank-1 terms with no equal dz = -1
+    / +1 pair and weights the column body does not take: both kernels run
+    the CTA body."""
+    name: str = "down-heat3d"
+    degree: int = 6
+
+    def weight(self, offset):
+        return 1 if sum(abs(d) for d in offset) == 1 and \
+            tuple(offset) != (0, 0, 1) else 0
+
+
+def test_cuda_3d_other_weights(cuda):
+    wl = _DownHeat3D()
+    lay = BlockLayout3D(tf3.MENGER, 4, 2)
+    x = _state3(lay, wl, 3, seed=6).to(cuda)
+    assert k3.mxu3_plan_for(lay, wl, 3).body == "[wide]"
+    assert k3.fused3_plan_for(lay, wl, 3).body == "[wide]"
+    k3.reset_launches()
+    for s in (x[0], x):
+        _close(k3.stencil3d_step_mxu_k(lay, s, wl, k=3),
+               k3.stencil3d_step_mxu_k_plain(lay, s, wl, k=3), wl)
+        _equal(k3.stencil3d_step_fused_k(lay, s, wl, k=3),
+               k3.stencil3d_step_fused_k_plain(lay, s, wl, k=3))
+    assert {n: v for n, v in k3.LAUNCHES.items() if v} == {
+        "stencil3d_step_mxu_k[wide]": 2, "stencil3d_step_fused_k[wide]": 2}
+
+
+def _call3(kernel, lay, x, wl, k, **change):
+    """The C entry of ``kernel`` called as its wrapper calls it, with the
+    named arguments changed; its CUDA error code (0: launched)."""
+    out = torch.empty_like(x)
+    nbr = lay.device_table("neighbor_table", x.device)
+    wmask = lay.device_table("window_mask", x.device, k)
+    rule, born, survive, alpha, degree = k3._rule_params(wl)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "fused":
+        plan = k3.fused3_plan_for(lay, wl, k)
+        weights = change.pop("weights", wl.weights3d)
+        host_w = (ctypes.c_float * 26)(*weights)
+        args = dict(W=plan.W, G=plan.windows)
+        args.update(change)
+        rc = k3._c_function("sq3_step_fused_k")(
+            rule, x.data_ptr(), out.data_ptr(), nbr.data_ptr(),
+            wmask.data_ptr(), lay.n_blocks, 1, lay.rho, k, args["W"],
+            args["G"], born, survive, alpha, degree, 0, 1.0,
+            ctypes.addressof(host_w), None, 0, stream)
+    else:
+        plan = k3.mxu3_plan_for(lay, wl, k)
+        rm, cm, dzs = k3._mxu3_operators_on(wl, lay.rho + 2 * k,
+                                            str(x.device))
+        args = dict(P=plan.windows, W=plan.W, t0=dzs.count(-1),
+                    t1=dzs.count(-1) + dzs.count(0))
+        args.update(change)
+        rc = k3._c_function("sq3_step_mxu_k")(
+            rule, x.data_ptr(), out.data_ptr(), nbr.data_ptr(),
+            wmask.data_ptr(), rm.data_ptr(), cm.data_ptr(), len(dzs),
+            args["t0"], args["t1"], lay.n_blocks, 1, lay.rho, k, args["P"],
+            args["W"], born, survive, alpha, degree, None, 0, stream)
+    torch.cuda.synchronize()
+    return rc
+
+
+def test_cuda_3d_c_entries_refuse_other_plans(cuda):
+    """The C entries launch the body the plan names and refuse any other:
+    a W other than the plan's, other windows a CTA, weights not of the
+    rule's form, terms not one at dz = -1, at most two at 0 and one at +1;
+    the plan's own arguments launch."""
+    lay = BlockLayout3D(tf3.MENGER, 4, 2)   # rho = 9: w = 15 at k = 3
+    small = BlockLayout3D(tf3.MENGER, 3, 1)   # rho = 3: w = 7 at k = 2
+    for wl in (trules.LIFE3D, trules.HEAT3D):
+        x = _state3(lay, wl, 1)[0].to(cuda)
+        xs = _state3(small, wl, 1)[0].to(cuda)
+        assert _call3("fused", lay, x, wl, 3) == 0
+        assert _call3("mxu", lay, x, wl, 3) == 0
+        assert _call3("fused", small, xs, wl, 2) == 0
+        for bad in (dict(W=8), dict(W=32), dict(G=4)):
+            assert _call3("fused", lay, x, wl, 3, **bad) != 0, bad
+        assert _call3("fused", small, xs, wl, 2, W=16, G=1) != 0
+        other = trules.HEAT3D if wl is trules.LIFE3D else trules.LIFE3D
+        assert _call3("fused", lay, x, wl, 3,
+                      weights=other.weights3d) != 0
+        assert _call3("fused", lay, x, wl, 4, W=16, G=1) != 0   # w = 17
+        for bad in (dict(W=8), dict(P=2), dict(t0=2, t1=3),
+                    dict(t0=1, t1=4), dict(t0=0, t1=3)):
+            assert _call3("mxu", lay, x, wl, 3, **bad) != 0, bad
+        assert _call3("mxu", lay, x, wl, 4, W=16, P=1) != 0   # w = 17
 
 
 @pytest.mark.parametrize("kernel", ["fused", "mxu"])
