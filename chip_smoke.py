@@ -10,16 +10,22 @@ jax or the reference package). Phases, each printing one JSON line:
   2. build   -- the kernels built from ``src/repro_torch/kernels/csrc`` by
                 nvcc for sm_90a;
   3. kernels against their plain PyTorch versions on the card: v1 and v2
-     (one simulation and B=3), v3, v4 (k in {1, 2, rho}) and v5 (k in {1,
+     (one simulation and B=3), v2's strip gather (every direction, and the
+     workload's ``halo_needs``), v3, v4 (k in {1, 2, rho}) and v5 (k in {1,
      2}, two packings, B=3) on LIFE, HIGHLIFE, HEAT and GRAY_SCOTT over
-     sierpinski (m=2), carpet and vicsek (m=1) at about 10^6 compact cells
-     or more, <= 8 steps each; CA bit-exact, floats to rtol=1e-5 and
-     atol=1e-5 * min(1, max|plain|), so a field that has decayed is still
-     compared at its own scale, v4 bit for bit for every rule; then v4 at
+     sierpinski (m=2), carpet and vicsek (m=1: rho = 3, runs that are not
+     16-byte aligned) at about 10^6 compact cells or more, <= 8 steps each;
+     CA bit-exact, floats to rtol=1e-5 and atol=1e-5 * min(1, max|plain|),
+     so a field that has decayed is still compared at its own scale, v1,
+     v2, the gather and v4 bit for bit for every rule; then v4 at
      every body ``fused_plan`` picks (``FUSED_CHECK``: windows of W = 16 and
      32 lanes at rho = 8, 9 and 27, and the CTA body ``[wide]`` at rho = 27,
      k = 3 and 27), one simulation and B=3, bit for bit, with the launches
-     by body; then nu and lambda, bit-exact, on all five
+     by body; then v1 and v2 at every body ``step_plan`` picks (the warp
+     body at W = 16 and 32 on ``FUSED_CHECK``'s layouts, and the CTA body,
+     ``[wide]``, for two workloads whose ring weights are not their rule's
+     own), 2 steps, bit for bit, with the launches by body (every class
+     reached); then nu and lambda, bit-exact, on all five
      registry fractals at r=3 and at the largest r whose coordinates fit
      int32, 10^6 coordinates each (nu's past both edges of the grid,
      lambda's negative and past the compact edges);
@@ -29,7 +35,8 @@ jax or the reference package). Phases, each printing one JSON line:
      ``make_engine('cuda-fused').run`` with LIFE and GRAY_SCOTT for 63 steps
      (the v3 remainder runs), ``make_engine('cuda')`` (= cuda-strips, v4
      plus one v2 remainder) with LIFE for 63 steps, cuda-strips and
-     cuda-blocks with fusion_k=1 (every step v2 or v1) with LIFE and HEAT
+     cuda-blocks with fusion_k=1 (every step v2, and its gather, or v1; no
+     ``[wide]`` launch) with LIFE and HEAT
      for 16 steps, each held against the plain ``block`` engine on the
      card; and the ``cell`` engine (index tensors from one lambda and 8 nu
      launches) with LIFE for 4 steps, held against cuda-fused through the
@@ -40,7 +47,11 @@ jax or the reference package). Phases, each printing one JSON line:
      time per step with the index build outside the timed window, speedup,
      memory;
   6. each kernel at the main path's shapes, with its plain version's time
-     and, for v2, the strip gather's; for the maps over all 3^16 compact
+     and, for v2, the step alone and the strip gather (the kernel and its
+     plain version), each with its design's bound (``bound_design_ms``: v1
+     nine whole blocks a window from device memory, v2 the gather's bytes
+     and the step's) and the registers of each instance of its warp body,
+     CTA body and gather; for the maps over all 3^16 compact
      cells, also the float32 product form (``*_map_matmul``, Fig. 14's
      tensor-core form against the scalar kernels); then a ``kernels`` line:
      each kernel's launches on the main path, largest error against its
@@ -320,26 +331,40 @@ def mxu_registers(log: str) -> dict:
     return out
 
 
+#: the warp and CTA bodies' staging (``Halo`` in the source) -> the key of
+#: its instances in ``fused_registers``
+_HALO_KEYS = {"0": "in-kernel", "1": "blocks", "2": "strips", "3": "pieces"}
+
+
 def fused_registers(log: str) -> dict:
-    """{"in-kernel" | "pieces": {"<rule>/<body>": "registers/spill
-    bytes"}}: the warp body's instances of v4 (row 4) and kernel 6 (row 6)
-    by W (8, 16, 32), and the CTA body (``step_kernel``, their [wide]
-    instance, which v3 shares for kInKernel) from nvcc's log."""
-    out = {"in-kernel": {}, "pieces": {}}
+    """{"in-kernel" | "blocks" | "strips" | "pieces": {"<rule>/<body>":
+    "registers/spill bytes"}, "gather": {...}}: the warp body's instances
+    of v4 (row 4), v1 (row 1), v2 (row 2) and kernel 6 (row 6) by W (8, 16,
+    32), the CTA body (``step_kernel``, their [wide] instance, which v3
+    shares for kInKernel), and v2's strip gather (``gather_kernel``:
+    'u8/R4' the whole-block body, 'u8/R0' the general one) from nvcc's
+    log."""
+    out = {key: {} for key in _HALO_KEYS.values()}
+    out["gather"] = {}
     for e in ptxas_summary(log):
         m = re.search(r"warp_kernelINS_\d+(\w+?)ELi(\d)ELi(\d+)E",
                       e["entry"])
-        c = re.search(r"step_kernelINS_\d+(\w+?)ELi([03])EE", e["entry"])
-        if not (m or c):
+        c = re.search(r"step_kernelINS_\d+(\w+?)ELi([0-3])EE", e["entry"])
+        g = re.search(r"gather_kernelI([hj])Li(\d+)E", e["entry"])
+        if not (m or c or g):
             continue
         text = " ".join(e["ptxas"])
         regs = re.search(r"Used (\d+) registers", text)
         spill = re.search(r"(\d+) bytes spill stores", text)
+        val = (f"{regs.group(1) if regs else '?'}/"
+               f"{spill.group(1) if spill else 0}")
+        if g:
+            out["gather"][f"{'u8' if g.group(1) == 'h' else 'u32'}/"
+                          f"R{g.group(2)}"] = val
+            continue
         rule, halo = (m or c).group(1), (m or c).group(2)
         body = f"W{m.group(3)}" if m else "wide"
-        out["pieces" if halo == "3" else "in-kernel"][f"{rule}/{body}"] = (
-            f"{regs.group(1) if regs else '?'}/"
-            f"{spill.group(1) if spill else 0}")
+        out[_HALO_KEYS[halo]][f"{rule}/{body}"] = val
     return out
 
 
@@ -487,7 +512,7 @@ def cuda_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
+def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk, halo_needs):
     cases = [(F.SIERPINSKI, 13, 2), (F.CARPET, 7, 1), (F.VICSEK, 9, 1)]
     for frac, r, m in cases:
         lay = BlockLayout(frac, r, m)
@@ -512,6 +537,7 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
             def tag(fn, kernel):
                 fn.kernel = kernel
                 return fn
+            sk.reset_launches()
             for v, fn, plain in (
                     ("v1", sk.stencil_step_blocks,
                      sk.stencil_step_blocks_plain),
@@ -520,7 +546,16 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
                 for label, state in ((v, x[0]), (f"{v}_b3", x)):
                     run(label, tag(lambda s, fn=fn: fn(lay, s, wl),
                                    fn.__name__),
-                        lambda s, plain=plain: plain(lay, s, wl), state, 8)
+                        lambda s, plain=plain: plain(lay, s, wl), state, 8,
+                        bit=True)
+            x5 = x if wl.n_channels > 1 else x[:, None]
+            for label, needs in (("gather", None),
+                                 ("gather_needs", halo_needs(wl.weights2d))):
+                errs[label] = chk.check(
+                    f"{frac.name}/{wl.name}/{label}", "gather_halo_strips",
+                    sk._gather_halo_strips(lay, x5, needs),
+                    sk.gather_halo_strips_plain(lay, x5, needs), True)
+            single = {n: v for n, v in sk.LAUNCHES.items() if v}
             run("v3", tag(lambda s: sk.stencil_step_fused(lay, s, wl),
                           "stencil_step_fused"),
                 lambda s: sk.stencil_step_fused_plain(lay, s, wl), x[0], 8)
@@ -541,7 +576,12 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk):
             torch.cuda.synchronize()
             emit("kernel_vs_plain", fractal=frac.name, r=r, m=m,
                  compact_cells=frac.volume(r), workload=wl.name,
-                 tolerance="exact" if exact else FLOAT_TOL, max_err=errs,
+                 tolerance="exact" if exact else FLOAT_TOL,
+                 tolerance_v1_v4_gather="exact", max_err=errs,
+                 single_step_plans={v: sk.step_plan(
+                     wl.dtype, wl.n_channels, lay.rho, v == "v2").W
+                     for v in ("v1", "v2")},
+                 single_step_launches=single,
                  seconds=time.perf_counter() - t0)
 
 
@@ -602,6 +642,80 @@ def phase_fused_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk, local):
                  bodies=bodies, max_err=errs, launches={
                      n: v for n, v in sk.LAUNCHES.items() if v},
                  seconds=time.perf_counter() - t0)
+
+
+def _other_weights(R):
+    """Two workloads whose ring weights are not their rule's own (the CTA
+    body's [wide] instance): Life over the 4 orthogonal neighbors (0, 1)
+    and heat over all 8 (1, 1)."""
+    import dataclasses
+
+    @dataclasses.dataclass(frozen=True)
+    class OrthLife(R.TotalisticCA):
+        name: str = "orth-life"
+
+        def weight(self, offset):
+            return 1 if sum(abs(d) for d in offset) == 1 else 0
+
+    @dataclasses.dataclass(frozen=True)
+    class MooreHeat(R.HeatDiffusion):
+        name: str = "moore-heat"
+        degree: int = 8
+
+        def weight(self, offset):
+            return 1
+    return OrthLife(), MooreHeat()
+
+
+def phase_single_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk):
+    """v1 and v2 at the bodies ``step_plan`` picks beyond phase 3's W = 8
+    (``FUSED_CHECK``'s layouts: W = 16 at rho = 8 and 9, W = 32 at rho =
+    27), all four rules, and at the CTA body ([wide]) with two workloads of
+    other ring weights on sierpinski r=13 m=2; one simulation and B=3, 2
+    steps, bit for bit against the plain version. Emits the launches by
+    body; every class (W = 8, 16, 32 and [wide]) is reached."""
+    seen = {8}   # phase 3's layouts (rho = 3 and 4)
+    cases = [(name, r, m, (R.LIFE, R.HIGHLIFE, R.HEAT, R.GRAY_SCOTT))
+             for name, r, m, _ in FUSED_CHECK]
+    cases.append(("sierpinski", 13, 2, _other_weights(R)))
+    for name, r, m, wls in cases:
+        lay = BlockLayout(F.REGISTRY[name], r, m)
+        for wl in wls:
+            t0 = time.perf_counter()
+            g = torch.Generator(device="cuda")
+            g.manual_seed(14)
+            rho = lay.rho
+            x = torch.stack([wl.init(g, (lay.n_blocks, rho, rho), "cuda")
+                             for _ in range(3)])
+            x = (x * lay.device_table("micro_mask", "cuda").to(x.dtype)
+                 ).contiguous()
+            errs, bodies = {}, {}
+            sk.reset_launches()
+            for v, fn, plain in (
+                    ("v1", sk.stencil_step_blocks,
+                     sk.stencil_step_blocks_plain),
+                    ("v2", sk.stencil_step_strips,
+                     sk.stencil_step_strips_plain)):
+                plan = sk._step_plan_for(lay, x, wl, v == "v2")
+                bodies[v] = plan.body or f"W{plan.W}"
+                seen.add(plan.W)
+                for label, s in (("b1", x[0]), ("b3", x)):
+                    got, want = s, s
+                    for _ in range(2):
+                        got, want = fn(lay, got, wl), plain(lay, want, wl)
+                    errs[f"{v}/{label}"] = chk.check(
+                        f"single/{name}/{wl.name}/{v}/{label}",
+                        fn.__name__, got, want, True)
+                    del got, want
+            torch.cuda.synchronize()
+            emit("single_bodies_vs_plain", fractal=name, r=r, m=m, rho=rho,
+                 workload=wl.name, tolerance="exact", bodies=bodies,
+                 max_err=errs, launches={
+                     n: v for n, v in sk.LAUNCHES.items() if v},
+                 seconds=time.perf_counter() - t0)
+    if seen != {0, 8, 16, 32}:
+        raise AssertionError(f"v1/v2 reached W {sorted(seen)}, not every "
+                             "plan class")
 
 
 def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_000):
@@ -1656,8 +1770,9 @@ def main() -> int:
     chk = Checker(torch)
 
     # 3. kernels against plain ------------------------------------------
-    phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk)
+    phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk, halo_needs)
     phase_fused_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk, False)
+    phase_single_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk)
     phase_maps_vs_plain(torch, chk, F, nm, lm)
 
     # 4. the main path at the paper's size --------------------------------
@@ -1736,6 +1851,7 @@ def main() -> int:
                    "stencil_step_fused_k": 63 // k * 3,
                    "stencil_step_fused": 63 % k * 2,
                    "stencil_step_strips": 63 % k + 16 * 2,
+                   "gather_halo_strips": 63 % k + 16 * 2,
                    "stencil_step_blocks": 16 * 2,
                    "lambda_map_tc": 1, "nu_map_tc": 8})
     if launches != expect:
@@ -1847,6 +1963,7 @@ def main() -> int:
     p = lay.macro_tiles(k)[0]
     needs = halo_needs(R.LIFE.weights2d)
     strips = sk._gather_halo_strips(lay, s1[None, None], needs)
+    strips_bytes = strips.numel() * strips.element_size()
     cxm, cym = (c.contiguous() for c in compact_meshgrid(frac, r, "cuda"))
     ex16, ey16 = lm.lambda_map_tc(frac, r, cxm, cym)
     n16 = cxm.numel()
@@ -1854,7 +1971,9 @@ def main() -> int:
         "stencil_step_blocks": dict(
             fn=lambda: sk.stencil_step_blocks(lay, s1, R.LIFE, out=o1),
             plain=lambda: sk.stencil_step_blocks_plain(lay, s1, R.LIFE),
-            shape=s1.shape, k=1, bytes=step_bytes, ops=12 * s1.numel()),
+            shape=s1.shape, k=1, bytes=step_bytes, ops=12 * s1.numel(),
+            # the design's: nine whole blocks a window, none reused in L2
+            design_bytes=9 * state_bytes + table_bytes + state_bytes),
         "stencil_step_strips": dict(
             fn=lambda: sk.stencil_step_strips(lay, s1, R.LIFE, out=o1),
             plain=lambda: sk.stencil_step_strips_plain(lay, s1, R.LIFE),
@@ -1864,9 +1983,15 @@ def main() -> int:
                     "stencil_step_strips", lay, s1, R.LIFE, 1, o1,
                     strips=strips),
                 gather=lambda: sk._gather_halo_strips(
+                    lay, s1[None, None], needs),
+                gather_plain=lambda: sk.gather_halo_strips_plain(
                     lay, s1[None, None], needs)),
-            kernel_alone_bytes=2 * state_bytes
-            + strips.numel() * strips.element_size()),
+            kernel_alone_bytes=2 * state_bytes + strips_bytes,
+            # the design's: the gather (the state, the table, the strips
+            # written) and the step (the state and strips read, the state
+            # written)
+            design_bytes=(state_bytes + table_bytes + strips_bytes)
+            + (2 * state_bytes + strips_bytes)),
         "stencil_step_fused": dict(
             fn=lambda: sk.stencil_step_fused(lay, s1, R.LIFE, out=o1),
             plain=lambda: sk.stencil_step_fused_plain(lay, s1, R.LIFE),
@@ -1922,8 +2047,8 @@ def main() -> int:
                 for i, g in enumerate(parts(fn())):
                     chk.check(f"timing/{kname}/matmul/{i}", None, g,
                               want[i], True)
-            extra_ms[f"{what}_ms"] = cuda_ms(torch, fn,
-                                             3 if what == "matmul" else 20)
+            extra_ms[f"{what}_ms"] = cuda_ms(
+                torch, fn, 3 if what in ("matmul", "gather_plain") else 20)
         del want
         ms = cuda_ms(torch, spec["fn"], 20)
         plain_ms = cuda_ms(torch, spec["plain"], 3)
@@ -1943,6 +2068,19 @@ def main() -> int:
                 registers=mxu_regs["in-kernel"])
         if kname == "stencil_step_fused_k":
             rows[-1].update(registers=fused_regs["in-kernel"])
+        if "design_bytes" in spec:   # rows 1 and 2
+            rows[-1].update(
+                bound_design_ms=1e3 * spec["design_bytes"] / HBM_BYTES_PER_S,
+                registers=fused_regs["blocks" if kname.endswith("blocks")
+                                     else "strips"])
+        if kname == "stencil_step_strips":   # its time includes the gather
+            rows[-1].update(
+                kernel_alone_ms=extra_ms["kernel_alone_ms"],
+                gather_ms=extra_ms["gather_ms"],
+                gather_plain_ms=extra_ms["gather_plain_ms"],
+                gather_launches=launches["gather_halo_strips"],
+                gather_max_abs_err=chk.max_err["gather_halo_strips"],
+                gather_registers=fused_regs["gather"])
         if "kernel_alone_bytes" in spec:
             extra_ms["kernel_alone_bytes_ms"] = \
                 1e3 * spec["kernel_alone_bytes"] / HBM_BYTES_PER_S

@@ -27,8 +27,8 @@
 // substeps run on chip and its center written once, so the bytes per
 // simulated step fall by ~k.
 //
-// The CTA body (step_kernel: v1-v3, and v4 and kernel 6 for windows over
-// 32 cells or ring weights that are not their rule's, their [wide]
+// The CTA body (step_kernel: v3, and v1, v2, v4 and kernel 6 for windows
+// over 32 cells or ring weights that are not their rule's, their [wide]
 // instance): one CTA of 256 threads stages G compact
 // blocks as (rho+2k)^2 windows in shared memory and runs the k substeps
 // between two shared buffers, its threads striding over the live cells of
@@ -66,13 +66,30 @@
 //     once (__match_any_sync and a block list) moved fewer bytes but took
 //     more instructions than it saved.
 //
-// v1 and v2 are the same one-step kernel with other halo staging. v1, the
-// paper's per-block scheme, stages the center block and its 8 Moore-neighbor
-// blocks whole (9 rho^2 cells read for rho^2 written, ~9x the v3 reads) and
-// assembles the (rho+2)^2 window from them in shared memory. v2 reads the
-// center and its row of a (B, C, nb, 4, rho+2) strip tensor gathered before
-// the launch (outside the kernel, as XLA gathers it outside the Pallas call);
-// it needs no neighbor table. Both step under micro_mask.
+// v1 and v2 are one step (k = 1) under micro_mask on the same warp body
+// (windows of w = rho + 2 <= 32 cells; step_plan in squeeze_stencil.py
+// picks W and the warps, other ring weights take the CTA body) with other
+// halo staging, both into a fixed layout, no division or region() per
+// cell:
+//   * v1 (kWholeBlocks), the paper's per-block scheme, stages the center
+//     block and its 8 Moore-neighbor blocks whole (9 rho^2 cells read for
+//     rho^2 written): the group's centers as one run, each neighbor by the
+//     lane that holds its id, 16-byte cp.async where aligned, so the 9x
+//     read amplification falls on L2 and not on instructions; a lane reads
+//     its column's rows from the staged blocks through offsets computed
+//     once per kernel;
+//   * v2 (kStrips) reads the center and its row of a (B, C, nb, 4, rho+2)
+//     strip tensor gathered before the launch (outside the step, as XLA
+//     gathers it outside the Pallas call), no neighbor table: a group's
+//     centers and its strips are two contiguous runs, each staged with
+//     16-byte cp.async where the run is aligned (narrower loads where it is
+//     not, as at rho = 3 uint8).
+// The gather (gather_kernel, sq_gather_halo_strips) is one launch, a thread
+// a block: its 8 neighbor ids as two 16-byte loads, each neighbor's edge
+// (a block of 16 bytes, as rho = 4 uint8, in one aligned 16-byte load, the
+// edge picked in registers), its 4 (rho + 2) elements stored as 8-byte
+// words; a ghost neighbor, or a direction the workload never reads, gives
+// zeros.
 //
 // v5 computes each window slot's Moore aggregate as sum_t (R_t X) C_t^T,
 // the rank-1 banded products of the SVD of the 3x3 weights (two terms for
@@ -376,13 +393,14 @@ __device__ void store_centers(const typename Rule::T* buf, const int* ids,
 enum Halo { kInKernel = 0, kWholeBlocks = 1, kStrips = 2, kPieces = 3 };
 
 // The halo pieces of the shard-local entries, (B, C, nb, ...) contiguous,
-// and the (nb, 8) int32 existence table.
+// and the (nb, 8) int32 existence table; v2's strips (kStrips).
 struct Pieces {
   const void* top;   // (B, C, nb, k, rho+2k): window rows [0, k)
   const void* bot;   // (B, C, nb, k, rho+2k): window rows [k+rho, w)
   const void* west;  // (B, C, nb, rho, k): window columns [0, k)
   const void* east;  // (B, C, nb, rho, k): window columns [k+rho, w)
   const int* ex;
+  const void* strips;  // (B, C, nb, 4, rho+2)
 };
 
 // The ids of `slots` blocks from blk0 as load_ids gives them, from an
@@ -821,11 +839,17 @@ __device__ __forceinline__ Chunk chunk_at(int i, const Geom& gm) {
   return ch;
 }
 
+// kL1 false: a 16-byte copy bypasses L1 (.cg; v1 and v2's staging, which
+// reads its blocks from L2).
+template <bool kL1 = true>
 __device__ __forceinline__ void cp_async(void* to, const void* from,
                                          int bytes, bool on) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(to);
   const int n = on ? bytes : 0;   // 0: the bytes are zero-filled
-  if (bytes == 16)
+  if (bytes == 16 && !kL1)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(s), "l"(from), "r"(n) : "memory");
+  else if (bytes == 16)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;"
                  :: "r"(s), "l"(from), "r"(n) : "memory");
   else if (bytes == 8)
@@ -1271,10 +1295,29 @@ struct WGeom {
   int cstride;             // elements of one channel's staged region, its
                            // 16 zero bytes and alignment included
   int vin, per;            // bytes and elements of one staging load
+  int svin, sper;          // kStrips: the same for the strips run
   int cpc;                 // kPieces: staging loads of one channel
   int ends[4];             // kPieces: where the center, top, bottom and
                            // west runs of a channel end, in loads
 };
+
+// kStrips: where a channel's strips run starts in its staged region, after
+// the G centers and 16-byte aligned (elements of sz bytes).
+__host__ __device__ __forceinline__ int strips_at(int G, int rho, int sz) {
+  return ((G * rho * rho * sz + 15) & ~15) / sz;
+}
+
+// Elements of one channel's staged region of G windows, before its
+// alignment and 16 zero bytes: kInKernel and kWholeBlocks G centers and 8 G
+// neighbor slots, kPieces w^2 a window, kStrips the centers and 4 w strip
+// elements a window.
+template <int H>
+__host__ __device__ __forceinline__ int region_elems(int G, int rho, int w,
+                                                     int sz) {
+  return H == kPieces ? G * w * w
+       : H == kStrips ? strips_at(G, rho, sz) + 4 * G * w
+                      : 9 * G * rho * rho;
+}
 
 // The Moore aggregate at this lane's cell of a row from the lane's up, mid
 // and dn values; the columns left and right of it are the lanes beside it
@@ -1379,6 +1422,7 @@ template <int H, int G>
 __device__ __forceinline__ int group_row(const int* __restrict__ nbr,
                                          const Pieces& pc, const Item& it,
                                          const WGeom& gm, int lane) {
+  if (H == kStrips) return 0;   // no table: the strips hold the halo
   const int blk = it.g * G + (lane >> 3);
   const bool on = it.b < gm.batch && lane < 8 * G && blk < gm.nb;
   const size_t at = (size_t)blk * 8 + (lane & 7);
@@ -1388,11 +1432,11 @@ __device__ __forceinline__ int group_row(const int* __restrict__ nbr,
 
 // One staging load of `bytes` (vin) bytes, cp.async where vin >= 4 (zeros
 // where !on), else one element.
-template <class T>
+template <bool kL1 = true, class T>
 __device__ __forceinline__ void stage_load(T* to, const T* from, int bytes,
                                            bool on) {
   if (bytes >= 4)
-    cp_async(to, from, bytes, on);
+    cp_async<kL1>(to, from, bytes, on);
   else
     *to = on ? *from : (T)0;
 }
@@ -1407,6 +1451,28 @@ __device__ __forceinline__ void stage_run(T* to, const T* from, int n,
     stage_load(to + i, from + i, gm.vin, i < valid);
 }
 
+// v1 and v2's stage_run, `step` elements apart a load (32 per for a lane
+// of a warp's run, per for one lane's whole block), past L1: its `valid`
+// elements need not be a whole number of loads (kStrips: the loads are
+// aligned to the group's run, not to a block), so the load across their
+// end is taken an element at a time, the rest as zeros. Not unrolled: a
+// run is one or two loads a lane at the main path's shapes.
+template <class T>
+__device__ __forceinline__ void stage_tail(T* to, const T* from, int i,
+                                           int n, int valid, int vin, int per,
+                                           int step) {
+#pragma unroll 1
+  for (; i < n; i += step) {
+    if (i + per <= valid || i >= valid) {
+      stage_load<false>(to + i, from + i, vin, i < valid);
+    } else {
+#pragma unroll 1
+      for (int e = 0; e < per; ++e)
+        to[i + e] = i + e < valid ? from[i + e] : (T)0;
+    }
+  }
+}
+
 // Issue the staging loads of an item into the warp's buffer and commit
 // them as one group (an empty one past the work). Each channel's region of
 // the buffer is followed by 16 zero bytes (the rows past a window read
@@ -1418,9 +1484,15 @@ __device__ __forceinline__ void stage_run(T* to, const T* from, int n,
 // d, of it the loads [olo, ohi) that hold the rows the window reads (the
 // bottom k rows of a northern neighbor, the top k of a southern one).
 //
+// kWholeBlocks: as kInKernel, every neighbor block whole ([olo, ohi) =
+// [0, rho^2)).
+//
 // kPieces: [c][centers | tops | bottoms | wests | easts], each run
 // contiguous in device memory for consecutive blocks: load j of a channel
 // is the walk's, 32 a round.
+//
+// kStrips: [c][G centers | G strips of 4 w], the strips run from
+// strips_at(), both runs contiguous for consecutive blocks.
 template <class Rule, int H, int G>
 __device__ __forceinline__ void issue_group(
     const typename Rule::T* __restrict__ src, const Pieces& pc,
@@ -1460,16 +1532,36 @@ __device__ __forceinline__ void issue_group(
           ++c;
         }
       }
+    } else if (H == kStrips) {
+      const int w4 = 4 * gm.w, sat = strips_at(G, gm.rho, (int)sizeof(T));
+      const T* const strips = static_cast<const T*>(pc.strips);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const size_t sc = (size_t)(it.b * C + c) * gm.nb + blk0;
+        T* const to = buf + c * gm.cstride;
+        stage_tail(to, src + sc * rho2, lane * gm.per, G * rho2, nv * rho2,
+                   gm.vin, gm.per, 32 * gm.per);
+        stage_tail(to + sat, strips + sc * w4, lane * gm.sper, G * w4,
+                   nv * w4, gm.svin, gm.sper, 32 * gm.sper);
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const size_t sc = (size_t)(it.b * C + c) * gm.nb;
         T* const to = buf + c * gm.cstride;
-        stage_run(to, src + (sc + blk0) * rho2, G * rho2, nv * rho2, gm,
-                  lane);
         const bool on = row < gm.nb;
         const T* from = src + (sc + (on ? row : 0)) * rho2;
         T* const slot = to + (G + lane) * rho2;
+        if (H == kWholeBlocks) {   // v1: every neighbor block whole
+          stage_tail(to, src + (sc + blk0) * rho2, lane * gm.per, G * rho2,
+                     nv * rho2, gm.vin, gm.per, 32 * gm.per);
+          if (lane < 8 * G)
+            stage_tail(slot, from, 0, rho2, on ? rho2 : 0, gm.vin, gm.per,
+                       gm.per);
+          continue;
+        }
+        stage_run(to, src + (sc + blk0) * rho2, G * rho2, nv * rho2, gm,
+                  lane);
         for (int o = olo; o < ohi; o += gm.per)
           stage_load(slot + o, from + o, gm.vin, on);
       }
@@ -1516,7 +1608,10 @@ __device__ __forceinline__ unsigned low_bits(int n) {
   return n >= 32 ? ~0u : (1u << n) - 1u;
 }
 
-// v4 (kInKernel) and kernel 6 (kPieces) for windows of w <= 32 cells: a
+// v4 (kInKernel) and kernel 6 (kPieces) for windows of w <= 32 cells, and
+// v1 (kWholeBlocks) and v2 (kStrips) at k = 1 for windows of w = rho + 2 <=
+// 32 (their mask micro_mask at the window's center, which only the center
+// is computed under, so no existence is read): a
 // persistent grid of CTAs of up to kWarpWarps warps; each warp strides over
 // the (simulation, group) items on its own, no block-wide barrier. Lane
 // q W + x holds column x of window q (block g G + q) in registers, all
@@ -1538,12 +1633,14 @@ warp_kernel(const typename Rule::T* __restrict__ src,
   constexpr int C = Rule::C, G = 32 / W;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = lane / W, x = lane % W;
-  const int rho = gm.rho, k = gm.k, w = gm.w, rho2 = rho * rho;
+  constexpr bool kOne = H == kWholeBlocks || H == kStrips;
+  // v1 and v2: k = 1 when compiled
+  const int rho = gm.rho, k = kOne ? 1 : gm.k, w = gm.w, rho2 = rho * rho;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const stage = reinterpret_cast<T*>(smem) +
                    (size_t)warp * C * gm.cstride;   // this warp's buffer
   // each channel's region ends in 16 zero bytes, at `zero`
-  const int zero = (((H == kPieces ? G * w * w : 9 * G * rho2) *
+  const int zero = ((region_elems<H>(G, rho, w, (int)sizeof(T)) *
                      (int)sizeof(T) + 15) & ~15) / (int)sizeof(T);
   if (lane < C)
     *reinterpret_cast<uint4*>(stage + lane * gm.cstride + zero) =
@@ -1559,9 +1656,25 @@ warp_kernel(const typename Rule::T* __restrict__ src,
   for (int y = 0; y < W; ++y) {
     off[y] = zero;
     if (x >= w || y >= w) continue;
-    if (wmask[y * w + x]) cm.wm |= 1u << y;
     const int ry = y < k ? 0 : (y < k + rho ? 1 : 2);
-    if (H == kPieces) {
+    if (kOne ? ry == 1 && rx == 1 && wmask[(y - 1) * rho + (x - 1)]
+             : wmask[y * w + x] != 0)
+      cm.wm |= 1u << y;
+    if (H == kStrips) {
+      // rows 0 and 1 of window q's strips the top and bottom rows, 2 and 3
+      // the west and east columns
+      const int st = strips_at(G, rho, (int)sizeof(T)) + q * 4 * w;
+      if (ry == 0)
+        off[y] = st + x;
+      else if (ry == 2)
+        off[y] = st + w + x;
+      else if (rx == 0)
+        off[y] = st + 2 * w + (y - 1);
+      else if (rx == 2)
+        off[y] = st + 3 * w + (y - 1);
+      else
+        off[y] = q * rho2 + (y - 1) * rho + (x - 1);
+    } else if (H == kPieces) {
       const int kw = k * w, rk = rho * k, runs = G * rho2;
       if (ry == 0)
         off[y] = runs + q * kw + y * w + x;
@@ -1589,11 +1702,13 @@ warp_kernel(const typename Rule::T* __restrict__ src,
   cm.dir[0] = rx;
   cm.dir[1] = rx == 0 ? 3 : (rx == 1 ? 8 : 4);
   cm.dir[2] = 5 + rx;
+  if (kOne)   // the center's bit (8), always set: the mask is micro_mask's
+    cm.dir[0] = cm.dir[1] = cm.dir[2] = 8;
   const bool center = x >= k && x < k + rho;
   // kInKernel: the loads [olo, ohi) of this lane's neighbor block (lanes
   // 8 q + d, d < 8) that hold the rows its window reads
   int olo = 0, ohi = 0;
-  if (H != kPieces && lane < 8 * G) {
+  if (H == kInKernel && lane < 8 * G) {
     const int d = lane & 7;
     olo = d < 3 ? (rho - k) * rho / gm.per * gm.per : 0;
     ohi = d > 4 ? (k * rho + gm.per - 1) / gm.per * gm.per : rho2;
@@ -1641,6 +1756,166 @@ warp_kernel(const typename Rule::T* __restrict__ src,
     it0 = it1; r0 = r1;
     it1 = it2; r1 = r2;
   }
+}
+
+// ---------------------------------------------------------------------
+// v2's strip gather (see the note at the top of the file).
+// ---------------------------------------------------------------------
+constexpr int kGatherThreads = 256;
+
+// The halo strips (rows, nb, 4, w), w = rho + 2, of the blocks of `rows`
+// (simulation, channel) rows of `src`, as gather_halo_strips_plain in
+// squeeze_stencil.py lays them out: row 0 the top (NW's SE cell, N's bottom
+// row, NE's SW cell), row 1 the bottom (SW's NE cell, S's top row, SE's NW
+// cell), rows 2 and 3 W's east and E's west column, their last two entries
+// 0. Direction d (MOORE_DIRS order) reads zeros where bit d of `needs` is
+// clear or its neighbor is the ghost (id nb). A thread a block; T is the
+// element's bytes (floats move as their bits). R > 0, rho = R known when
+// compiled, the 4 w elements assembled in registers, and a warp's 32
+// blocks' strips stored through shared memory as one coalesced run of
+// 8-byte words: a block of 16 bytes (rho = 4 uint8) loaded whole in one
+// aligned 16-byte load and the edges picked in registers, or a row of 16
+// bytes (rho = 4 float32) loaded as one, the columns and corners an
+// element at a time; R == 0: any rho, an element at a time.
+template <class T, int R>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_kernel(const T* __restrict__ src, T* __restrict__ strips,
+              const int* __restrict__ nbr, long long nb, long long total,
+              int rho_, unsigned needs) {
+  const long long t0 = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
+  if (R == 0 && t0 >= total) return;
+  // R > 0: a lane past the blocks reads the last one, and stores nothing
+  const long long t = t0 < total ? t0 : total - 1;
+  const int rho = R > 0 ? R : rho_, w = rho + 2, rho2 = rho * rho;
+  const long long sc = t / nb, blk = t - sc * nb;
+  const T* const base = src + sc * nb * rho2;
+  const int4 lo = __ldg(reinterpret_cast<const int4*>(nbr) + 2 * blk);
+  const int4 hi = __ldg(reinterpret_cast<const int4*>(nbr) + 2 * blk + 1);
+  const int ids[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  bool on[8];
+#pragma unroll
+  for (int d = 0; d < 8; ++d) on[d] = ((needs >> d) & 1u) && ids[d] < nb;
+  auto at = [&](int d, int y, int x) -> T {
+    return on[d] ? __ldg(base + (long long)ids[d] * rho2 + y * rho + x)
+                 : (T)0;
+  };
+  if constexpr (R > 0) {
+    constexpr int kW = R + 2;
+    constexpr bool kWhole = R * R * sizeof(T) == 16;
+    static_assert(kWhole || R * sizeof(T) == 16, "a block or a row of 16 "
+                  "bytes");
+    static_assert(4 * kW * sizeof(T) % 8 == 0, "8-byte words");
+    union Vec {   // a whole block (kWhole) or one row
+      uint4 v;
+      T e[16 / sizeof(T)];
+    };
+    union Out {
+      uint2 v[4 * kW * sizeof(T) / 8];
+      T e[4 * kW];
+    };
+    auto vec = [&](int d, int y) {   // row y of neighbor d's block (kWhole:
+                                     // the block)
+      Vec r;
+      r.v = on[d] ? __ldg(reinterpret_cast<const uint4*>(
+                              base + (long long)ids[d] * rho2 + y * R))
+                  : make_uint4(0u, 0u, 0u, 0u);
+      return r;
+    };
+    Out o;
+    if constexpr (kWhole) {
+      Vec b[8];
+#pragma unroll
+      for (int d = 0; d < 8; ++d) b[d] = vec(d, 0);
+      o.e[0] = b[0].e[R * R - 1];
+      o.e[R + 1] = b[2].e[(R - 1) * R];
+      o.e[kW] = b[5].e[R - 1];
+      o.e[kW + R + 1] = b[7].e[0];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        o.e[1 + j] = b[1].e[(R - 1) * R + j];
+        o.e[kW + 1 + j] = b[6].e[j];
+        o.e[2 * kW + j] = b[3].e[j * R + R - 1];
+        o.e[3 * kW + j] = b[4].e[j * R];
+      }
+    } else {
+      const Vec n = vec(1, R - 1), s = vec(6, 0);
+      o.e[0] = at(0, R - 1, R - 1);
+      o.e[R + 1] = at(2, R - 1, 0);
+      o.e[kW] = at(5, 0, R - 1);
+      o.e[kW + R + 1] = at(7, 0, 0);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        o.e[1 + j] = n.e[j];
+        o.e[kW + 1 + j] = s.e[j];
+        o.e[2 * kW + j] = at(3, j, R - 1);
+        o.e[3 * kW + j] = at(4, j, 0);
+      }
+    }
+#pragma unroll
+    for (int j = R; j < kW; ++j) o.e[2 * kW + j] = o.e[3 * kW + j] = (T)0;
+    // through shared memory: the warp's 32 blocks' strips are one
+    // contiguous run, stored 8 bytes a lane
+    constexpr int kV = 4 * kW * sizeof(T) / 8;   // 8-byte words a block
+    __shared__ uint2 sh[kGatherThreads * kV];
+    const int lane = threadIdx.x & 31;
+    uint2* const mine = sh + (threadIdx.x - lane) * kV;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) mine[lane * kV + i] = o.v[i];
+    __syncwarp();
+    const long long first = t0 - lane;
+    const int n = (int)min(32LL, total - first) * kV;
+    uint2* const to = reinterpret_cast<uint2*>(strips + first * 4 * kW);
+    for (int i = lane; i < n; i += 32) to[i] = mine[i];
+  } else {
+    T* const out = strips + t * 4 * w;
+    out[0] = at(0, rho - 1, rho - 1);
+    out[rho + 1] = at(2, rho - 1, 0);
+    out[w] = at(5, 0, rho - 1);
+    out[w + rho + 1] = at(7, 0, 0);
+    for (int j = 0; j < rho; ++j) {
+      out[1 + j] = at(1, rho - 1, j);
+      out[w + 1 + j] = at(6, 0, j);
+      out[2 * w + j] = at(3, j, rho - 1);
+      out[3 * w + j] = at(4, j, 0);
+    }
+    out[3 * w - 2] = out[3 * w - 1] = out[4 * w - 2] = out[4 * w - 1] = (T)0;
+  }
+}
+
+template <class T, int R>
+int launch_gather_r(const void* src, void* strips, const int* nbr,
+                    long long nb, long long total, int rho, unsigned needs,
+                    cudaStream_t stream) {
+  const long long ctas = (total + kGatherThreads - 1) / kGatherThreads;
+  if (ctas >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  gather_kernel<T, R><<<(unsigned)ctas, kGatherThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<T*>(strips), nbr, nb, total,
+      rho, needs);
+  return (int)cudaGetLastError();
+}
+
+// The gather of elements of `elem` bytes (1 or 4): the body that knows rho
+// for the main paths' rho = 4 (a block of uint8, a row of float32, 16
+// bytes) where the tensors are aligned for its loads and stores, else the
+// general one.
+int launch_gather(const void* src, void* strips, const int* nbr, long long nb,
+                  int rows, int rho, int elem, unsigned needs,
+                  cudaStream_t stream) {
+  if (nb < 1 || rows < 1 || rho < 1 || (elem != 1 && elem != 4) ||
+      (unsigned long long)nbr % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)rows * nb;
+  const bool four = rho == 4 && (unsigned long long)src % 16 == 0 &&
+                    (unsigned long long)strips % 8 == 0;
+  if (elem == 1)
+    return four ? launch_gather_r<uint8_t, 4>(src, strips, nbr, nb, total,
+                                              rho, needs, stream)
+                : launch_gather_r<uint8_t, 0>(src, strips, nbr, nb, total,
+                                              rho, needs, stream);
+  return four ? launch_gather_r<uint32_t, 4>(src, strips, nbr, nb, total, rho,
+                                             needs, stream)
+              : launch_gather_r<uint32_t, 0>(src, strips, nbr, nb, total, rho,
+                                             needs, stream);
 }
 
 RuleArgs make_args(int born, int survive, float p0, float p1, float p2,
@@ -1793,12 +2068,12 @@ int launch_warp_w(const void* src, void* dst, const int* nbr,
   return (int)cudaGetLastError();
 }
 
-// v4 and kernel 6 with the body fused_plan picked: W = 0 the CTA body
-// (step_kernel, the wide instance), else the warp body with W lanes a
-// window (8, 16 or 32, at least w) and `warps` warps a CTA, which the
-// launcher checks and lays out. Each channel's staging region (kInKernel:
-// G centers and 8 G neighbor slots; kPieces: w^2 elements a window) is
-// 16-byte aligned and followed by 16 zero bytes.
+// v4 and kernel 6 (fused_plan), and v1 and v2 at k = 1 (step_plan), with
+// the body their plan picked: W = 0 the CTA body (step_kernel, the wide
+// instance), else the warp body with W lanes a window (8, 16 or 32, at
+// least w) and `warps` warps a CTA, which the launcher checks and lays out.
+// Each channel's staging region (region_elems) is 16-byte aligned and
+// followed by 16 zero bytes.
 template <class Rule, int H>
 int launch_fused(const void* src, void* dst, const int* nbr,
                  const uint8_t* wmask, const Pieces& pc, long long nb,
@@ -1808,15 +2083,16 @@ int launch_fused(const void* src, void* dst, const int* nbr,
   constexpr int C = Rule::C, sz = (int)sizeof(T);
   const int w = rho + 2 * k;
   if (W == 0)
-    return launch_step<Rule, H>(src, dst, nbr, nullptr, wmask, pc, nb, batch,
-                                rho, k, ra, stream);
+    return launch_step<Rule, H>(src, dst, nbr, pc.strips, wmask, pc, nb,
+                                batch, rho, k, ra, stream);
   if ((W != 8 && W != 16 && W != 32) || w > W || warps < 1 ||
-      warps > kWarpWarps || !form_holds(Rule::kForm, ra))
+      warps > kWarpWarps || !form_holds(Rule::kForm, ra) ||
+      ((H == kWholeBlocks || H == kStrips) && k != 1) ||
+      (H == kStrips && !pc.strips))
     return (int)cudaErrorInvalidValue;
   const int G = 32 / W;
   const long long region_bytes =
-      (((H == kPieces ? (long long)G * w * w : 9LL * G * rho * rho) * sz +
-        15) & ~15LL) + 16;
+      (((long long)region_elems<H>(G, rho, w, sz) * sz + 15) & ~15LL) + 16;
   if ((long long)warps * C * region_bytes > (long long)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   // 32-bit geometry: blocks, items and the grid's stride stay below 2^30
@@ -1839,8 +2115,18 @@ int launch_fused(const void* src, void* dst, const int* nbr,
                (unsigned long long)pc.west | (unsigned long long)pc.east;
     in_bytes = (long long)std::gcd(std::gcd(rho2, kw), rk) * sz;
   }
+  // kStrips: a run of L elements a block starts at (sc nb + g G) L: its
+  // loads as wide as G L (and nb L past one simulation and channel) allow
+  auto run_bytes = [&](long long L) {
+    const long long g = G * L * sz;
+    return (long long)batch * C > 1 ? std::gcd(g, nb * L * sz) : g;
+  };
+  if (H == kStrips) in_bytes = run_bytes(rho2);
   gm.vin = vec_width(in_addr, in_bytes, sz, 16);
   gm.per = gm.vin / sz;
+  gm.svin = vec_width((unsigned long long)pc.strips, run_bytes(4 * w), sz,
+                      16);
+  gm.sper = gm.svin / sz;
   gm.cpc = G * w * w / gm.per;
   gm.ends[0] = G * rho2 / gm.per;
   gm.ends[1] = gm.ends[0] + G * kw / gm.per;
@@ -1859,23 +2145,23 @@ int launch_fused(const void* src, void* dst, const int* nbr,
   }
 }
 
-template <int H>
+// v3: the CTA body.
 int step_entry(int rule, const void* src, void* dst, const int* nbr,
-               const void* strips, const uint8_t* mask, const Pieces& pc,
-               long long nb, int batch, int rho, int k, int born, int survive,
-               float p0, float p1, float p2, float p3, float wd, float wo,
-               float wc, void* stream) {
+               const uint8_t* mask, long long nb, int batch, int rho,
+               int born, int survive, float p0, float p1, float p2, float p3,
+               float wd, float wo, float wc, void* stream) {
   RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SQ_STEP(RULE)                                                       \
+  launch_step<RULE, kInKernel>(src, dst, nbr, nullptr, mask, Pieces{}, nb, \
+                               batch, rho, 1, ra, s)
   switch (rule) {
-    case 0: return launch_step<Totalistic, H>(src, dst, nbr, strips, mask, pc,
-                                              nb, batch, rho, k, ra, s);
-    case 1: return launch_step<Heat, H>(src, dst, nbr, strips, mask, pc, nb,
-                                        batch, rho, k, ra, s);
-    case 2: return launch_step<GrayScott, H>(src, dst, nbr, strips, mask, pc,
-                                             nb, batch, rho, k, ra, s);
+    case 0: return SQ_STEP(Totalistic);
+    case 1: return SQ_STEP(Heat);
+    case 2: return SQ_STEP(GrayScott);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SQ_STEP
 }
 
 template <int H>
@@ -1924,28 +2210,43 @@ int mxu_entry(int rule, const void* src, void* dst, const int* nbr,
 
 extern "C" {
 
-// v1: one step, the center and its 8 neighbor blocks staged whole.
+// v1: one step, the center and its 8 neighbor blocks staged whole, with
+// the body (W lanes a window and warps a CTA, or W = 0 for the CTA body)
+// that step_plan picked.
 int sq_stencil_step_blocks(int rule, const void* src, void* dst,
                            const int* nbr, const uint8_t* micro,
-                           long long nb, int batch, int rho, int born,
-                           int survive, float p0, float p1, float p2,
-                           float p3, float wd, float wo, float wc,
-                           void* stream) {
-  return step_entry<kWholeBlocks>(rule, src, dst, nbr, nullptr, micro,
-                                  Pieces{}, nb, batch, rho, 1, born, survive,
-                                  p0, p1, p2, p3, wd, wo, wc, stream);
+                           long long nb, int batch, int rho, int W,
+                           int warps, int born, int survive, float p0,
+                           float p1, float p2, float p3, float wd, float wo,
+                           float wc, void* stream) {
+  return fused_entry<kWholeBlocks>(rule, src, dst, nbr, micro, Pieces{}, nb,
+                                   batch, rho, 1, W, warps, born, survive, p0,
+                                   p1, p2, p3, wd, wo, wc, stream);
 }
 
-// v2: one step from the center and its pre-gathered strips.
+// v2: one step from the center and its pre-gathered strips (B, C, nb, 4,
+// rho+2); body as for sq_stencil_step_blocks.
 int sq_stencil_step_strips(int rule, const void* src, void* dst,
                            const void* strips, const uint8_t* micro,
-                           long long nb, int batch, int rho, int born,
-                           int survive, float p0, float p1, float p2,
-                           float p3, float wd, float wo, float wc,
-                           void* stream) {
-  return step_entry<kStrips>(rule, src, dst, nullptr, strips, micro,
-                             Pieces{}, nb, batch, rho, 1, born, survive, p0,
-                             p1, p2, p3, wd, wo, wc, stream);
+                           long long nb, int batch, int rho, int W,
+                           int warps, int born, int survive, float p0,
+                           float p1, float p2, float p3, float wd, float wo,
+                           float wc, void* stream) {
+  Pieces pc{};
+  pc.strips = strips;
+  return fused_entry<kStrips>(rule, src, dst, nullptr, micro, pc, nb, batch,
+                              rho, 1, W, warps, born, survive, p0, p1, p2, p3,
+                              wd, wo, wc, stream);
+}
+
+// v2's strip gather: the (rows, nb, 4, rho+2) strips of the (rows, nb, rho,
+// rho) state, elements of `elem` bytes (1 or 4), the directions whose bit of
+// `needs` is clear left as zeros; one launch.
+int sq_gather_halo_strips(const void* src, void* strips, const int* nbr,
+                          long long nb, int rows, int rho, int elem,
+                          int needs, void* stream) {
+  return launch_gather(src, strips, nbr, nb, rows, rho, elem,
+                       (unsigned)needs, static_cast<cudaStream_t>(stream));
 }
 
 // v3: one step (k = 1 instance of the fused kernel).
@@ -1954,9 +2255,8 @@ int sq_stencil_step_fused(int rule, const void* src, void* dst,
                           int batch, int rho, int born, int survive,
                           float p0, float p1, float p2, float p3, float wd,
                           float wo, float wc, void* stream) {
-  return step_entry<kInKernel>(rule, src, dst, nbr, nullptr, wmask, Pieces{},
-                               nb, batch, rho, 1, born, survive, p0, p1, p2,
-                               p3, wd, wo, wc, stream);
+  return step_entry(rule, src, dst, nbr, wmask, nb, batch, rho, born, survive,
+                    p0, p1, p2, p3, wd, wo, wc, stream);
 }
 
 // v4: k exact steps per launch, 1 <= k <= rho, with the body (W lanes a

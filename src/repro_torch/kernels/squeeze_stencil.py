@@ -5,8 +5,13 @@ its plain PyTorch version.
     Moore-neighbor blocks staged whole; replaces the Pallas
     ``squeeze_stencil.py::stencil_step_blocks``.
   * ``stencil_step_strips``      (v2) -- one step from the center and its
-    halo strips, gathered before the launch (``gather_halo_strips``);
-    replaces ``stencil_step_strips``.
+    halo strips, gathered before the launch by a kernel of their own
+    (``gather_halo_strips``, one launch, counted under its name); replaces
+    ``stencil_step_strips``.
+    v1 and v2 run v4's warp body at k = 1 under ``micro_mask`` (v1 its
+    nine blocks whole, v2 the centers and strips as two runs); ``step_plan``
+    picks W and the warps, and ring weights that are not the rule's own (or
+    windows over 32 cells) run the CTA body, counted as ``<name>[wide]``.
   * ``stencil_step_fused``       (v3) -- one step; replaces
     ``stencil_step_fused``.
   * ``stencil_step_fused_k``     (v4) -- k exact steps per launch on a
@@ -29,6 +34,9 @@ its plain PyTorch version.
     existence table (the distributed engine's compute); replace the
     reference's entries of the same names; the same bodies and launch
     names as v4 and v5.
+  * ``stencil_step_mxu`` / ``stencil_step_mxu_k`` (v5 on one simulation)
+    and ``life_step_blocks`` / ``_strips`` / ``_fused`` (v1-v3 with LIFE):
+    the reference's single-state entries.
 
 The kernels live in ``csrc/squeeze_stencil.cu``. A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
@@ -58,7 +66,9 @@ from repro_torch.workloads.rules import LIFE, RULE_HEAT, RULE_TOTALISTIC
 #: every kernel wrapper module)
 LAUNCHES = build.LAUNCHES
 LAUNCHES.update(dict.fromkeys(
-    ("stencil_step_blocks", "stencil_step_strips", "stencil_step_fused",
+    ("stencil_step_blocks", "stencil_step_blocks[wide]",
+     "stencil_step_strips", "stencil_step_strips[wide]",
+     "gather_halo_strips", "stencil_step_fused",
      "stencil_step_fused_k", "stencil_step_fused_k[wide]",
      "stencil_step_mxu_batched", "stencil_step_mxu_batched[wide]",
      "stencil_step_fused_k_local", "stencil_step_fused_k_local[wide]",
@@ -69,9 +79,15 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _RULE_ARGS = [_I, _I, _F, _F, _F, _F, _F, _F, _F, _P]
 _SIGNATURES = {
-    # rule, src, dst, nbr (v2: strips), mask, nb, batch, rho, ...
-    "sq_stencil_step_blocks": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
-    "sq_stencil_step_strips": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
+    # rule, src, dst, nbr (v2: strips), micro_mask, nb, batch, rho, W,
+    # warps (step_plan; W = 0 for the CTA body), ...
+    "sq_stencil_step_blocks": [_I, _P, _P, _P, _P, _LL] + [_I] * 4
+    + _RULE_ARGS,
+    "sq_stencil_step_strips": [_I, _P, _P, _P, _P, _LL] + [_I] * 4
+    + _RULE_ARGS,
+    # src, strips, nbr, nb, rows, rho, element bytes, needs bits, stream
+    "sq_gather_halo_strips": [_P, _P, _P, _LL] + [_I] * 4 + [_P],
+    # rule, src, dst, nbr, window_mask(1), nb, batch, rho, ...
     "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
     # ..., k, W, warps (fused_plan; W = 0 for the CTA body), ...
     "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL] + [_I] * 5
@@ -234,15 +250,16 @@ def stencil_step_mxu_k_local_plain(layout: BlockLayout, states: torch.Tensor,
 
 
 # ======================================================================
-# v2 halo strips (PyTorch indexing; XLA's gathers in the reference)
+# v2 halo strips (a kernel of their own on the card; XLA's gathers in the
+# reference)
 # ======================================================================
-def _gather_halo_strips(layout: BlockLayout, s: torch.Tensor,
-                        needs=None) -> torch.Tensor:
+def gather_halo_strips_plain(layout: BlockLayout, s: torch.Tensor,
+                             needs=None) -> torch.Tensor:
     """(..., C, nb, 4, rho+2) halo strips of ``s`` (..., C, nb, rho, rho)
-    by strip-level gathers through the neighbor table. Rows: 0 the top
-    (NW's SE cell, N's bottom row, NE's SW cell), 1 the bottom (SW's NE
-    cell, S's top row, SE's NW cell), 2 W's east column and 3 E's west
-    column (the last two entries of rows 2-3 pad). ``needs`` (a
+    by strip-level gathers through the neighbor table, in PyTorch. Rows: 0
+    the top (NW's SE cell, N's bottom row, NE's SW cell), 1 the bottom
+    (SW's NE cell, S's top row, SE's NW cell), 2 W's east column and 3 E's
+    west column (the last two entries of rows 2-3 pad). ``needs`` (a
     ``halo_needs`` tuple) leaves the directions the workload never reads
     as zeros, ungathered."""
     need_n, need_s, need_w, need_e, need_nw, need_ne, need_sw, need_se = \
@@ -267,6 +284,48 @@ def _gather_halo_strips(layout: BlockLayout, s: torch.Tensor,
     col_w = torch.nn.functional.pad(take(s[..., :, -1], 3, need_w), (0, 2))
     col_e = torch.nn.functional.pad(take(s[..., :, 0], 4, need_e), (0, 2))
     return torch.stack([row_top, row_bot, col_w, col_e], dim=-2)
+
+
+#: the ``halo_needs`` entry (N, S, W, E, NW, NE, SW, SE) of each MOORE_DIRS
+#: direction (NW, N, NE, W, E, SW, S, SE): the gather kernel reads
+#: direction d where bit d of its ``needs`` is set
+_NEED_OF_DIR = (4, 0, 5, 2, 3, 6, 1, 7)
+
+
+def _gather_halo_strips(layout: BlockLayout, s: torch.Tensor,
+                        needs=None) -> torch.Tensor:
+    """``gather_halo_strips_plain``'s strips: for a CUDA tensor one launch
+    of the gather kernel (any element of 1 or 4 bytes), counted as
+    ``gather_halo_strips``; for a CPU tensor the plain version."""
+    if s.device.type == "cpu":
+        return gather_halo_strips_plain(layout, s, needs)
+    fn = _c_function("sq_gather_halo_strips")
+    rho, nb = layout.rho, layout.n_blocks
+    if s.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got "
+                         f"{s.device}")
+    if s.dim() < 3 or tuple(s.shape[-3:]) != (nb, rho, rho):
+        raise ValueError(f"state shape {tuple(s.shape)} does not match "
+                         f"(..., {nb}, {rho}, {rho})")
+    if s.element_size() not in (1, 4):
+        raise TypeError(f"the strip gather moves elements of 1 or 4 bytes, "
+                        f"got {s.dtype}")
+    if not s.is_contiguous():
+        raise ValueError("state must be contiguous")
+    out = torch.empty(s.shape[:-2] + (4, rho + 2), dtype=s.dtype,
+                      device=s.device)
+    rows = s.numel() // (nb * rho * rho)
+    if rows == 0:
+        return out
+    needs = needs if needs is not None else (True,) * 8
+    bits = sum(1 << d for d, i in enumerate(_NEED_OF_DIR) if needs[i])
+    table = layout.device_table("neighbor_table", s.device)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        rc = fn(s.data_ptr(), out.data_ptr(), table.data_ptr(), nb, rows,
+                rho, s.element_size(), bits, stream)
+    build.finish_launch(rc, "gather_halo_strips")
+    return out
 
 
 def gather_halo_strips(layout: BlockLayout, state: torch.Tensor
@@ -360,6 +419,45 @@ class FusedPlan(NamedTuple):
     body: str     # '' (the warp body) or '[wide]' (the CTA body)
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _cta_plan(esize: int, n_channels: int, w: int,
+              cta_extra: int) -> FusedPlan:
+    """The CTA body's geometry for a window of w cells a side (``[wide]``):
+    the windows of up to ``CTA_CELLS`` cells, two w^2 buffers of all
+    channels each and ``cta_extra`` more elements a window and channel
+    (v1's nine blocks), ids and mask, as ``launch_step`` lays them out."""
+    ww = w * w
+    g = max(1, CTA_CELLS // ww)
+    smem = _round16(g * n_channels * (2 * ww + cta_extra) * esize) \
+        + g * 9 * 4 + ww
+    if smem > build.MAX_SMEM:
+        raise ValueError(f"a {w}x{w} window of {n_channels} channel(s) "
+                         f"exceeds one CTA's {build.MAX_SMEM} bytes of "
+                         f"shared memory ({smem} bytes)")
+    return FusedPlan(0, g, CTA_THREADS // 32, smem, "[wide]")
+
+
+def _warp_plan(esize: int, n_channels: int, w: int, region) -> FusedPlan:
+    """The warp body's geometry for a window of w <= 32 cells a side: W
+    the power of two >= max(w, 8), G = 32 / W windows a warp, a warp's
+    staging buffer each channel's region of ``region(G)`` elements, 16-byte
+    aligned, and 16 zero bytes; the most warps (up to ``FUSED_WARPS``) that
+    fit a CTA's shared memory."""
+    big_w = 8 if w <= 8 else 16 if w <= 16 else 32
+    g = 32 // big_w
+    per_warp = n_channels * (_round16(region(g) * esize) + 16)
+    warps = min(FUSED_WARPS, build.MAX_SMEM // per_warp)
+    if warps < 1:
+        raise ValueError(f"one group of {g} {w}x{w} window(s) of "
+                         f"{n_channels} channel(s) exceeds one CTA's "
+                         f"{build.MAX_SMEM} bytes of shared memory "
+                         f"({per_warp} bytes)")
+    return FusedPlan(big_w, g, warps, warps * per_warp, "")
+
+
 def fused_plan(dtype: torch.dtype, n_channels: int, rho: int, k: int,
                pieces: bool = False, rule_form: bool = True) -> FusedPlan:
     """The body and launch geometry of v4 (``pieces=False``) or of kernel 6
@@ -380,27 +478,30 @@ def fused_plan(dtype: torch.dtype, n_channels: int, rho: int, k: int,
     w = rho + 2 * k
     esize = torch.empty((), dtype=dtype).element_size()
     if w > 32 or not rule_form:
-        ww = w * w
-        g = max(1, CTA_CELLS // ww)
-        smem = -(-g * n_channels * 2 * ww * esize // 16) * 16 + g * 9 * 4 \
-            + ww
-        if smem > build.MAX_SMEM:
-            raise ValueError(f"a {w}x{w} window of {n_channels} channel(s) "
-                             f"exceeds one CTA's {build.MAX_SMEM} bytes of "
-                             f"shared memory ({smem} bytes)")
-        return FusedPlan(0, g, CTA_THREADS // 32, smem, "[wide]")
-    big_w = 8 if w <= 8 else 16 if w <= 16 else 32
-    g = 32 // big_w
-    region = -(-(g * w * w if pieces else 9 * g * rho * rho) * esize
-               // 16) * 16 + 16
-    per_warp = n_channels * region
-    warps = min(FUSED_WARPS, build.MAX_SMEM // per_warp)
-    if warps < 1:
-        raise ValueError(f"one group of {g} {w}x{w} window(s) of "
-                         f"{n_channels} channel(s) exceeds one CTA's "
-                         f"{build.MAX_SMEM} bytes of shared memory "
-                         f"({per_warp} bytes)")
-    return FusedPlan(big_w, g, warps, warps * per_warp, "")
+        return _cta_plan(esize, n_channels, w, 0)
+    return _warp_plan(esize, n_channels, w,
+                      lambda g: g * w * w if pieces else 9 * g * rho * rho)
+
+
+def step_plan(dtype: torch.dtype, n_channels: int, rho: int,
+              strips: bool = False, rule_form: bool = True) -> FusedPlan:
+    """The body and launch geometry of v1 (``strips=False``) or v2
+    (``strips=True``): one step, a window w = rho + 2, on v4's warp body
+    for w <= 32 (W, G and the warps as ``fused_plan`` picks them) with each
+    channel's staging region v1's G centers and 8 G whole neighbor blocks
+    (v4's), or v2's G centers, then (16-byte aligned) G strips of 4 w
+    elements. Wider windows and ring weights that are not the rule's own
+    run the CTA body (``[wide]``), whose shared memory also holds v1's nine
+    blocks a window. Raises when nothing fits."""
+    w, esize = rho + 2, torch.empty((), dtype=dtype).element_size()
+    if w > 32 or not rule_form:
+        return _cta_plan(esize, n_channels, w, 0 if strips else 9 * rho * rho)
+
+    def region(g):
+        if strips:   # strips_at() in the source
+            return _round16(g * rho * rho * esize) // esize + 4 * g * w
+        return 9 * g * rho * rho
+    return _warp_plan(esize, n_channels, w, region)
 
 
 def _rule_form(workload: StencilWorkload) -> bool:
@@ -424,8 +525,22 @@ def _fused_plan_for(layout: BlockLayout, state: torch.Tensor,
                     pieces: bool) -> FusedPlan:
     """``fused_plan`` for v4 or kernel 6 on ``state``, after checking the
     warp body's 32-bit geometry."""
-    plan = fused_plan(state.dtype, workload.n_channels, layout.rho, k,
-                      pieces, _rule_form(workload))
+    return _checked(layout, state, workload, fused_plan(
+        state.dtype, workload.n_channels, layout.rho, k, pieces,
+        _rule_form(workload)))
+
+
+def _step_plan_for(layout: BlockLayout, state: torch.Tensor,
+                   workload: StencilWorkload, strips: bool) -> FusedPlan:
+    """``step_plan`` for v1 or v2 on ``state``, checked as v4's."""
+    return _checked(layout, state, workload, step_plan(
+        state.dtype, workload.n_channels, layout.rho, strips,
+        _rule_form(workload)))
+
+
+def _checked(layout: BlockLayout, state: torch.Tensor,
+             workload: StencilWorkload, plan: FusedPlan) -> FusedPlan:
+    """``plan``, after checking the warp body's 32-bit geometry."""
     if not plan.body:
         n = state.shape[-3]
         items = (state.numel() // (n * layout.rho ** 2)
@@ -477,7 +592,9 @@ def _check_out(state: torch.Tensor, out: torch.Tensor) -> None:
 
 def _launch_step(name, layout, state, workload, k, out, strips=None):
     """Launch v1 ('stencil_step_blocks'), v2 ('stencil_step_strips'; the
-    strips are gathered here unless given), v3 or v4 on ``state``."""
+    strips are gathered here, by the gather kernel, unless given), v3 or v4
+    on ``state``; v1, v2 and v4 with the body their plan picks, counted
+    under its name."""
     fn = _c_function("sq_" + name)
     s5, _ = _as_batched(layout, workload, state)
     out = _check_cuda(state, workload, out)
@@ -507,6 +624,11 @@ def _launch_step(name, layout, state, workload, k, out, strips=None):
     if name == "stencil_step_fused_k":
         plan = _fused_plan_for(layout, state, workload, k, False)
         args += [k, plan.W, plan.warps]
+        body = plan.body
+    elif name != "stencil_step_fused":
+        plan = _step_plan_for(layout, state, workload,
+                              name == "stencil_step_strips")
+        args += [plan.W, plan.warps]
         body = plan.body
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -560,6 +682,12 @@ def life_step_strips(layout: BlockLayout, state: torch.Tensor, *,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v2 game-of-life step."""
     return stencil_step_strips(layout, state, LIFE, out=out)
+
+
+def life_step_fused(layout: BlockLayout, state: torch.Tensor, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v3 game-of-life step."""
+    return stencil_step_fused(layout, state, LIFE, out=out)
 
 
 def stencil_step_fused(layout: BlockLayout, state: torch.Tensor,
@@ -620,6 +748,24 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
             plan.spw, plan.warps, *_rule_args(workload, stream))
     build.finish_launch(rc, "stencil_step_mxu_batched" + plan.body)
     return out
+
+
+def stencil_step_mxu(layout: BlockLayout, state: torch.Tensor,
+                     workload: StencilWorkload = LIFE, *,
+                     p: Optional[int] = None) -> torch.Tensor:
+    """One step of one simulation, v5: ``state`` (C?, nb, rho, rho) ->
+    same; ``p`` as for ``stencil_step_mxu_batched``."""
+    return stencil_step_mxu_batched(layout, state[None], workload, k=1,
+                                    p=p)[0]
+
+
+def stencil_step_mxu_k(layout: BlockLayout, state: torch.Tensor,
+                       workload: StencilWorkload = LIFE, *, k: int = 2,
+                       p: Optional[int] = None) -> torch.Tensor:
+    """``k`` exact steps of one simulation in one v5 launch, 1 <= k <=
+    rho: ``state`` (C?, nb, rho, rho) -> same."""
+    return stencil_step_mxu_batched(layout, state[None], workload, k=k,
+                                    p=p)[0]
 
 
 def _mxu_operands(layout: BlockLayout, workload: StencilWorkload,

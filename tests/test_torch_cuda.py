@@ -7,9 +7,10 @@ on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
 CA results are bit-exact; floats agree to rtol=atol=1e-5 (v5 sums the
-banded products in another order than the plain aggregate); the lambda/nu
-maps are bit-exact. The 3D kernels (cuda-3d, cuda-3d-mxu) are held the same
-way on the Menger sponge and the Sierpinski tetrahedron.
+banded products in another order than the plain aggregate), v1-v4 and the
+strip gather bit for bit; the lambda/nu maps are bit-exact. The 3D kernels
+(cuda-3d, cuda-3d-mxu) are held the same way on the Menger sponge and the
+Sierpinski tetrahedron.
 """
 import ctypes
 import dataclasses
@@ -34,6 +35,7 @@ from repro_torch.kernels import ssd_chunk as ts
 from repro_torch.models import ssm as tssm
 from repro_torch.workloads import BatchedRunner
 from repro_torch.workloads import rules as trules
+from repro_torch.workloads.base import halo_needs
 
 WORKLOADS = ["life", "highlife", "heat", "gray-scott"]
 CASES = [(tf.SIERPINSKI, 7, 2), (tf.CARPET, 4, 1), (tf.VICSEK, 4, 1)]
@@ -98,7 +100,8 @@ def test_cuda_kernels_match_plain(cuda, wl_name):
 
 @pytest.mark.parametrize("wl_name", WORKLOADS)
 def test_cuda_single_step_kernels_match_plain(cuda, wl_name):
-    """v1 and v2, one simulation and a batch of 3, 4 steps each."""
+    """v1 and v2, one simulation and a batch of 3, 4 steps each, bit for
+    bit on the warp body (v2 a gather launch a step)."""
     wl = trules.WORKLOADS[wl_name]
     for frac, r, m in CASES:
         lay = BlockLayout(frac, r, m)
@@ -109,9 +112,13 @@ def test_cuda_single_step_kernels_match_plain(cuda, wl_name):
                            sk.stencil_step_strips_plain)):
             for s in (x[0], x):
                 got, want = s, s
+                sk.reset_launches()
                 for _ in range(4):
                     got, want = fn(lay, got, wl), plain(lay, want, wl)
-                _close(got, want, wl)
+                assert {n: v for n, v in sk.LAUNCHES.items() if v} == (
+                    {fn.__name__: 4, "gather_halo_strips": 4}
+                    if fn is sk.stencil_step_strips else {fn.__name__: 4})
+                _equal(got, want)
 
 
 @pytest.mark.parametrize("name", sorted(tf.REGISTRY))
@@ -905,3 +912,153 @@ def test_cuda_fused_other_weights_run_the_cta_body(cuda, wl):
     torch.cuda.synchronize()
     assert rc != 0
     assert not bool(out.any())
+
+
+# ---------------------------------------------------------------------------
+# v1 and v2: every body step_plan picks, and the strip gather
+# ---------------------------------------------------------------------------
+#: (fractal, r, m): windows w = rho + 2 of 4, 5 (rho = 3: 9-byte uint8
+#: centers and 20-byte strip rows, no 16-byte run) and 6 (W = 8: four
+#: windows a warp), 10 and 11 (W = 16) and 29 (W = 32); block counts 9,
+#: 25, 243, 27, 25 and 5, none a multiple of the windows a warp takes
+SINGLE_BODIES = [(tf.SIERPINSKI, 3, 1), (tf.VICSEK, 3, 1),
+                 (tf.SIERPINSKI, 7, 2), (tf.SIERPINSKI, 6, 3),
+                 (tf.VICSEK, 4, 2), (tf.VICSEK, 4, 3)]
+_SINGLE_FNS = ((sk.stencil_step_blocks, sk.stencil_step_blocks_plain),
+               (sk.stencil_step_strips, sk.stencil_step_strips_plain))
+
+
+def _single_launches(fn, body):
+    """The launches of one v1 or v2 call through ``body``."""
+    want = {fn.__name__ + body: 1}
+    if fn is sk.stencil_step_strips:
+        want["gather_halo_strips"] = 1
+    return want
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+@pytest.mark.parametrize("case", SINGLE_BODIES,
+                         ids=[f"{c[0].name}-r{c[1]}m{c[2]}"
+                              for c in SINGLE_BODIES])
+def test_cuda_single_step_every_body(cuda, wl_name, case):
+    """v1 and v2 (one simulation and B=3) at each body ``step_plan``
+    picks, bit for bit against their plain version, each one launch under
+    its body's name (v2 and its gather)."""
+    frac, r, m = case
+    wl = trules.WORKLOADS[wl_name]
+    lay = BlockLayout(frac, r, m)
+    x = _state(lay, wl, 3, seed=r, scale=0.25).to(cuda)
+    for fn, plain in _SINGLE_FNS:
+        plan = sk.step_plan(wl.dtype, wl.n_channels, lay.rho,
+                            fn is sk.stencil_step_strips)
+        assert plan.body == "" and plan.W >= lay.rho + 2
+        for s in (x[0], x):
+            sk.reset_launches()
+            got = fn(lay, s, wl)
+            assert {n: v for n, v in sk.LAUNCHES.items() if v} == \
+                _single_launches(fn, "")
+            _equal(got, plain(lay, s.cpu(), wl))
+
+
+@pytest.mark.parametrize("wl", [_OrthCA(), _MooreHeat()],
+                         ids=["orth-life", "moore-heat"])
+def test_cuda_single_step_other_weights_run_the_cta_body(cuda, wl):
+    """Ring weights other than the rule's own run the CTA body ([wide]) for
+    v1 and v2, bit for bit with B = 1 and 3; the C entries refuse the warp
+    body's plan for them."""
+    lay = BlockLayout(tf.SIERPINSKI, 7, 2)
+    x = _state(lay, wl, 3, seed=6, scale=0.25).to(cuda)
+    micro = lay.device_table("micro_mask", cuda)
+    for fn, plain in _SINGLE_FNS:
+        strips = fn is sk.stencil_step_strips
+        assert sk.step_plan(wl.dtype, 1, lay.rho, strips, False).body == \
+            "[wide]"
+        for s in (x[0], x):
+            sk.reset_launches()
+            got = fn(lay, s, wl)
+            assert {n: v for n, v in sk.LAUNCHES.items() if v} == \
+                _single_launches(fn, "[wide]")
+            _equal(got, plain(lay, s.cpu(), wl))
+        plan = sk.step_plan(wl.dtype, 1, lay.rho, strips)
+        assert plan.body == ""
+        halo = sk.gather_halo_strips_plain(lay, x[:, None].cpu()).to(cuda) \
+            if strips else lay.device_table("neighbor_table", cuda)
+        out = torch.zeros_like(x)
+        with torch.cuda.device(cuda):
+            rc = sk._c_function("sq_" + fn.__name__)(
+                sk._rule(wl), x.data_ptr(), out.data_ptr(), halo.data_ptr(),
+                micro.data_ptr(), lay.n_blocks, 3, lay.rho, plan.W,
+                plan.warps,
+                *sk._rule_args(wl, torch.cuda.current_stream().cuda_stream))
+        torch.cuda.synchronize()
+        assert rc != 0
+        assert not bool(out.any())
+
+
+@pytest.mark.parametrize("wl_name", ["life", "heat", "gray-scott"])
+@pytest.mark.parametrize("case", SINGLE_BODIES,
+                         ids=[f"{c[0].name}-r{c[1]}m{c[2]}"
+                              for c in SINGLE_BODIES])
+def test_cuda_gather_halo_strips_matches_plain(cuda, wl_name, case):
+    """The gather kernel bit for bit against its plain version, B = 1 and
+    3: every direction, and the workload's ``halo_needs`` (HEAT's corners
+    zero); ghosts read zeros; one launch each. A source that is not
+    16-byte aligned takes the general body."""
+    frac, r, m = case
+    wl = trules.WORKLOADS[wl_name]
+    lay = BlockLayout(frac, r, m)
+    x = _state(lay, wl, 3, seed=r)
+    x5 = x if wl.n_channels > 1 else x[:, None]
+    for needs in (None, halo_needs(wl.weights2d)):
+        for s in (x5[:1], x5):
+            sk.reset_launches()
+            got = sk._gather_halo_strips(lay, s.to(cuda), needs)
+            assert {n: v for n, v in sk.LAUNCHES.items() if v} == {
+                "gather_halo_strips": 1}
+            _equal(got, sk.gather_halo_strips_plain(lay, s, needs))
+    flat = torch.zeros(x5.numel() + 1, dtype=x5.dtype, device=cuda)
+    odd = flat[1:].view(x5.shape)
+    odd.copy_(x5)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    _equal(sk._gather_halo_strips(lay, odd), sk.gather_halo_strips_plain(
+        lay, x5))
+    if wl.n_channels == 1:
+        _equal(sk.gather_halo_strips(lay, x[0].to(cuda)),
+               sk.gather_halo_strips(lay, x[0]))
+
+
+def test_cuda_gather_refuses_bad_inputs(cuda):
+    lay = BlockLayout(tf.SIERPINSKI, 5, 2)
+    x = _state(lay, trules.LIFE, 2).to(cuda)
+    before = dict(sk.LAUNCHES)
+    with pytest.raises(TypeError, match="1 or 4 bytes"):
+        sk._gather_halo_strips(lay, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        sk._gather_halo_strips(lay, x.transpose(-1, -2))
+    with pytest.raises(ValueError, match="does not match"):
+        sk._gather_halo_strips(lay, x[:, :3])
+    assert sk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("wl_name", ["life", "heat"])
+def test_cuda_single_state_wrappers_match_plain(cuda, wl_name):
+    """``stencil_step_mxu``, ``stencil_step_mxu_k`` and ``life_step_fused``
+    on one simulation, each one launch."""
+    wl = trules.WORKLOADS[wl_name]
+    lay = BlockLayout(tf.CARPET, 4, 1)
+    x = _state(lay, wl, 1, seed=3)[0]
+    for k, fn in ((1, lambda s: sk.stencil_step_mxu(lay, s, wl)),
+                  (2, lambda s: sk.stencil_step_mxu_k(lay, s, wl, k=2)),
+                  (3, lambda s: sk.stencil_step_mxu_k(lay, s, wl, k=3,
+                                                      p=2))):
+        sk.reset_launches()
+        got = fn(x.to(cuda))   # w = 9 at k = 3: the wide instance
+        assert sk.LAUNCHES["stencil_step_mxu_batched" + (
+            "[wide]" if k == 3 else "")] == 1
+        assert sum(sk.LAUNCHES.values()) == 1
+        _close(got, sk.stencil_step_fused_k_plain(lay, x, wl, k=k), wl)
+    if wl is trules.LIFE:
+        sk.reset_launches()
+        got = sk.life_step_fused(lay, x.to(cuda))
+        assert sk.LAUNCHES["stencil_step_fused"] == 1
+        _equal(got, sk.stencil_step_fused_plain(lay, x, wl))

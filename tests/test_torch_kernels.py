@@ -124,8 +124,9 @@ def test_single_step_plain_matches_reference_block(case, wl_name, variant):
     (CASES[0], "life"), (CASES[1], "heat"), (CASES[0], "gray-scott")],
     ids=["sierpinski-life", "carpet-heat", "sierpinski-gray-scott"])
 def test_gather_halo_strips_matches_reference(case, wl_name):
-    """(C, nb, 4, rho+2) strips with the workload's dead directions zero,
-    and with a leading batch axis; the single-channel entry point too."""
+    """The plain gather's (C, nb, 4, rho+2) strips with the workload's dead
+    directions zero, and with a leading batch axis; the single-channel
+    entry point too (on the CPU, the plain version)."""
     wl = trules.WORKLOADS[wl_name]
     ref_lay = _ref_engine(*case, wl_name).layout  # tables shared
     x = _state(*case, wl, batch=2)
@@ -134,14 +135,31 @@ def test_gather_halo_strips_matches_reference(case, wl_name):
     want = np.stack([np.asarray(gather(
         ref_lay, jnp.asarray(s), ref_halo_needs(
             rrules.WORKLOADS[wl_name].weights2d))) for s in x5])
-    got = sk._gather_halo_strips(_layout(*case), torch.from_numpy(x5),
-                                 halo_needs(wl.weights2d))
+    got = sk.gather_halo_strips_plain(_layout(*case), torch.from_numpy(x5),
+                                      halo_needs(wl.weights2d))
     np.testing.assert_array_equal(got.numpy(), want)
     if wl.n_channels == 1:
         np.testing.assert_array_equal(
             sk.gather_halo_strips(_layout(*case),
                                   torch.from_numpy(x[0])).numpy(),
             np.asarray(gather(ref_lay, jnp.asarray(x[0])[None]))[0])
+
+
+@pytest.mark.parametrize("entry,case,wl_name,k", [
+    ("stencil_step_mxu", CASES[1], "heat", 1),
+    ("stencil_step_mxu_k", CASES[0], "gray-scott", 2),
+    ("life_step_fused", CASES[0], "life", 1)])
+def test_single_state_entries_match_reference_block(entry, case, wl_name,
+                                                     k):
+    """The reference's single-state entries (``kernels/squeeze_stencil.py``
+    stencil_step_mxu, stencil_step_mxu_k, life_step_fused) on the CPU."""
+    wl = trules.WORKLOADS[wl_name]
+    x = torch.from_numpy(_state(*case, wl))
+    fn = getattr(sk, entry)
+    got = fn(_layout(*case), x) if entry == "life_step_fused" else \
+        fn(_layout(*case), x, wl, **({"k": k} if k > 1 else {}))
+    np.testing.assert_allclose(got.numpy(), _reference(*case, wl_name, k),
+                               **_tol(wl))
 
 
 # ---------------------------------------- the reference Pallas kernels

@@ -1,7 +1,10 @@
-"""Take the fused-k stencil kernel body apart on one card: rows 4 and 6 of
-the kernel table (``stencil_step_fused_k``, v4, and
-``stencil_step_fused_k_local``, kernel 6: one template body) beside
-variants of the body with one part removed, to see where its time goes.
+"""Take the warp body of the 2D stencil kernels apart on one card: rows 4
+and 6 of the kernel table (``stencil_step_fused_k``, v4, and
+``stencil_step_fused_k_local``, kernel 6: one template body), and rows 1
+and 2 (``stencil_step_blocks``, v1, and ``stencil_step_strips``, v2, on the
+same body at k = 1 where the checkout's entries take ``step_plan``'s W and
+warps; v2 as the step alone and its strip gather) beside variants of the
+body with one part removed, to see where its time goes.
 
     python3 tools/ab_fused.py [--rounds N] CHECKOUT [CHECKOUT ...]
 
@@ -12,8 +15,9 @@ then ``.``); its ``src/repro_torch/kernels/csrc/squeeze_stencil.cu`` is
 read, the body it holds is recognised (the warp body keeps each window
 column in a lane's registers, ``warp_kernel``; the body before it is a
 CTA of 256 threads over G windows in shared memory, ``step_kernel``), and
-so is whether its entries take ``fused_plan``'s W and warps (those of the
-running checkout are passed where they do), and
+so is whether its entries take the plan's W and warps (``fused_plan``'s
+for v4 and kernel 6, ``step_plan``'s for v1 and v2: those of the running
+checkout are passed where they do), and
 each variant of that body is the source with one text edit, built with
 the port's nvcc flags into its own library under ``build/ab_fused/``
 (all in parallel) and called through ctypes:
@@ -26,17 +30,27 @@ the port's nvcc flags into its own library under ``build/ab_fused/``
 - ``no-mask``: every cell's mask 1 (no mask built or read);
 - ``ids-only``: the neighbor ids (or existence rows) loaded and the
   centers stored, no block staged (after a warp's first group) and no
-  substep.
+  substep;
+- ``rows-only`` (a source whose v1 stages its blocks whole): v1 stages of
+  each neighbor block only the loads that hold the rows its window reads,
+  as v4 does.
 
-Only ``shipped`` computes the function; it is held against the plain
-version bit for bit. The inputs are the main paths' (``chip_smoke.py``
-phases 6 and 13): row 4 is v4 over sierpinski r=16 m=2, B=1, k=2 with
-LIFE, and also with HEAT and GRAY_SCOTT; row 6 is shard 0's whole-domain
-pass of the ``dist-fused`` engine over 4 shards at the same size (p2p
-exchange, LIFE, k=2, ``DistributedSqueezeEngine.local_inputs``). Every
-variant is timed at each on CUDA events, 10 launches a reading, variants
-in turn and back (N rounds). One JSON line per result; the card's name
-and power limit first, each library's registers and spills (ptxas) next.
+``shipped`` and ``rows-only`` compute the function; each is held against
+the plain version bit for bit. The inputs are the main paths'
+(``chip_smoke.py`` phases 6 and 13): row 4 is v4 over sierpinski r=16
+m=2, B=1, k=2 with LIFE, and also with HEAT and GRAY_SCOTT; row 6 is shard
+0's whole-domain pass of the ``dist-fused`` engine over 4 shards at the
+same size (p2p exchange, LIFE, k=2,
+``DistributedSqueezeEngine.local_inputs``); rows 1 and 2 are v1 and v2 at
+the same size with LIFE and HEAT (rho = 4) and v1 with LIFE at r=16 m=3
+(rho = 8), v2's strips gathered once, and v2's gather alone with LIFE and
+HEAT (the library's gather kernel, or the plain PyTorch gather for a
+source that has none, as the port had before it). Rows 1 and 2 are timed for every
+variant of a source whose v1 and v2 run the warp body, and for its
+``shipped`` build only otherwise. Every variant is timed at each on CUDA
+events, 10 launches a reading, variants in turn and back (N rounds). One
+JSON line per result; the card's name and power limit first, each
+library's registers and spills (ptxas) next.
 """
 from __future__ import annotations
 
@@ -72,6 +86,13 @@ WARP_MASK = "    const unsigned colmask = column_mask(cm, e);\n"
 WARP_STAGE = "    stage_column<Rule, W>(stage, off, gm.cstride, v);\n"
 WARP_ISSUE = ("    issue_group<Rule, H, G>(src, pc, stage, it1, r1, olo, ohi, gm, "
               "lane);\n")
+# v1 stages each neighbor block whole; rows-only: the loads [olo, ohi) of
+# the rows its window reads, as v4's
+WHOLE = ("            stage_tail(slot, from, 0, rho2, on ? rho2 : 0, gm.vin, "
+         "gm.per,\n                       gm.per);\n")
+ROWS = ("            stage_tail(slot, from, olo, ohi, on ? ohi : 0, gm.vin, "
+        "gm.per,\n                       gm.per);\n")
+ROWS_GATE = "  if (H == kInKernel && lane < 8 * G) {\n"
 
 
 def _swap(text: str, old: str, new: str, every: bool = False) -> str:
@@ -85,6 +106,8 @@ def _swap(text: str, old: str, new: str, every: bool = False) -> str:
 
 def _no_substeps(t: str, marker: str) -> str:
     return _swap(t, marker, marker.replace("j <= k", "j <= 0"))
+
+
 
 
 #: body -> variant -> the source's text -> the variant's
@@ -108,29 +131,42 @@ EDITS = {
             t, WARP_ISSUE, ""), WARP_STAGE, ""), WARP_SUBSTEPS),
     },
 }
+#: the warp body whose v1 stages whole blocks: the same, and rows-only
+EDITS["warp-whole"] = dict(EDITS["warp"], **{
+    "rows-only": lambda t: _swap(_swap(t, WHOLE, ROWS), ROWS_GATE,
+                                 "  if (H != kPieces && lane < 8 * G) {\n")})
 
 
 def body_of(text: str) -> str:
-    return "warp" if "warp_kernel" in text else "cta"
+    if "warp_kernel" not in text:
+        return "cta"
+    return "warp-whole" if WHOLE in text else "warp"
 
 
-def takes_plan(text: str) -> bool:
-    """Whether the source's fused-k entries take (W, warps) after k."""
-    entry = re.search(r"int sq_stencil_step_fused_k\((.*?)\)", text, re.S)
-    return bool(entry) and "int warps" in entry.group(1)
+#: the entries that take a plan's W and warps (after k, or v1's and v2's
+#: rho) where the source has the body the plan picks
+PLANNED = ("sq_stencil_step_fused_k", "sq_stencil_step_fused_k_local",
+           "sq_stencil_step_blocks", "sq_stencil_step_strips")
+
+
+def takes_plan(text: str, entry: str) -> bool:
+    """Whether the source's entry takes the plan's (W, warps)."""
+    found = re.search(rf"int {entry}\((.*?)\)", text, re.S)
+    return bool(found) and "int warps" in found.group(1)
 
 
 def build_variants(build, checkouts):
-    """{(tag, variant): (library, ptxas summary, takes the plan)} for every
-    checkout."""
+    """{(tag, variant): (library, ptxas summary, {entry: whether it takes
+    the plan})} for every checkout."""
     OUT.mkdir(parents=True, exist_ok=True)
     sources = {}   # every edit first: a stale marker stops before any build
     for i, co in enumerate(checkouts):
         text = (co / CU).read_text()
         body = body_of(text)
+        takes = {e: takes_plan(text, e) for e in PLANNED}
         for name, edit in EDITS[body].items():
-            sources[(f"{i}:{body}", name)] = (f"{i}-{body}-{name}",
-                                              edit(text), takes_plan(text))
+            sources[(f"{i}:{body}", name)] = (
+                f"{i}-{body}-{name}", edit(text), takes)
     procs = {}
     for key, (stem, text, _) in sources.items():
         cu = OUT / f"{stem}.cu"
@@ -156,8 +192,8 @@ def ptxas(log: str) -> dict:
     import chip_smoke
     out = {}
     for e in chip_smoke.ptxas_summary(log):
-        if "warp_kernel" not in e["entry"] and \
-                "step_kernel" not in e["entry"]:
+        if not any(n in e["entry"] for n in ("warp_kernel", "step_kernel",
+                                             "gather_kernel")):
             continue
         text = " ".join(e["ptxas"])
         regs = re.search(r"Used (\d+) registers", text)
@@ -185,6 +221,7 @@ def main(argv) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import squeeze_stencil as sk
     from repro_torch.workloads import rules as R
+    from repro_torch.workloads.base import halo_needs
     if not torch.cuda.is_available():
         print("ab_fused: no CUDA device", file=sys.stderr)
         return 2
@@ -208,15 +245,17 @@ def main(argv) -> int:
     s5, halo, ex = dist.local_inputs(dist.from_dense(states["life"]), k)
 
     def call(lib, name, args, x, wl, pieces):
-        """One launch of entry ``name`` of ``lib``; (W, warps) follow k
-        where the library's entries take them."""
-        f, _, planned = lib
+        """One launch of entry ``name`` of ``lib``; the plan's parameters
+        it takes follow k (v1 and v2: rho)."""
+        f, _, takes = lib
         f = getattr(f, name)
         types = list(sk._SIGNATURES[name])
-        if planned:
-            plan = sk._fused_plan_for(lay, x, wl, k, pieces)
+        if takes[name]:
+            plan = sk._fused_plan_for(lay, x, wl, k, pieces) \
+                if name.startswith("sq_stencil_step_fused_k") \
+                else sk._step_plan_for(lay_of(x), x, wl, pieces)
             args = args + [plan.W, plan.warps]
-        else:   # an entry without the plan: no W, warps after k
+        else:   # an entry without the plan: no W, warps after k (or rho)
             del types[len(args):len(args) + 2]
         f.argtypes = types
         f.restype = ctypes.c_int
@@ -246,30 +285,100 @@ def main(argv) -> int:
             for wl in (R.LIFE, R.HEAT, R.GRAY_SCOTT)}
     rows["row6/life"] = (row6, s5, lambda: sk.stencil_step_fused_k_local_plain(
         lay, s5, halo, ex, R.LIFE, k=k))
-    print(json.dumps({"shapes": {n: list(x.shape) for n, (_, x, _) in
+    everyone = {key for key in libs if key[1] != "rows-only"}
+    rows = {n: (*v, everyone) for n, v in rows.items()}
+
+    # rows 1 and 2: v1 and v2 at k = 1 (rho = 4), v1 also at rho = 8
+    lay8 = shared_layout(frac, r, 3)
+    layouts = {lay.n_blocks: lay, lay8.n_blocks: lay8}
+
+    def lay_of(x):
+        return layouts[x.shape[-3]]
+    one_step = {key for key, lib in libs.items()
+                if lib[2]["sq_stencil_step_blocks"]}
+    shipped = {key for key in libs if key[1] == "shipped"}
+    s8 = make_engine("cuda-blocks", frac, r, 3, workload=R.LIFE,
+                     fusion_k=1).init_random(4)
+    needs = {wl.name: halo_needs(wl.weights2d) for wl in (R.LIFE, R.HEAT)}
+    strips = {n: sk.gather_halo_strips_plain(
+        lay, states[n][None, None], needs[n]) for n in needs}
+
+    def row1(wl, x):
+        ly = lay_of(x)
+
+        def launch(lib, out):
+            call(lib, "sq_stencil_step_blocks",
+                 [sk._rule(wl), x.data_ptr(), out.data_ptr(),
+                  ly.device_table("neighbor_table", "cuda").data_ptr(),
+                  ly.device_table("micro_mask", "cuda").data_ptr(),
+                  ly.n_blocks, 1, ly.rho], x, wl, False)
+        return (launch, x, lambda: sk.stencil_step_blocks_plain(ly, x, wl),
+                one_step | shipped)
+
+    def row2(wl):
+        x = states[wl.name]
+
+        def launch(lib, out):
+            call(lib, "sq_stencil_step_strips",
+                 [sk._rule(wl), x.data_ptr(), out.data_ptr(),
+                  strips[wl.name].data_ptr(),
+                  lay.device_table("micro_mask", "cuda").data_ptr(),
+                  lay.n_blocks, 1, lay.rho], x, wl, True)
+        return (launch, x, lambda: sk.stencil_step_strips_plain(lay, x, wl),
+                (one_step - {key for key in libs if key[1] == "rows-only"})
+                | shipped)
+
+    def gather(wl):
+        """The library's gather kernel, or the plain PyTorch gather."""
+        x = states[wl.name][None, None]
+        bits = sum(1 << d for d, i in enumerate(sk._NEED_OF_DIR)
+                   if needs[wl.name][i])
+
+        def launch(lib, out):
+            f = lib[0]
+            if not hasattr(f, "sq_gather_halo_strips"):
+                return sk.gather_halo_strips_plain(lay, x, needs[wl.name])
+            f = f.sq_gather_halo_strips
+            f.argtypes = sk._SIGNATURES["sq_gather_halo_strips"]
+            f.restype = ctypes.c_int
+            rc = f(x.data_ptr(), out.data_ptr(), nbr.data_ptr(),
+                   lay.n_blocks, 1, lay.rho, x.element_size(), bits, stream)
+            if rc:
+                raise RuntimeError(f"gather: launch failed with error {rc}")
+        return launch, strips[wl.name], lambda: strips[wl.name], shipped
+    for wl in (R.LIFE, R.HEAT):
+        rows[f"row1/{wl.name}"] = row1(wl, states[wl.name])
+        rows[f"row2/{wl.name}"] = row2(wl)
+    rows["row1/life-rho8"] = row1(R.LIFE, s8)
+    rows["row2/gather"] = gather(R.LIFE)
+    rows["row2/gather-heat"] = gather(R.HEAT)
+    print(json.dumps({"shapes": {n: list(row[1].shape) for n, row in
                                  rows.items()}, "k": k}), flush=True)
-    for rname, (launch, x, plain) in rows.items():
+    for rname, (launch, x, plain, who) in rows.items():
         want = plain()
         for (tag, name), lib in libs.items():
-            if name != "shipped":
+            if name not in ("shipped", "rows-only") or (tag, name) not in who:
                 continue
             out = torch.empty_like(x)
-            launch(lib, out)
+            got = launch(lib, out)
+            out = out if got is None else got
             torch.cuda.synchronize()
             err = float((out.double() - want.double()).abs().max())
-            print(json.dumps({"check": rname, "build": tag,
+            print(json.dumps({"check": rname, "build": tag, "variant": name,
                               "max_abs_err": err}), flush=True)
             if err:
                 return 1
         del want
-    times = {key: {n: [] for n in rows} for key in libs}
+    times = {key: {n: [] for n, row in rows.items() if key in row[3]}
+             for key in libs}
     order = list(libs)
-    outs = {n: torch.empty_like(x) for n, (_, x, _) in rows.items()}
+    outs = {n: torch.empty_like(x) for n, (_, x, _, _) in rows.items()}
     for _ in range(rounds):
         for key in order + order[::-1]:
-            for rname, (launch, _, _) in rows.items():
-                times[key][rname].append(cs.cuda_ms(
-                    torch, lambda: launch(libs[key], outs[rname]), 10))
+            for rname, (launch, _, _, who) in rows.items():
+                if key in who:
+                    times[key][rname].append(cs.cuda_ms(
+                        torch, lambda: launch(libs[key], outs[rname]), 10))
     for (tag, name), t in times.items():
         print(json.dumps({"build": tag, "variant": name, "ms": t}),
               flush=True)
