@@ -17,27 +17,29 @@ jax or the reference package). Phases, each printing one JSON line:
      16-byte aligned) at about 10^6 compact cells or more, <= 8 steps each;
      CA bit-exact, floats to rtol=1e-5 and atol=1e-5 * min(1, max|plain|),
      so a field that has decayed is still compared at its own scale, v1,
-     v2, the gather and v4 bit for bit for every rule; then v4 at
+     v2, the gather, v3 (one simulation and B=3) and v4 bit for bit for
+     every rule; then v4 at
      every body ``fused_plan`` picks (``FUSED_CHECK``: windows of W = 16 and
      32 lanes at rho = 8, 9 and 27, and the CTA body ``[wide]`` at rho = 27,
      k = 3 and 27), one simulation and B=3, bit for bit, with the launches
-     by body; then v1 and v2 at every body ``step_plan`` picks (the warp
-     body at W = 16 and 32 on ``FUSED_CHECK``'s layouts, and the CTA body,
-     ``[wide]``, for two workloads whose ring weights are not their rule's
-     own), 2 steps, bit for bit, with the launches by body (every class
-     reached); then nu and lambda, bit-exact, on all five
-     registry fractals at r=3 and at the largest r whose coordinates fit
-     int32, 10^6 coordinates each (nu's past both edges of the grid,
-     lambda's negative and past the compact edges);
+     by body; then v1 and v2 at every body ``step_plan`` picks and v3 at
+     every body ``fused_plan`` picks at k = 1 (the warp body at W = 16 and
+     32 on ``FUSED_CHECK``'s layouts, and the CTA body, ``[wide]``, for two
+     workloads whose ring weights are not their rule's own), 2 steps, bit
+     for bit, with the launches by body (every class reached by each); then
+     nu and lambda, bit-exact, on all five registry fractals at r in {0, 1,
+     2, 3, 2L + 1 (nu's top group short), the largest r whose coordinates
+     fit int32}, 10^6 + 1 coordinates each (nu's past both edges of the
+     grid, lambda's negative and past the compact edges);
   4. the main path at the paper's size (sierpinski r=16, 3^16 cells), each
      timed run after one untimed warm-up run: ``BatchedRunner.run`` with
      cuda-mxu (LIFE, B=4, 64 steps) and (HEAT, B=2, 64 steps),
      ``make_engine('cuda-fused').run`` with LIFE and GRAY_SCOTT for 63 steps
      (the v3 remainder runs), ``make_engine('cuda')`` (= cuda-strips, v4
-     plus one v2 remainder) with LIFE for 63 steps, cuda-strips and
-     cuda-blocks with fusion_k=1 (every step v2, and its gather, or v1; no
-     ``[wide]`` launch) with LIFE and HEAT
-     for 16 steps, each held against the plain ``block`` engine on the
+     plus one v2 remainder) with LIFE for 63 steps, cuda-strips,
+     cuda-blocks and cuda-fused with fusion_k=1 (every step v2, and its
+     gather, v1 or v3; no ``[wide]`` launch) with LIFE and HEAT for 16
+     steps, each held against the plain ``block`` engine on the
      card; and the ``cell`` engine (index tensors from one lambda and 8 nu
      launches) with LIFE for 4 steps, held against cuda-fused through the
      expanded grid; with the kernel launch counts of the whole phase;
@@ -51,9 +53,12 @@ jax or the reference package). Phases, each printing one JSON line:
      plain version), each with its design's bound (``bound_design_ms``: v1
      nine whole blocks a window from device memory, v2 the gather's bytes
      and the step's) and the registers of each instance of its warp body,
-     CTA body and gather; for the maps over all 3^16 compact
-     cells, also the float32 product form (``*_map_matmul``, Fig. 14's
-     tensor-core form against the scalar kernels); then a ``kernels`` line:
+     CTA body and gather (v3: its instances compiled at k = 1); for the
+     maps over all 3^16 compact cells, also the float32 product form
+     (``*_map_matmul``, Fig. 14's tensor-core form against the scalar
+     kernels), nu with its plan (groups of L levels), the operations of its
+     design (``nu_ops``) and the registers of each of its instances; then
+     a ``kernels`` line:
      each kernel's launches on the main path, largest error against its
      plain version, time, plain time and bound; v5's row (and kernel 7's,
      phase 13) also with the operation bound of its padded TF32 products
@@ -337,17 +342,19 @@ _HALO_KEYS = {"0": "in-kernel", "1": "blocks", "2": "strips", "3": "pieces"}
 
 
 def fused_registers(log: str) -> dict:
-    """{"in-kernel" | "blocks" | "strips" | "pieces": {"<rule>/<body>":
-    "registers/spill bytes"}, "gather": {...}}: the warp body's instances
-    of v4 (row 4), v1 (row 1), v2 (row 2) and kernel 6 (row 6) by W (8, 16,
-    32), the CTA body (``step_kernel``, their [wide] instance, which v3
-    shares for kInKernel), and v2's strip gather (``gather_kernel``:
+    """{"in-kernel" | "in-kernel-k1" | "blocks" | "strips" | "pieces":
+    {"<rule>/<body>": "registers/spill bytes"}, "gather": {...}}: the warp
+    body's instances of v4 (row 4; "in-kernel-k1" its instance compiled at
+    k = 1, v3's, row 3), v1 (row 1), v2 (row 2) and kernel 6 (row 6) by W
+    (8, 16, 32), the CTA body (``step_kernel``, their [wide] instance, which
+    v3 shares for kInKernel), and v2's strip gather (``gather_kernel``:
     'u8/R4' the whole-block body, 'u8/R0' the general one) from nvcc's
     log."""
     out = {key: {} for key in _HALO_KEYS.values()}
+    out["in-kernel-k1"] = {}
     out["gather"] = {}
     for e in ptxas_summary(log):
-        m = re.search(r"warp_kernelINS_\d+(\w+?)ELi(\d)ELi(\d+)E",
+        m = re.search(r"warp_kernelINS_\d+(\w+?)ELi(\d)ELi(\d+)ELi(\d)E",
                       e["entry"])
         c = re.search(r"step_kernelINS_\d+(\w+?)ELi([0-3])EE", e["entry"])
         g = re.search(r"gather_kernelI([hj])Li(\d+)E", e["entry"])
@@ -364,8 +371,41 @@ def fused_registers(log: str) -> dict:
             continue
         rule, halo = (m or c).group(1), (m or c).group(2)
         body = f"W{m.group(3)}" if m else "wide"
-        out[_HALO_KEYS[halo]][f"{rule}/{body}"] = val
+        key = _HALO_KEYS[halo]
+        if m and halo == "0" and m.group(4) == "1":
+            key += "-k1"
+        out[key][f"{rule}/{body}"] = val
     return out
+
+
+def nu_registers(log: str) -> dict:
+    """{"s<S>/L<L>/G<groups>": "registers/spill bytes"}: the nu kernel's
+    instances by s, group length and group count ('s0/L2/G-1' the runtime
+    path) from nvcc's log."""
+    out = {}
+    for e in ptxas_summary(log):
+        nu = re.search(r"nu_kernelILi(\d+)ELi(\d+)ELi(n?\d+)E", e["entry"])
+        if not nu:
+            continue
+        text = " ".join(e["ptxas"])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        groups = nu.group(3).replace("n", "-")
+        out[f"s{nu.group(1)}/L{nu.group(2)}/G{groups}"] = (
+            f"{regs.group(1) if regs else '?'}/"
+            f"{spill.group(1) if spill else 0}")
+    return out
+
+
+def nu_ops(plan, count: int) -> int:
+    """Integer operations of the nu kernel's design for ``count``
+    coordinates (``nu_map.nu_plan``'s groups): 9 a coordinate for the
+    bounds, the clip and the valid byte; 6 a group (the lookup, the hole
+    bits, two field extractions, two multiply-adds); 5 a lower group's
+    digits (two remainders, two quotients, the index) and 2 the top
+    group's index."""
+    g = plan.groups
+    return count * (9 + 6 * g + 5 * max(g - 1, 0) + 2 * (g > 0))
 
 
 def stencil3d_registers(log: str) -> dict:
@@ -556,9 +596,11 @@ def phase_kernels_vs_plain(torch, chk, F, R, BlockLayout, sk, halo_needs):
                     sk._gather_halo_strips(lay, x5, needs),
                     sk.gather_halo_strips_plain(lay, x5, needs), True)
             single = {n: v for n, v in sk.LAUNCHES.items() if v}
-            run("v3", tag(lambda s: sk.stencil_step_fused(lay, s, wl),
-                          "stencil_step_fused"),
-                lambda s: sk.stencil_step_fused_plain(lay, s, wl), x[0], 8)
+            for label, state in (("v3", x[0]), ("v3_b3", x)):   # bit for bit
+                run(label, tag(lambda s: sk.stencil_step_fused(lay, s, wl),
+                               "stencil_step_fused"),
+                    lambda s: sk.stencil_step_fused_plain(lay, s, wl), state,
+                    8, bit=True)
             for k in sorted({1, 2, lay.rho}):   # bit for bit
                 run(f"v4_k{k}",
                     tag(lambda s, k=k: sk.stencil_step_fused_k(
@@ -668,13 +710,18 @@ def _other_weights(R):
 
 
 def phase_single_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk):
-    """v1 and v2 at the bodies ``step_plan`` picks beyond phase 3's W = 8
-    (``FUSED_CHECK``'s layouts: W = 16 at rho = 8 and 9, W = 32 at rho =
-    27), all four rules, and at the CTA body ([wide]) with two workloads of
-    other ring weights on sierpinski r=13 m=2; one simulation and B=3, 2
-    steps, bit for bit against the plain version. Emits the launches by
-    body; every class (W = 8, 16, 32 and [wide]) is reached."""
-    seen = {8}   # phase 3's layouts (rho = 3 and 4)
+    """v1 and v2 at the bodies ``step_plan`` picks, and v3 at those
+    ``fused_plan`` picks at k = 1, beyond phase 3's W = 8 (``FUSED_CHECK``'s
+    layouts: W = 16 at rho = 8 and 9, W = 32 at rho = 27), all four rules,
+    and at the CTA body ([wide]) with two workloads of other ring weights
+    on sierpinski r=13 m=2; one simulation and B=3, 2 steps, bit for bit
+    against the plain version. Emits the launches by body; every class (W
+    = 8, 16, 32 and [wide]) is reached by each."""
+    singles = (("v1", sk.stencil_step_blocks, sk.stencil_step_blocks_plain),
+               ("v2", sk.stencil_step_strips, sk.stencil_step_strips_plain),
+               ("v3", sk.stencil_step_fused, sk.stencil_step_fused_plain))
+    # phase 3's layouts (rho = 3 and 4) reach W = 8
+    seen = {v: {8} for v, _, _ in singles}
     cases = [(name, r, m, (R.LIFE, R.HIGHLIFE, R.HEAT, R.GRAY_SCOTT))
              for name, r, m, _ in FUSED_CHECK]
     cases.append(("sierpinski", 13, 2, _other_weights(R)))
@@ -691,14 +738,11 @@ def phase_single_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk):
                  ).contiguous()
             errs, bodies = {}, {}
             sk.reset_launches()
-            for v, fn, plain in (
-                    ("v1", sk.stencil_step_blocks,
-                     sk.stencil_step_blocks_plain),
-                    ("v2", sk.stencil_step_strips,
-                     sk.stencil_step_strips_plain)):
-                plan = sk._step_plan_for(lay, x, wl, v == "v2")
+            for v, fn, plain in singles:
+                plan = sk._fused_plan_for(lay, x, wl, 1, False) \
+                    if v == "v3" else sk._step_plan_for(lay, x, wl, v == "v2")
                 bodies[v] = plan.body or f"W{plan.W}"
-                seen.add(plan.W)
+                seen[v].add(plan.W)
                 for label, s in (("b1", x[0]), ("b3", x)):
                     got, want = s, s
                     for _ in range(2):
@@ -713,13 +757,16 @@ def phase_single_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk):
                  max_err=errs, launches={
                      n: v for n, v in sk.LAUNCHES.items() if v},
                  seconds=time.perf_counter() - t0)
-    if seen != {0, 8, 16, 32}:
-        raise AssertionError(f"v1/v2 reached W {sorted(seen)}, not every "
-                             "plan class")
+    for v, ws in seen.items():
+        if ws != {0, 8, 16, 32}:
+            raise AssertionError(f"{v} reached W {sorted(ws)}, not every "
+                                 "plan class")
 
 
-def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_000):
-    """nu and lambda against their plain (int64) versions, bit-exact."""
+def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_001):
+    """nu and lambda against their plain (int64) versions, bit-exact: r in
+    {0, 1, 2, 3, an r whose top nu group is short, the largest r}, n = 4 *
+    250000 + 1 coordinates (nu's scalar tail)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
 
@@ -728,7 +775,8 @@ def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_000):
         return torch.randint(lo, hi, (n,), generator=g, device="cuda",
                              dtype=torch.int64).to(torch.int32)
     for frac in F.REGISTRY.values():
-        for r in (3, nm.max_int32_level(frac)):
+        short = 2 * nm.group_levels(frac.s) + 1
+        for r in sorted({0, 1, 2, 3, short, nm.max_int32_level(frac)}):
             t0 = time.perf_counter()
             side = frac.side(r)
             rows, cols = frac.compact_dims(r)
@@ -1765,6 +1813,7 @@ def main() -> int:
                   for n, v in built.items()})
     mxu_regs = mxu_registers(built["squeeze_stencil"]["log"])
     fused_regs = fused_registers(built["squeeze_stencil"]["log"])
+    nu_regs = nu_registers(built["squeeze_maps"]["log"])
     regs3 = stencil3d_registers(built["squeeze_stencil3d"]["log"])
 
     chk = Checker(torch)
@@ -1795,7 +1844,7 @@ def main() -> int:
     cuda_init = cuda_eng.init_random(7)
     singles = {(kind, wl.name): make_engine(kind, frac, r, m, workload=wl,
                                             fusion_k=1)
-               for kind in ("cuda-strips", "cuda-blocks")
+               for kind in ("cuda-strips", "cuda-blocks", "cuda-fused")
                for wl in (R.LIFE, R.HEAT)}
     single_init = {n: singles[("cuda-strips", n)].init_random(8)
                    for n in ("life", "heat")}
@@ -1849,7 +1898,7 @@ def main() -> int:
     expect = dict.fromkeys(launches, 0)   # every other kernel: none
     expect.update({"stencil_step_mxu_batched": 64 // k * 2,
                    "stencil_step_fused_k": 63 // k * 3,
-                   "stencil_step_fused": 63 % k * 2,
+                   "stencil_step_fused": 63 % k * 2 + 16 * 2,
                    "stencil_step_strips": 63 % k + 16 * 2,
                    "gather_halo_strips": 63 % k + 16 * 2,
                    "stencil_step_blocks": 16 * 2,
@@ -1950,10 +1999,9 @@ def main() -> int:
     # each input read and each output written once. A stencil step does
     # about 12 operations (Moore aggregate and rule) per cell and substep;
     # v5's halo ring, padding slots and zero band entries are not counted.
-    # The maps run r digit steps per coordinate: nu 7 integer operations a
-    # level (two division/modulus pairs, the code lookup, the membership
-    # test and the multiply-add), lambda 6 (one pair, two lookups, two
-    # multiply-adds).
+    # lambda runs r digit steps per coordinate, 6 integer operations a level
+    # (one division/modulus pair, two lookups, two multiply-adds); nu a
+    # lookup a group of levels (``nu_ops``).
     s1 = mxu.init_random(3)
     sb = torch.stack([mxu.init_random(i) for i in range(4)])
     o1, ob = torch.empty_like(s1), torch.empty_like(sb)
@@ -2013,7 +2061,8 @@ def main() -> int:
         "nu_map_tc": dict(
             fn=lambda: nm.nu_map_tc(frac, r, ex16, ey16),
             plain=lambda: nm.nu_map_tc_plain(frac, r, ex16, ey16),
-            shape=ex16.shape, r=r, bytes=17 * n16, ops=7 * r * n16,
+            shape=ex16.shape, r=r, bytes=17 * n16,
+            ops=nu_ops(nm.nu_plan(frac, r), n16),
             extra=dict(matmul=lambda: M.nu_map_matmul(frac, r, ex16,
                                                       ey16))),
         "lambda_map_tc": dict(
@@ -2068,6 +2117,14 @@ def main() -> int:
                 registers=mxu_regs["in-kernel"])
         if kname == "stencil_step_fused_k":
             rows[-1].update(registers=fused_regs["in-kernel"])
+        if kname == "stencil_step_fused":   # the k = 1 instance, CTA body
+            rows[-1].update(registers=dict(
+                fused_regs["in-kernel-k1"], **{
+                    n: v for n, v in fused_regs["in-kernel"].items()
+                    if n.endswith("/wide")}))
+        if kname == "nu_map_tc":
+            rows[-1].update(registers=nu_regs,
+                            plan=nm.nu_plan(frac, r)._asdict())
         if "design_bytes" in spec:   # rows 1 and 2
             rows[-1].update(
                 bound_design_ms=1e3 * spec["design_bytes"] / HBM_BYTES_PER_S,

@@ -129,9 +129,10 @@ def _nu_digits(frac: NBBFractal, r: int, ex, ey):
     return codes
 
 
-def _nu_from_digits(frac: NBBFractal, codes):
-    cx = codes[0] * 0
-    cy = codes[0] * 0
+def _nu_from_digits(frac: NBBFractal, codes, like):
+    """int32 (cx, cy) from the codes, shaped like ``like`` (r = 0, no
+    codes: zeros)."""
+    cx = cy = _as_int(like) * 0
     for mu, code in enumerate(codes, start=1):
         delta = frac.k ** ((mu - 1) // 2)
         code = code * (code >= 0)
@@ -152,7 +153,7 @@ def _membership(frac: NBBFractal, r: int, ex, ey, codes):
 
 def nu_map(frac: NBBFractal, r: int, ex, ey):
     """Vectorised nu(w): int32 (cx, cy); hole codes clamp to 0."""
-    return _nu_from_digits(frac, _nu_digits(frac, r, ex, ey))
+    return _nu_from_digits(frac, _nu_digits(frac, r, ex, ey), ex)
 
 
 def is_fractal(frac: NBBFractal, r: int, ex, ey):
@@ -166,7 +167,7 @@ def nu_with_membership(frac: NBBFractal, r: int, ex, ey):
     """Fused nu(w) + membership from one digit pass: (cx, cy, valid)."""
     n = frac.s ** r
     codes = _nu_digits(frac, r, _clip(ex, 0, n - 1), _clip(ey, 0, n - 1))
-    cx, cy = _nu_from_digits(frac, codes)
+    cx, cy = _nu_from_digits(frac, codes, ex)
     return cx, cy, _membership(frac, r, ex, ey, codes)
 
 

@@ -17,14 +17,46 @@
 //
 // The TPU kernels build a (TILE, r) code matrix on the vector unit and sum
 // codes x weights in one float32 product on the MXU, exact only below 2^24.
-// Here one thread per coordinate runs the digit loop and sums in integers,
-// exact for every level the wrappers accept (s^r < 2^31, compact sides
-// below 2^31); the code tables (H_nu (s, s), H_lambda (k, 2)) sit in shared
-// memory. What bounds them on this card: each coordinate reads 8 bytes and
-// writes 8 (lambda) or 9 (nu), against r division/modulus pairs. The
-// divisor (s for nu, k for lambda) is a template constant for the registry's
-// fractals, so a pair is a multiply-high and a few integer operations and
-// the kernels are bound by bytes; another divisor takes the runtime path.
+// Here both sum in integers, exact for every level the wrappers accept (s^r
+// < 2^31, compact sides below 2^31). Each coordinate reads 8 bytes and
+// writes 8 (lambda) or 9 (nu), so bytes are their bound.
+//
+// lambda (lambda_kernel): one thread per coordinate runs the digit loop,
+// H_lambda (k, 2) in shared memory; the divisor k is a template constant
+// for the registry's fractals (a division/modulus pair is a multiply-high
+// and a few integer operations), another k takes the runtime path.
+//
+// nu (nu_kernel): what costs is taking the coordinates apart into digits,
+// not the sum: a thread per coordinate running the level loop (a division
+// and modulus pair of each coordinate, a lookup, a select and two 64-bit
+// multiply-adds a level) took some 300 instructions a coordinate at r =
+// 16 and was bound by issue at three times its bytes. So one lookup takes
+// L levels at once (L = kLevels2 = 4 for s = 2, kLevels3 = 2 for s = 3 and
+// any other s):
+//   * a table over L consecutive levels, built on the host from H_nu
+//     (nu_map.nu_group_table) and indexed by (ux mod s^L) + s^L (uy mod
+//     s^L), holds in one int32 the group's partial cx and cy (bits 0-14 and
+//     16-30) and a hole bit (15) set where any of its levels is a hole; L
+//     is even, so every group starts at an odd level and group g adds both
+//     partials times k^(gL/2);
+//   * the top group, over the last r - (G - 1) L levels, reads what is left
+//     of the coordinates in a table of its own over those levels (padding
+//     them with digit 0 would be wrong: (0, 0) is a hole of some fractals);
+//     r = 0 has no group, and valid is then "in bounds";
+//   * the group count G = ceil(r / L) is a template constant for s = 2 and
+//     3 (the loop unrolled, the weights k^(gL/2) hoisted out of the
+//     coordinate loop; the weight past the top group is never computed),
+//     and the sums stay in int32;
+//   * each thread takes four coordinates a turn: 16-byte loads of ex and
+//     ey, 16-byte stores of cx and cy and one 4-byte store of the four
+//     valid bytes (a scalar path in the same kernel for a tail, and for
+//     pointers that are not 16-byte aligned), in a persistent grid of as
+//     many CTAs as are resident.
+// At r = 16 and s = 2 that is four lookups for sixteen levels. The paper's
+// tensor-core form (an MMA of the code matrix and the weights) is not
+// used: summing r / L small integers costs less than staging a code matrix
+// into mma fragments, and what it would save is the part that costs
+// least.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,50 +64,104 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxCtas = 132 * 16;  // grid-stride: 16 CTAs per SM
+constexpr int kLevels2 = 4;   // levels a nu lookup covers for s = 2
+constexpr int kLevels3 = 2;   // and for s = 3 and any other s
+constexpr int kHole = 1 << 15;            // a nu table entry's hole bit
+constexpr size_t kMaxSmem = 232448;       // shared bytes one CTA can use
 
 unsigned grid_for(long long count) {
   long long ctas = (count + kThreads - 1) / kThreads;
   return (unsigned)(ctas < kMaxCtas ? ctas : kMaxCtas);
 }
 
-// S > 0: s is the constant S; S == 0: s_rt.
-template <int S>
+__host__ __device__ constexpr long long ipow(long long b, int e) {
+  return e > 0 ? b * ipow(b, e - 1) : 1;
+}
+
+// Groups of L levels the largest r of base s needs (s^r < 2^31).
+constexpr int max_groups(int s, int L) {
+  int r = 0;
+  while (ipow(s, r + 1) < (1LL << 31)) ++r;
+  return (r + L - 1) / L;
+}
+
+// What a nu launch needs besides the pointers (sq_nu_map fills it in).
+struct NuGeom {
+  int n;           // s^r, the grid's side
+  int kl;          // k^(L/2): one group's weight over the one below
+  int groups;      // G = ceil(r / L) (read where it is not a template)
+  int sl;          // s^L (read where s is not a template)
+  int top_off;     // where the top group's table starts
+  int top_stride;  // s^R: the top table's row (R levels in the top group)
+  int entries;     // entries of the tables
+  int vec;         // 1: the coordinates are read and written four at once
+};
+
+// nu and membership of one coordinate (x, y) from the tables in shared
+// memory: cx, cy into ox, oy; returns 1 for a member.
+template <int S, int L, int NG>
+__device__ __forceinline__ unsigned nu_one(int x, int y, const NuGeom& g,
+                                           const int* tab, int& ox,
+                                           int& oy) {
+  const bool in = (unsigned)x < (unsigned)g.n && (unsigned)y < (unsigned)g.n;
+  unsigned ux = (unsigned)min(max(x, 0), g.n - 1);
+  unsigned uy = (unsigned)min(max(y, 0), g.n - 1);
+  const unsigned sl = S > 0 ? (unsigned)ipow(S, L) : (unsigned)g.sl;
+  const int groups = NG >= 0 ? NG : g.groups;
+  int ax = 0, ay = 0, w = 1, bad = 0;
+#pragma unroll
+  for (int i = 0; i < groups; ++i) {
+    unsigned at;
+    if (i < groups - 1) {
+      at = ux % sl + sl * (uy % sl);
+      ux /= sl;
+      uy /= sl;
+    } else {   // the top group: what is left of the coordinates
+      at = (unsigned)g.top_off + ux + (unsigned)g.top_stride * uy;
+    }
+    const int e = tab[at];
+    bad |= e;
+    ax += (e & (kHole - 1)) * w;
+    ay += (e >> 16) * w;
+    if (i < groups - 1) w *= g.kl;
+  }
+  ox = ax;
+  oy = ay;
+  return in && !(bad & kHole) ? 1u : 0u;
+}
+
+// S > 0: s is the constant S and NG the group count; S == 0: s, L and the
+// groups at run time (NG = -1).
+template <int S, int L, int NG>
 __global__ void __launch_bounds__(kThreads)
 nu_kernel(const int* __restrict__ ex, const int* __restrict__ ey,
           int* __restrict__ cx, int* __restrict__ cy,
-          uint8_t* __restrict__ valid, long long count, int r, int s_rt,
-          int k, int n, const int* __restrict__ h_nu) {
-  extern __shared__ int hn[];  // (s, s) indexed [y][x]
-  const unsigned s = S > 0 ? (unsigned)S : (unsigned)s_rt;
-  for (int t = threadIdx.x; t < (int)(s * s); t += blockDim.x)
-    hn[t] = h_nu[t];
+          uint8_t* __restrict__ valid, long long count, NuGeom g,
+          const int* __restrict__ table) {
+  extern __shared__ int tab[];
+  for (int t = threadIdx.x; t < g.entries; t += blockDim.x) tab[t] = table[t];
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < count; i += stride) {
-    const int x = ex[i], y = ey[i];
-    bool ok = x >= 0 && x < n && y >= 0 && y < n;
-    unsigned ux = (unsigned)min(max(x, 0), n - 1);
-    unsigned uy = (unsigned)min(max(y, 0), n - 1);
-    long long ax = 0, ay = 0, wx = 1, wy = 1;
-    for (int mu = 1; mu <= r; ++mu) {
-      const unsigned tx = ux % s, ty = uy % s;
-      ux /= s;
-      uy /= s;
-      int code = hn[ty * s + tx];
-      ok = ok && code >= 0;
-      code = max(code, 0);
-      if (mu & 1) {
-        ax += code * wx;
-        wx *= k;
-      } else {
-        ay += code * wy;
-        wy *= k;
-      }
-    }
-    cx[i] = (int)ax;
-    cy[i] = (int)ay;
-    valid[i] = ok;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long quads = g.vec ? count / 4 : 0;
+  for (long long i = first; i < quads; i += stride) {
+    const int4 x = reinterpret_cast<const int4*>(ex)[i];
+    const int4 y = reinterpret_cast<const int4*>(ey)[i];
+    int4 ox, oy;
+    unsigned v = nu_one<S, L, NG>(x.x, y.x, g, tab, ox.x, oy.x);
+    v |= nu_one<S, L, NG>(x.y, y.y, g, tab, ox.y, oy.y) << 8;
+    v |= nu_one<S, L, NG>(x.z, y.z, g, tab, ox.z, oy.z) << 16;
+    v |= nu_one<S, L, NG>(x.w, y.w, g, tab, ox.w, oy.w) << 24;
+    reinterpret_cast<int4*>(cx)[i] = ox;
+    reinterpret_cast<int4*>(cy)[i] = oy;
+    reinterpret_cast<unsigned*>(valid)[i] = v;
+  }
+  for (long long i = 4 * quads + first; i < count; i += stride) {
+    int ox, oy;
+    const unsigned v = nu_one<S, L, NG>(ex[i], ey[i], g, tab, ox, oy);
+    cx[i] = ox;
+    cy[i] = oy;
+    valid[i] = (uint8_t)v;
   }
 }
 
@@ -118,13 +204,47 @@ lambda_kernel(const int* __restrict__ cx, const int* __restrict__ cy,
   }
 }
 
-template <int S>
-int launch_nu(const int* ex, const int* ey, int* cx, int* cy, uint8_t* valid,
-              long long count, int r, int s, int k, int n, const int* h_nu,
-              cudaStream_t stream) {
-  nu_kernel<S><<<grid_for(count), kThreads, s * s * sizeof(int), stream>>>(
-      ex, ey, cx, cy, valid, count, r, s, k, n, h_nu);
+template <int S, int L, int NG>
+int launch_nu_kernel(const int* ex, const int* ey, int* cx, int* cy,
+                     uint8_t* valid, long long count, const NuGeom& g,
+                     const int* table, cudaStream_t stream) {
+  auto kernel = nu_kernel<S, L, NG>;
+  const size_t smem = (size_t)g.entries * sizeof(int);
+  int rc = 0, dev = 0, sms = 0, per_sm = 0;
+  if (smem > 48 * 1024 &&
+      (rc = (int)cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return rc;
+  if ((rc = (int)cudaGetDevice(&dev)) ||
+      (rc = (int)cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev)) ||
+      (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)))
+    return rc;
+  // a thread a quad of coordinates (or a coordinate), as many CTAs as are
+  // resident at most
+  const long long items = g.vec ? count / 4 + count % 4 : count;
+  long long ctas = (items + kThreads - 1) / kThreads;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (ctas > resident) ctas = resident;
+  kernel<<<(unsigned)ctas, kThreads, smem, stream>>>(ex, ey, cx, cy, valid,
+                                                     count, g, table);
   return (int)cudaGetLastError();
+}
+
+// The instance of s = S compiled for `groups` groups.
+template <int S, int L, int NG>
+int launch_nu_groups(const int* ex, const int* ey, int* cx, int* cy,
+                     uint8_t* valid, long long count, const NuGeom& g,
+                     const int* table, cudaStream_t stream) {
+  if (g.groups == NG)
+    return launch_nu_kernel<S, L, NG>(ex, ey, cx, cy, valid, count, g, table,
+                                      stream);
+  if constexpr (NG < max_groups(S, L))
+    return launch_nu_groups<S, L, NG + 1>(ex, ey, cx, cy, valid, count, g,
+                                          table, stream);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 template <int K>
@@ -140,21 +260,47 @@ int launch_lambda(const int* cx, const int* cy, int* ex, int* ey,
 
 extern "C" {
 
-// nu(w) over `count` int32 coordinates; n = s^r < 2^31; h_nu (s, s) int32
-// on the card. Writes int32 cx, cy and uint8 valid.
+// nu(w) over `count` int32 coordinates, s^r < 2^31, with the tables of
+// nu_map.nu_tables on the card: `entries` int32, s^(2L) for a group of L =
+// `levels` levels (kLevels2 for s = 2, kLevels3 otherwise), then, where the
+// top group has R < L levels, s^(2R) for it. Writes int32 cx, cy and uint8
+// valid.
 int sq_nu_map(const int* ex, const int* ey, int* cx, int* cy, uint8_t* valid,
-              long long count, int r, int s, int k, int n, const int* h_nu,
-              void* stream) {
-  if (count < 1 || r < 0 || s < 2 || k < 1)
+              long long count, int r, int s, int k, int levels,
+              const int* table, int entries, void* stream) {
+  if (count < 1 || r < 0 || s < 2 || k < 1 ||
+      levels != (s == 2 ? kLevels2 : kLevels3))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long n = 1;
+  for (int mu = 0; mu < r && n < (1LL << 31); ++mu) n *= s;
+  if (n >= (1LL << 31) || s >= (1 << 15)) return (int)cudaErrorInvalidValue;
+  const long long sl = ipow(s, levels);   // s^L < 2^30 where a table fits
+  const int groups = (r + levels - 1) / levels;
+  const int top = groups > 0 ? r - (groups - 1) * levels : 0;
+  const long long st = ipow(s, top), kl = ipow(k, levels / 2);
+  const long long want =
+      sl * sl + (groups > 0 && top < levels ? st * st : 0);
+  if (want != entries || (size_t)want * sizeof(int) > kMaxSmem ||
+      (groups > 1 && kl >= (1LL << 31)))
+    return (int)cudaErrorInvalidValue;
+  NuGeom g;
+  g.n = (int)n;
+  g.kl = groups > 1 ? (int)kl : 1;
+  g.groups = groups;
+  g.sl = (int)sl;
+  g.top_off = top < levels ? (int)(sl * sl) : 0;
+  g.top_stride = (int)st;
+  g.entries = entries;
+  g.vec = (((uintptr_t)ex | (uintptr_t)ey | (uintptr_t)cx | (uintptr_t)cy) &
+           15) == 0 && ((uintptr_t)valid & 3) == 0;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (s) {
-    case 2: return launch_nu<2>(ex, ey, cx, cy, valid, count, r, s, k, n,
-                                h_nu, st);
-    case 3: return launch_nu<3>(ex, ey, cx, cy, valid, count, r, s, k, n,
-                                h_nu, st);
-    default: return launch_nu<0>(ex, ey, cx, cy, valid, count, r, s, k, n,
-                                 h_nu, st);
+    case 2: return launch_nu_groups<2, kLevels2, 0>(ex, ey, cx, cy, valid,
+                                                    count, g, table, cs);
+    case 3: return launch_nu_groups<3, kLevels3, 0>(ex, ey, cx, cy, valid,
+                                                    count, g, table, cs);
+    default: return launch_nu_kernel<0, kLevels3, -1>(ex, ey, cx, cy, valid,
+                                                      count, g, table, cs);
   }
 }
 

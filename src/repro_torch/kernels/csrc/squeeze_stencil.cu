@@ -27,20 +27,20 @@
 // substeps run on chip and its center written once, so the bytes per
 // simulated step fall by ~k.
 //
-// The CTA body (step_kernel: v3, and v1, v2, v4 and kernel 6 for windows
-// over 32 cells or ring weights that are not their rule's, their [wide]
-// instance): one CTA of 256 threads stages G compact
-// blocks as (rho+2k)^2 windows in shared memory and runs the k substeps
-// between two shared buffers, its threads striding over the live cells of
-// each substep, the phases joined by block-wide barriers. Taken apart on
-// the card (tools/ab_fused.py) it spends v4's time on index arithmetic per
-// cell (divisions by runtime w, span and area, region() per cell),
-// one-byte staging loads and the barriers, some 30x over its bytes.
+// The CTA body (step_kernel: v1-v4 and kernel 6 for windows over 32 cells
+// or ring weights that are not their rule's, their [wide] instance): one
+// CTA of 256 threads stages G compact blocks as (rho+2k)^2 windows in
+// shared memory and runs the k substeps between two shared buffers, its
+// threads striding over the live cells of each substep, the phases joined
+// by block-wide barriers. Taken apart on the card (tools/ab_fused.py) it
+// spends v4's time on index arithmetic per cell (divisions by runtime w,
+// span and area, region() per cell), one-byte staging loads and the
+// barriers, some 30x over its bytes.
 //
 // The warp body (warp_kernel: v4 and kernel 6 for windows of w <= 32
-// cells; fused_plan in squeeze_stencil.py picks the body and its geometry,
-// the launcher checks them) does per cell only the arithmetic of the
-// stencil:
+// cells, and v3, v4 at k = 1; fused_plan in squeeze_stencil.py picks the
+// body and its geometry, the launcher checks them) does per cell only the
+// arithmetic of the stencil:
 //   * lanes are window columns and registers window rows: a warp holds
 //     32 / W windows (W the power of two >= max(w, 8): 4, 2 or 1), each
 //     lane its column's w cells of every channel, across the k substeps;
@@ -66,11 +66,17 @@
 //     once (__match_any_sync and a block list) moved fewer bytes but took
 //     more instructions than it saved.
 //
-// v1 and v2 are one step (k = 1) under micro_mask on the same warp body
-// (windows of w = rho + 2 <= 32 cells; step_plan in squeeze_stencil.py
-// picks W and the warps, other ring weights take the CTA body) with other
-// halo staging, both into a fixed layout, no division or region() per
-// cell:
+// Every k = 1 launch runs an instance compiled at k = 1 (the substep loop
+// fixed; runtime k kept v1's loop at 877 instructions). At k = 1 only the
+// window's center is computed, and no existence gates it, so its mask is
+// the center's bits alone and no ballot of the neighbor ids is taken. v3
+// is v4 at k = 1: v4's staging (the centers as one run, of each neighbor
+// block only the loads that hold the row or column its window reads)
+// under window_mask(1). v1 and v2 are one step under micro_mask on the
+// same warp body (windows of w = rho + 2 <= 32 cells; step_plan in
+// squeeze_stencil.py picks W and the warps, other ring weights take the
+// CTA body) with other halo staging, both into a fixed layout, no division
+// or region() per cell:
 //   * v1 (kWholeBlocks), the paper's per-block scheme, stages the center
 //     block and its 8 Moore-neighbor blocks whole (9 rho^2 cells read for
 //     rho^2 written): the group's centers as one run, each neighbor by the
@@ -1609,9 +1615,10 @@ __device__ __forceinline__ unsigned low_bits(int n) {
 }
 
 // v4 (kInKernel) and kernel 6 (kPieces) for windows of w <= 32 cells, and
-// v1 (kWholeBlocks) and v2 (kStrips) at k = 1 for windows of w = rho + 2 <=
-// 32 (their mask micro_mask at the window's center, which only the center
-// is computed under, so no existence is read): a
+// v3 (kInKernel), v1 (kWholeBlocks) and v2 (kStrips) at k = 1 for windows
+// of w = rho + 2 <= 32. KC is k when compiled: 1 for every k = 1 launch
+// (its mask window_mask(1)'s center or micro_mask, which only the center
+// is computed under, so no existence is read), 0 for k at run time: a
 // persistent grid of CTAs of up to kWarpWarps warps; each warp strides over
 // the (simulation, group) items on its own, no block-wide barrier. Lane
 // q W + x holds column x of window q (block g G + q) in registers, all
@@ -1622,7 +1629,7 @@ __device__ __forceinline__ unsigned low_bits(int n) {
 // group's loads are issued into the same buffer and fly while this group
 // runs its substeps (a second buffer, two groups ahead, was slower). The
 // centers are stored from the registers.
-template <class Rule, int H, int W>
+template <class Rule, int H, int W, int KC>
 __global__ void __launch_bounds__(kWarpWarps * 32)
 warp_kernel(const typename Rule::T* __restrict__ src,
             typename Rule::T* __restrict__ dst, const int* __restrict__ nbr,
@@ -1633,9 +1640,8 @@ warp_kernel(const typename Rule::T* __restrict__ src,
   constexpr int C = Rule::C, G = 32 / W;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = lane / W, x = lane % W;
-  constexpr bool kOne = H == kWholeBlocks || H == kStrips;
-  // v1 and v2: k = 1 when compiled
-  const int rho = gm.rho, k = kOne ? 1 : gm.k, w = gm.w, rho2 = rho * rho;
+  constexpr bool kOne = H == kWholeBlocks || H == kStrips;   // micro_mask
+  const int rho = gm.rho, k = KC > 0 ? KC : gm.k, w = gm.w, rho2 = rho * rho;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const stage = reinterpret_cast<T*>(smem) +
                    (size_t)warp * C * gm.cstride;   // this warp's buffer
@@ -1702,8 +1708,10 @@ warp_kernel(const typename Rule::T* __restrict__ src,
   cm.dir[0] = rx;
   cm.dir[1] = rx == 0 ? 3 : (rx == 1 ? 8 : 4);
   cm.dir[2] = 5 + rx;
-  if (kOne)   // the center's bit (8), always set: the mask is micro_mask's
-    cm.dir[0] = cm.dir[1] = cm.dir[2] = 8;
+  // k = 1: only the center is computed under the mask (micro_mask, or
+  // window_mask(1)'s center), and it is never gated: the center's bit (8),
+  // always set, so no existence is read
+  if (KC == 1) cm.dir[0] = cm.dir[1] = cm.dir[2] = 8;
   const bool center = x >= k && x < k + rho;
   // kInKernel: the loads [olo, ohi) of this lane's neighbor block (lanes
   // 8 q + d, d < 8) that hold the rows its window reads
@@ -2043,13 +2051,13 @@ int launch_mxu(const void* src, void* dst, const int* nbr,
                                    warps, ra, stream);
 }
 
-template <class Rule, int H, int W>
+template <class Rule, int H, int W, int KC>
 int launch_warp_w(const void* src, void* dst, const int* nbr,
                   const uint8_t* wmask, const Pieces& pc, const WGeom& gm,
                   int warps, const RuleArgs& ra, cudaStream_t stream) {
   using T = typename Rule::T;
   const size_t smem = (size_t)warps * Rule::C * gm.cstride * sizeof(T);
-  auto kernel = warp_kernel<Rule, H, W>;
+  auto kernel = warp_kernel<Rule, H, W, KC>;
   int rc = set_smem(kernel, smem);
   if (rc) return rc;
   int dev = 0, sms = 0, per_sm = 0;
@@ -2068,12 +2076,30 @@ int launch_warp_w(const void* src, void* dst, const int* nbr,
   return (int)cudaGetLastError();
 }
 
-// v4 and kernel 6 (fused_plan), and v1 and v2 at k = 1 (step_plan), with
-// the body their plan picked: W = 0 the CTA body (step_kernel, the wide
-// instance), else the warp body with W lanes a window (8, 16 or 32, at
-// least w) and `warps` warps a CTA, which the launcher checks and lays out.
-// Each channel's staging region (region_elems) is 16-byte aligned and
-// followed by 16 zero bytes.
+// The warp body's instance of W lanes a window, k = KC when compiled.
+template <class Rule, int H, int KC>
+int launch_warp(const void* src, void* dst, const int* nbr,
+                const uint8_t* wmask, const Pieces& pc, const WGeom& gm,
+                int W, int warps, const RuleArgs& ra, cudaStream_t stream) {
+  switch (W) {
+    case 8:
+      return launch_warp_w<Rule, H, 8, KC>(src, dst, nbr, wmask, pc, gm,
+                                           warps, ra, stream);
+    case 16:
+      return launch_warp_w<Rule, H, 16, KC>(src, dst, nbr, wmask, pc, gm,
+                                            warps, ra, stream);
+    default:
+      return launch_warp_w<Rule, H, 32, KC>(src, dst, nbr, wmask, pc, gm,
+                                            warps, ra, stream);
+  }
+}
+
+// v4 and kernel 6 (fused_plan; v3 is v4 at k = 1), and v1 and v2 at k = 1
+// (step_plan), with the body their plan picked: W = 0 the CTA body
+// (step_kernel, the wide instance), else the warp body with W lanes a
+// window (8, 16 or 32, at least w) and `warps` warps a CTA, which the
+// launcher checks and lays out. Each channel's staging region
+// (region_elems) is 16-byte aligned and followed by 16 zero bytes.
 template <class Rule, int H>
 int launch_fused(const void* src, void* dst, const int* nbr,
                  const uint8_t* wmask, const Pieces& pc, long long nb,
@@ -2132,36 +2158,19 @@ int launch_fused(const void* src, void* dst, const int* nbr,
   gm.ends[1] = gm.ends[0] + G * kw / gm.per;
   gm.ends[2] = gm.ends[1] + G * kw / gm.per;
   gm.ends[3] = gm.ends[2] + G * rk / gm.per;
-  switch (W) {
-    case 8:
-      return launch_warp_w<Rule, H, 8>(src, dst, nbr, wmask, pc, gm, warps,
-                                       ra, stream);
-    case 16:
-      return launch_warp_w<Rule, H, 16>(src, dst, nbr, wmask, pc, gm, warps,
-                                        ra, stream);
-    default:
-      return launch_warp_w<Rule, H, 32>(src, dst, nbr, wmask, pc, gm, warps,
-                                        ra, stream);
+  // k = 1 when compiled: v1, v2 and any k = 1 launch of kInKernel (v3)
+  if constexpr (H == kWholeBlocks || H == kStrips) {
+    return launch_warp<Rule, H, 1>(src, dst, nbr, wmask, pc, gm, W, warps,
+                                   ra, stream);
+  } else {
+    if constexpr (H == kInKernel) {
+      if (k == 1)
+        return launch_warp<Rule, H, 1>(src, dst, nbr, wmask, pc, gm, W,
+                                       warps, ra, stream);
+    }
+    return launch_warp<Rule, H, 0>(src, dst, nbr, wmask, pc, gm, W, warps,
+                                   ra, stream);
   }
-}
-
-// v3: the CTA body.
-int step_entry(int rule, const void* src, void* dst, const int* nbr,
-               const uint8_t* mask, long long nb, int batch, int rho,
-               int born, int survive, float p0, float p1, float p2, float p3,
-               float wd, float wo, float wc, void* stream) {
-  RuleArgs ra = make_args(born, survive, p0, p1, p2, p3, wd, wo, wc);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SQ_STEP(RULE)                                                       \
-  launch_step<RULE, kInKernel>(src, dst, nbr, nullptr, mask, Pieces{}, nb, \
-                               batch, rho, 1, ra, s)
-  switch (rule) {
-    case 0: return SQ_STEP(Totalistic);
-    case 1: return SQ_STEP(Heat);
-    case 2: return SQ_STEP(GrayScott);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SQ_STEP
 }
 
 template <int H>
@@ -2249,14 +2258,18 @@ int sq_gather_halo_strips(const void* src, void* strips, const int* nbr,
                        (unsigned)needs, static_cast<cudaStream_t>(stream));
 }
 
-// v3: one step (k = 1 instance of the fused kernel).
+// v3: one step, v4 at k = 1 (its instance compiled at k = 1), with the
+// body (W lanes a window and warps a CTA, or W = 0 for the CTA body) that
+// fused_plan picked for k = 1.
 int sq_stencil_step_fused(int rule, const void* src, void* dst,
                           const int* nbr, const uint8_t* wmask, long long nb,
-                          int batch, int rho, int born, int survive,
-                          float p0, float p1, float p2, float p3, float wd,
-                          float wo, float wc, void* stream) {
-  return step_entry(rule, src, dst, nbr, wmask, nb, batch, rho, born, survive,
-                    p0, p1, p2, p3, wd, wo, wc, stream);
+                          int batch, int rho, int W, int warps, int born,
+                          int survive, float p0, float p1, float p2,
+                          float p3, float wd, float wo, float wc,
+                          void* stream) {
+  return fused_entry<kInKernel>(rule, src, dst, nbr, wmask, Pieces{}, nb,
+                                batch, rho, 1, W, warps, born, survive, p0,
+                                p1, p2, p3, wd, wo, wc, stream);
 }
 
 // v4: k exact steps per launch, 1 <= k <= rho, with the body (W lanes a

@@ -10,13 +10,15 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import maps
 from repro_torch.core.fractals import NBBFractal
 from repro_torch.kernels import build
-from repro_torch.kernels.nu_map import check_coords, check_level, code_table
+from repro_torch.kernels.nu_map import check_coords, check_level
 
 #: the reference's largest r (2r code columns in its 128-wide operand)
 MAX_R = 64
@@ -26,6 +28,13 @@ build.LAUNCHES.setdefault("lambda_map_tc", 0)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # cx, cy, ex, ey, count, r, s, k, h_lambda, stream
 _ARGS = [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P]
+
+
+@functools.lru_cache(maxsize=None)
+def code_table(frac: NBBFractal, device: str) -> torch.Tensor:
+    """``frac.h_lambda`` (k, 2) as int32 on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(frac.h_lambda,
+                                                 np.int32)).to(device)
 
 
 def lambda_map_tc_plain(frac: NBBFractal, r: int, cx, cy):
@@ -46,7 +55,7 @@ def lambda_map_tc(frac: NBBFractal, r: int, cx: torch.Tensor,
     ex, ey = torch.empty_like(cx), torch.empty_like(cy)
     if cx.numel() == 0:
         return ex, ey
-    table = code_table(frac, "lambda", str(cx.device))
+    table = code_table(frac, str(cx.device))
     with torch.cuda.device(cx.device):
         stream = torch.cuda.current_stream(cx.device).cuda_stream
         rc = fn(cx.data_ptr(), cy.data_ptr(), ex.data_ptr(), ey.data_ptr(),

@@ -13,7 +13,9 @@ its plain PyTorch version.
     picks W and the warps, and ring weights that are not the rule's own (or
     windows over 32 cells) run the CTA body, counted as ``<name>[wide]``.
   * ``stencil_step_fused``       (v3) -- one step; replaces
-    ``stencil_step_fused``.
+    ``stencil_step_fused``. v4 at k = 1: ``fused_plan(..., k=1)`` picks
+    its body, the warp body's instance compiled at k = 1 (``[wide]``, the
+    CTA body, for windows over 32 cells or other ring weights).
   * ``stencil_step_fused_k``     (v4) -- k exact steps per launch on a
     depth-k window (1 <= k <= rho); replaces ``stencil_step_fused_k``.
     Windows of up to 32 cells a side run the warp body (a lane a window
@@ -68,7 +70,7 @@ LAUNCHES = build.LAUNCHES
 LAUNCHES.update(dict.fromkeys(
     ("stencil_step_blocks", "stencil_step_blocks[wide]",
      "stencil_step_strips", "stencil_step_strips[wide]",
-     "gather_halo_strips", "stencil_step_fused",
+     "gather_halo_strips", "stencil_step_fused", "stencil_step_fused[wide]",
      "stencil_step_fused_k", "stencil_step_fused_k[wide]",
      "stencil_step_mxu_batched", "stencil_step_mxu_batched[wide]",
      "stencil_step_fused_k_local", "stencil_step_fused_k_local[wide]",
@@ -87,8 +89,10 @@ _SIGNATURES = {
     + _RULE_ARGS,
     # src, strips, nbr, nb, rows, rho, element bytes, needs bits, stream
     "sq_gather_halo_strips": [_P, _P, _P, _LL] + [_I] * 4 + [_P],
-    # rule, src, dst, nbr, window_mask(1), nb, batch, rho, ...
-    "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL, _I, _I] + _RULE_ARGS,
+    # rule, src, dst, nbr, window_mask(1), nb, batch, rho, W, warps
+    # (fused_plan at k = 1; W = 0 for the CTA body), ...
+    "sq_stencil_step_fused": [_I, _P, _P, _P, _P, _LL] + [_I] * 4
+    + _RULE_ARGS,
     # ..., k, W, warps (fused_plan; W = 0 for the CTA body), ...
     "sq_stencil_step_fused_k": [_I, _P, _P, _P, _P, _LL] + [_I] * 5
     + _RULE_ARGS,
@@ -460,10 +464,11 @@ def _warp_plan(esize: int, n_channels: int, w: int, region) -> FusedPlan:
 
 def fused_plan(dtype: torch.dtype, n_channels: int, rho: int, k: int,
                pieces: bool = False, rule_form: bool = True) -> FusedPlan:
-    """The body and launch geometry of v4 (``pieces=False``) or of kernel 6
-    (``pieces=True``) for a window w = rho + 2k of ``n_channels`` channels
-    of ``dtype``. For w <= 32 the warp body: W the power of two >= max(w,
-    8), so G = 32 / W = 4, 2 or 1 windows a warp; a warp-private staging
+    """The body and launch geometry of v4 (``pieces=False``; v3 at k = 1)
+    or of kernel 6 (``pieces=True``) for a window w = rho + 2k of
+    ``n_channels`` channels of ``dtype``. For w <= 32 the warp body: W the
+    power of two >= max(w, 8), so G = 32 / W = 4, 2 or 1 windows a warp; a
+    warp-private staging
     buffer of one group's blocks, each channel's region (v4: the G centers
     and a slot for each window's 8 neighbor blocks, whole blocks; kernel 6:
     w^2 elements a window, its center and four halo pieces) 16-byte
@@ -593,8 +598,7 @@ def _check_out(state: torch.Tensor, out: torch.Tensor) -> None:
 def _launch_step(name, layout, state, workload, k, out, strips=None):
     """Launch v1 ('stencil_step_blocks'), v2 ('stencil_step_strips'; the
     strips are gathered here, by the gather kernel, unless given), v3 or v4
-    on ``state``; v1, v2 and v4 with the body their plan picks, counted
-    under its name."""
+    on ``state`` with the body its plan picks, counted under its name."""
     fn = _c_function("sq_" + name)
     s5, _ = _as_batched(layout, workload, state)
     out = _check_cuda(state, workload, out)
@@ -620,20 +624,17 @@ def _launch_step(name, layout, state, workload, k, out, strips=None):
         mask = layout.device_table("micro_mask", dev)
     args = [_rule(workload), state.data_ptr(), out.data_ptr(),
             halo.data_ptr(), mask.data_ptr(), layout.n_blocks, b, layout.rho]
-    body = ""
-    if name == "stencil_step_fused_k":
+    if name.startswith("stencil_step_fused"):   # v3 is v4 at k = 1
         plan = _fused_plan_for(layout, state, workload, k, False)
-        args += [k, plan.W, plan.warps]
-        body = plan.body
-    elif name != "stencil_step_fused":
+        args += [k] if name == "stencil_step_fused_k" else []
+    else:
         plan = _step_plan_for(layout, state, workload,
                               name == "stencil_step_strips")
-        args += [plan.W, plan.warps]
-        body = plan.body
+    args += [plan.W, plan.warps]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *_rule_args(workload, stream))
-    build.finish_launch(rc, name + body)
+    build.finish_launch(rc, name + plan.body)
     return out
 
 
@@ -693,8 +694,9 @@ def life_step_fused(layout: BlockLayout, state: torch.Tensor, *,
 def stencil_step_fused(layout: BlockLayout, state: torch.Tensor,
                        workload: StencilWorkload = LIFE, *,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """v3: one step. ``state`` (B?, C?, nb, rho, rho) -> same; ``out``
-    receives the result on the card (it must not alias ``state``)."""
+    """v3: one step, v4 at k = 1. ``state`` (B?, C?, nb, rho, rho) -> same;
+    ``out`` receives the result on the card (it must not alias
+    ``state``)."""
     if state.device.type == "cpu":
         return _into(state, stencil_step_fused_plain(layout, state,
                                                      workload), out)

@@ -1062,3 +1062,131 @@ def test_cuda_single_state_wrappers_match_plain(cuda, wl_name):
         got = sk.life_step_fused(lay, x.to(cuda))
         assert sk.LAUNCHES["stencil_step_fused"] == 1
         _equal(got, sk.stencil_step_fused_plain(lay, x, wl))
+
+
+# ---------------------------------------------------------------------------
+# v3 (v4 at k = 1): every body fused_plan picks at k = 1
+# ---------------------------------------------------------------------------
+#: SINGLE_BODIES' layouts (W = 8, 16 and 32), and rho = 32 (w = 34: the CTA
+#: body, [wide])
+V3_BODIES = SINGLE_BODIES + [(tf.SIERPINSKI, 7, 5)]
+
+
+@pytest.mark.parametrize("wl_name", WORKLOADS)
+@pytest.mark.parametrize("case", V3_BODIES,
+                         ids=[f"{c[0].name}-r{c[1]}m{c[2]}"
+                              for c in V3_BODIES])
+def test_cuda_v3_every_body(cuda, wl_name, case):
+    """v3 (one simulation and B=3, 3 steps) at each body ``fused_plan``
+    picks at k = 1, bit for bit against its plain version, each launch
+    under its body's name."""
+    frac, r, m = case
+    wl = trules.WORKLOADS[wl_name]
+    lay = BlockLayout(frac, r, m)
+    plan = sk.fused_plan(wl.dtype, wl.n_channels, lay.rho, 1)
+    assert plan.body == ("" if lay.rho + 2 <= 32 else "[wide]")
+    x = _state(lay, wl, 3, seed=r, scale=0.25).to(cuda)
+    for s in (x[0], x):
+        sk.reset_launches()
+        got, want = s, s.cpu()
+        for _ in range(3):
+            got = sk.stencil_step_fused(lay, got, wl)
+            want = sk.stencil_step_fused_plain(lay, want, wl)
+        assert {n: v for n, v in sk.LAUNCHES.items() if v} == {
+            "stencil_step_fused" + plan.body: 3}
+        _equal(got, want)
+
+
+@pytest.mark.parametrize("wl", [_OrthCA(), _MooreHeat()],
+                         ids=["orth-life", "moore-heat"])
+def test_cuda_v3_other_weights_run_the_cta_body(cuda, wl):
+    """Ring weights other than the rule's own run v3's CTA body ([wide]),
+    bit for bit with B = 1 and 3; the C entry refuses the warp body's plan
+    for them."""
+    lay = BlockLayout(tf.SIERPINSKI, 7, 2)
+    x = _state(lay, wl, 3, seed=7, scale=0.25).to(cuda)
+    for s in (x[0], x):
+        sk.reset_launches()
+        got = sk.stencil_step_fused(lay, s, wl)
+        assert {n: v for n, v in sk.LAUNCHES.items() if v} == {
+            "stencil_step_fused[wide]": 1}
+        _equal(got, sk.stencil_step_fused_plain(lay, s.cpu(), wl))
+    plan = sk.fused_plan(wl.dtype, 1, lay.rho, 1)
+    assert plan.body == ""
+    out = torch.zeros_like(x)
+    with torch.cuda.device(cuda):
+        rc = sk._c_function("sq_stencil_step_fused")(
+            sk._rule(wl), x.data_ptr(), out.data_ptr(),
+            lay.device_table("neighbor_table", cuda).data_ptr(),
+            lay.device_table("window_mask", cuda, 1).data_ptr(),
+            lay.n_blocks, 3, lay.rho, plan.W, plan.warps,
+            *sk._rule_args(wl, torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert rc != 0
+    assert not bool(out.any())
+
+
+@pytest.mark.parametrize("wl_name", ["life", "heat"])
+def test_cuda_fused_k1_engine_runs_v3(cuda, wl_name):
+    """cuda-fused at fusion_k=1: every step one v3 launch on the warp body,
+    the run equal to the CPU path bit for bit."""
+    wl = trules.WORKLOADS[wl_name]
+    on_card = make_engine("cuda-fused", tf.SIERPINSKI, 7, 2, workload=wl,
+                          fusion_k=1)
+    on_cpu = make_engine("cuda-fused", tf.SIERPINSKI, 7, 2, workload=wl,
+                         fusion_k=1, device="cpu")
+    x = on_cpu.init_random(seed=4)
+    sk.reset_launches()
+    got = on_card.run(x.to(cuda), 5)
+    assert {n: v for n, v in sk.LAUNCHES.items() if v} == {
+        "stencil_step_fused": 5}
+    _equal(got, on_cpu.run(x, 5))
+
+
+# ---------------------------------------------------------------------------
+# nu on the grouped tables
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(tf.REGISTRY))
+def test_cuda_nu_every_level_count_and_alignment(cuda, name):
+    """nu bit for bit against its plain version at r in {0, 1, 2, 3, an r
+    whose top group is short, the largest r}; over counts of 1, 3 and 4n +
+    1 (the scalar tail), coordinates past every edge, and a contiguous
+    view that is not 16-byte aligned (the kernel's scalar path)."""
+    frac = tf.REGISTRY[name]
+    rng = np.random.default_rng(9)
+    short = 2 * nm.group_levels(frac.s) + 1
+    for r in sorted({0, 1, 2, 3, short, nm.max_int32_level(frac)}):
+        n = frac.side(r)
+        ex, ey = (torch.from_numpy(rng.integers(
+            -3, n + 3, size=4 * 257 + 1).astype(np.int32)) for _ in range(2))
+        ex[:4] = torch.tensor([-1, 0, n - 1, n], dtype=torch.int32)
+        ey[:4] = torch.tensor([n, n - 1, 0, -1], dtype=torch.int32)
+        for count in (1, 3, ex.numel()):
+            a, b = ex[:count], ey[:count]
+            sk.reset_launches()
+            got = nm.nu_map_tc(frac, r, a.to(cuda), b.to(cuda))
+            assert sk.LAUNCHES["nu_map_tc"] == 1
+            for g, w in zip(got, nm.nu_map_tc_plain(frac, r, a, b)):
+                assert torch.equal(g.cpu(), w), (r, count)
+        flat = torch.cat([ex, ey]).to(cuda)
+        odd_x, odd_y = flat[1:ex.numel()], flat[ex.numel() + 1:]
+        assert odd_x.is_contiguous() and odd_x.data_ptr() % 16
+        for g, w in zip(nm.nu_map_tc(frac, r, odd_x, odd_y),
+                        nm.nu_map_tc_plain(frac, r, ex[1:], ey[1:])):
+            assert torch.equal(g.cpu(), w), r
+
+
+@pytest.mark.parametrize("name", ["sierpinski", "carpet", "vicsek"])
+def test_cuda_lambda_nu_round_trip_on_the_compact_grid(cuda, name):
+    """lambda of every compact cell, then nu: every cell back, all
+    members."""
+    frac = tf.REGISTRY[name]
+    r = 12 if frac.s == 2 else 6
+    rows, cols = frac.compact_dims(r)
+    cy, cx = torch.meshgrid(torch.arange(rows, dtype=torch.int32),
+                            torch.arange(cols, dtype=torch.int32),
+                            indexing="ij")
+    cx, cy = cx.contiguous().to(cuda), cy.contiguous().to(cuda)
+    bx, by, valid = nm.nu_map_tc(frac, r, *lm.lambda_map_tc(frac, r, cx, cy))
+    assert torch.equal(bx, cx) and torch.equal(by, cy)
+    assert bool(valid.all())

@@ -1,9 +1,11 @@
-"""The geometry of v1 and v2 (``stencil_step_blocks``, ``stencil_step_strips``)
-and the strip gather's wrapper: ``step_plan``, which picks the body and its
-launch shape, for every shipped fractal's block side, dtype and channel
-count; the C entries' arguments against the source; and a numpy emulation
-of the warp body's two stagings (the staged region of a group, each lane's
-offset per row), which must rebuild every window ``pad_with_halo`` builds.
+"""The geometry of v1, v2 and v3 (``stencil_step_blocks``,
+``stencil_step_strips``, ``stencil_step_fused``) and the strip gather's
+wrapper: ``step_plan`` and, for v3 (v4 at k = 1), ``fused_plan``, which pick
+the body and its launch shape, for every shipped fractal's block side,
+dtype and channel count; the C entries' arguments against the source; and
+a numpy emulation of the warp body's three one-step stagings (the staged
+region of a group, each lane's offset per row), which must rebuild every
+window ``pad_with_halo`` builds.
 Pure and cheap; the kernels themselves are held against their plain
 versions on the card (``tests/test_torch_cuda.py``).
 """
@@ -107,23 +109,66 @@ def test_step_plan_for_other_weights_is_the_cta_body(strips):
     assert sk._step_plan_for(lay, g, trules.GRAY_SCOTT, strips).W == 8
 
 
+@pytest.mark.parametrize("rho", RHOS)
+def test_v3_plan_is_v4_at_k1_for_every_rho_and_channel_count(rho):
+    """v3 takes ``fused_plan`` at k = 1: the warp body (w = rho + 2 <= 32
+    for every shipped rho) with v1's staging region, so v1's plan."""
+    for dtype in (torch.uint8, torch.float32):
+        for nc in (1, 2, 3):
+            plan = sk.fused_plan(dtype, nc, rho, 1)
+            assert plan.body == "" and plan.W >= rho + 2
+            assert plan == sk.step_plan(dtype, nc, rho)
+
+
+@pytest.mark.parametrize("dtype,nc,rho,rule_form,want", [
+    # the main path: LIFE and HEAT at rho = 4 (w = 6), GRAY_SCOTT
+    (torch.uint8, 1, 4, True, (8, 4, 8, 4736, "")),
+    (torch.float32, 1, 4, True, (8, 4, 8, 18560, "")),
+    (torch.float32, 2, 4, True, (8, 4, 8, 37120, "")),
+    # rho = 3 (9-byte blocks), rho = 9 (W = 16), rho = 27 (W = 32)
+    (torch.uint8, 1, 3, True, (8, 4, 8, 2816, "")),
+    (torch.uint8, 1, 9, True, (16, 2, 8, 11904, "")),
+    (torch.float32, 2, 27, True, (32, 1, 4, 210176, "")),
+    # other weights and a window over 32 cells: the CTA body, no blocks of
+    # v1's in its shared memory
+    (torch.uint8, 1, 4, False, (0, 28, 8, 3060, "[wide]")),
+    (torch.uint8, 1, 31, True, (0, 1, 8, 3317, "[wide]")),
+    (torch.float32, 2, 31, True, (0, 1, 8, 18549, "[wide]")),
+])
+def test_v3_plan_by_shape(dtype, nc, rho, rule_form, want):
+    assert tuple(sk.fused_plan(dtype, nc, rho, 1, False, rule_form)) == want
+
+
+def test_v3_plan_for_other_weights_is_the_cta_body():
+    lay = BlockLayout(tf.SIERPINSKI, 4, 2)
+    x = torch.zeros((2, lay.n_blocks, 4, 4), dtype=torch.uint8)
+    assert sk._fused_plan_for(lay, x, trules.LIFE, 1, False).body == ""
+    assert sk._fused_plan_for(lay, x, _OrthCA(), 1, False).body == "[wide]"
+
+
 def test_single_step_launch_names_are_registered():
-    for name in ("stencil_step_blocks", "stencil_step_strips"):
+    for name in ("stencil_step_blocks", "stencil_step_strips",
+                 "stencil_step_fused"):
         for body in ("", "[wide]"):
             assert name + body in sk.LAUNCHES
     assert "gather_halo_strips" in sk.LAUNCHES
 
 
 def test_single_step_entries_match_the_source():
-    """v1 and v2 take step_plan's W and warps after rho; the gather entry
-    takes as many arguments as its signature passes; the CTA body's limits
-    are the source's."""
+    """v1 and v2 take step_plan's W and warps after rho, v3 fused_plan's;
+    the gather entry takes as many arguments as its signature passes; the
+    CTA body's limits are the source's; v3 runs v4's entry at k = 1."""
     text = SOURCE.read_text()
     for name in ("sq_stencil_step_blocks", "sq_stencil_step_strips",
-                 "sq_gather_halo_strips"):
+                 "sq_stencil_step_fused", "sq_gather_halo_strips"):
         params = re.search(rf"int {name}\((.*?)\)", text, re.S).group(1)
         assert len(params.split(",")) == len(sk._SIGNATURES[name]), name
-    for name in ("sq_stencil_step_blocks", "sq_stencil_step_strips"):
+    v3 = re.search(r"int sq_stencil_step_fused\(.*?\{(.*?)\n\}", text,
+                   re.S).group(1)
+    assert "fused_entry<kInKernel>(" in v3
+    assert "rho, 1, W, warps" in " ".join(v3.split())
+    for name in ("sq_stencil_step_blocks", "sq_stencil_step_strips",
+                 "sq_stencil_step_fused"):
         params = re.search(rf"int {name}\((.*?)\)", text, re.S).group(1)
         assert "int rho, int W, int warps," in " ".join(params.split())
     strips_at = re.search(r"int strips_at\(int G, int rho, int sz\) \{\s*"
@@ -160,12 +205,25 @@ def _lane_offset(strips, q, x, y, rho, g, zero, esize):
         (x - 1 - (rx - 1) * rho)
 
 
-def _emulated_windows(lay, x, strips):
+def _rows_staged(d, rho, esize):
+    """[olo, ohi): the elements v3 stages of its direction-d neighbor, the
+    loads (as wide as rho^2 elements allow, 16 bytes at most) that hold
+    the row or column its window reads, as ``warp_kernel`` computes them
+    at k = 1."""
+    vin = next((v for v in (16, 8, 4) if rho * rho * esize % v == 0), esize)
+    per = vin // esize
+    olo = (rho - 1) * rho // per * per if d < 3 else 0
+    ohi = -(-rho // per) * per if d > 4 else rho * rho
+    return olo, ohi
+
+
+def _emulated_windows(lay, x, staging):
     """(nb, W, W): each group's staged region as ``issue_group`` fills it
-    (past the group's blocks, and a ghost neighbor, zeros), each window
+    (v1 "blocks", v2 "strips" or v3 "rows"; past the group's blocks, a
+    ghost neighbor, and the rows v3 does not load, zeros), each window
     read by its lanes through ``_lane_offset``."""
     rho, nb, rho2 = lay.rho, lay.n_blocks, lay.rho ** 2
-    esize = x.dtype.itemsize
+    esize, strips = x.dtype.itemsize, staging == "strips"
     plan = sk.step_plan(torch.from_numpy(x[:0]).dtype, 1, rho, strips)
     big_w, g = plan.W, plan.windows
     zero = _round16(_region(strips, g, rho, esize) * esize) // esize
@@ -184,8 +242,10 @@ def _emulated_windows(lay, x, strips):
                 for d in range(8):
                     i = table[blk0 + q, d]
                     if i < nb:
+                        lo, hi = _rows_staged(d, rho, esize) \
+                            if staging == "rows" else (0, rho2)
                         s = (g + 8 * q + d) * rho2
-                        buf[s:s + rho2] = x[i].ravel()
+                        buf[s + lo:s + hi] = x[i].ravel()[lo:hi]
         for q in range(nv):
             for yy in range(big_w):
                 for xx in range(big_w):
@@ -194,19 +254,21 @@ def _emulated_windows(lay, x, strips):
     return out
 
 
-@pytest.mark.parametrize("strips", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("staging", ["blocks", "strips", "rows"],
+                         ids=["v1", "v2", "v3"])
 @pytest.mark.parametrize("case,dtype", [
     ((tf.SIERPINSKI, 4, 2), np.uint8), ((tf.VICSEK, 3, 1), np.uint8),
     ((tf.CARPET, 3, 2), np.float32), ((tf.SIERPINSKI, 5, 3), np.uint8)],
     ids=["rho4", "rho3", "rho9-f32", "rho8"])
-def test_emulated_staging_rebuilds_every_window(case, dtype, strips):
+def test_emulated_staging_rebuilds_every_window(case, dtype, staging):
     """Every lane's rows, read from the staged region, are the window
-    ``pad_with_halo`` builds, and zeros past it (w <= W)."""
+    ``pad_with_halo`` builds, and zeros past it (w <= W): v3 loads of each
+    neighbor only what its window reads."""
     lay = BlockLayout(*case)
     rng = np.random.default_rng(1)
     x = (rng.random((lay.n_blocks, lay.rho, lay.rho)) * 200 + 1).astype(
         dtype) * lay.micro_mask.astype(dtype)
-    got = _emulated_windows(lay, x, strips)
+    got = _emulated_windows(lay, x, staging)
     w = lay.rho + 2
     want = lay.pad_with_halo(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got[:, :w, :w], want)
