@@ -28,9 +28,9 @@ jax or the reference package). Phases, each printing one JSON line:
      workloads whose ring weights are not their rule's own), 2 steps, bit
      for bit, with the launches by body (every class reached by each); then
      nu and lambda, bit-exact, on all five registry fractals at r in {0, 1,
-     2, 3, 2L + 1 (nu's top group short), the largest r whose coordinates
-     fit int32}, 10^6 + 1 coordinates each (nu's past both edges of the
-     grid, lambda's negative and past the compact edges);
+     2, 3, 2L + 1 (nu's top group short, and lambda's), the largest r whose
+     coordinates fit int32}, 10^6 + 1 coordinates each (nu's past both
+     edges of the grid, lambda's negative and past the compact edges);
   4. the main path at the paper's size (sierpinski r=16, 3^16 cells), each
      timed run after one untimed warm-up run: ``BatchedRunner.run`` with
      cuda-mxu (LIFE, B=4, 64 steps) and (HEAT, B=2, 64 steps),
@@ -56,8 +56,9 @@ jax or the reference package). Phases, each printing one JSON line:
      CTA body and gather (v3: its instances compiled at k = 1); for the
      maps over all 3^16 compact cells, also the float32 product form
      (``*_map_matmul``, Fig. 14's tensor-core form against the scalar
-     kernels), nu with its plan (groups of L levels), the operations of its
-     design (``nu_ops``) and the registers of each of its instances; then
+     kernels), nu and lambda each with its plan (groups of L levels), the
+     operations of its design (``nu_ops``, ``lambda_ops``) and the
+     registers of each of its instances; then
      a ``kernels`` line:
      each kernel's launches on the main path, largest error against its
      plain version, time, plain time and bound; v5's row (and kernel 7's,
@@ -147,9 +148,9 @@ jax or the reference package). Phases, each printing one JSON line:
      plain version in float32: |got - want| <= ulp_bf16(|want|) + 1e-5),
      each through the body ``attention.plan`` names (tensor cores, split,
      FP32), counted under that body's name; the SSD kernel at the
-     reference test's shapes, a ragged S at mamba2-780m's widths (2e-5),
-     with the whole scan against the chunked oracle
-     ``models.ssm._ssd_chunked``;
+     reference test's shapes, a ragged S at mamba2-780m's widths, chunks
+     of 256 (S whole and ragged) and 512 (2e-5), with the whole scan
+     against the chunked oracle ``models.ssm._ssd_chunked``;
  15. their path at full width, each run after a warm-up and held against
      the plain version: ``flash_attention`` at gemma2-2b (bf16, 8 heads of
      D=256, softcap 50) for a global layer (causal, S=8192), a local layer
@@ -165,8 +166,11 @@ jax or the reference package). Phases, each printing one JSON line:
      softcap off, beside ``scaled_dot_product_attention`` on the same
      inputs, the yardstick the port never calls, and its plain version),
      with the bound of the function (4 D operations a visible pair) and of
-     the split-P design (6 D); their rows join the ``kernels`` line
-     (thirteen rows; attention's launches summed over its three bodies).
+     the split-P design (6 D); the SSD kernel with its bytes, its
+     operations in FP32 and as its design runs them (3xTF32), the
+     registers of its two kernels, and its time at chunks of 256 and 512
+     at the same S; their rows join the ``kernels`` line (thirteen rows;
+     attention's launches summed over its three bodies).
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -234,6 +238,8 @@ ATTN_BODIES = ("flash_attention", "flash_attention[tc]",
                "flash_attention[split]")
 #: the SSD kernel's bar (tests/test_kernels_ssd.py)
 SSD_TOL = (2e-5, 2e-5)
+#: chunk lengths phase 16 also times at mamba2-780m's S
+SSD_CHUNKS = (256, 512)
 #: phase 14's attention cases: the reference test's shapes, then non-causal,
 #: causal Sq > Sk (queries that see no key), a window that hides every key
 #: and D in {64, 256}, and D = 36 (bf16 rows the 16-byte loads cannot
@@ -260,7 +266,9 @@ ATTN_CASES = [
 #: phase 14's SSD cases: the reference test's shapes and a ragged S at the
 #: mamba2-780m head and state widths; (B, S, H, P, N, chunk)
 SSD_CASES = [(1, 16, 2, 8, 8, 8), (2, 64, 4, 16, 16, 16),
-             (1, 40, 3, 8, 16, 16), (2, 300, 8, 64, 128, 128)]
+             (1, 40, 3, 8, 16, 16), (2, 300, 8, 64, 128, 128),
+             (1, 512, 4, 64, 128, 256), (2, 600, 8, 64, 128, 256),
+             (1, 1024, 2, 64, 128, 512)]
 #: gemma2-2b's attention (configs/gemma2_2b.py): 8 heads of D = 256, local
 #: window 4096, logit softcap 50; S = 8192 at B = 1, decode at B = 8
 GEMMA2 = dict(h=8, d=256, s=8192, window=4096, softcap=50.0, decode_b=8)
@@ -378,25 +386,6 @@ def fused_registers(log: str) -> dict:
     return out
 
 
-def nu_registers(log: str) -> dict:
-    """{"s<S>/L<L>/G<groups>": "registers/spill bytes"}: the nu kernel's
-    instances by s, group length and group count ('s0/L2/G-1' the runtime
-    path) from nvcc's log."""
-    out = {}
-    for e in ptxas_summary(log):
-        nu = re.search(r"nu_kernelILi(\d+)ELi(\d+)ELi(n?\d+)E", e["entry"])
-        if not nu:
-            continue
-        text = " ".join(e["ptxas"])
-        regs = re.search(r"Used (\d+) registers", text)
-        spill = re.search(r"(\d+) bytes spill stores", text)
-        groups = nu.group(3).replace("n", "-")
-        out[f"s{nu.group(1)}/L{nu.group(2)}/G{groups}"] = (
-            f"{regs.group(1) if regs else '?'}/"
-            f"{spill.group(1) if spill else 0}")
-    return out
-
-
 def nu_ops(plan, count: int) -> int:
     """Integer operations of the nu kernel's design for ``count``
     coordinates (``nu_map.nu_plan``'s groups): 9 a coordinate for the
@@ -406,6 +395,36 @@ def nu_ops(plan, count: int) -> int:
     group's index."""
     g = plan.groups
     return count * (9 + 6 * g + 5 * max(g - 1, 0) + 2 * (g > 0))
+
+
+def lambda_ops(plan, count: int) -> int:
+    """Integer operations of the lambda kernel's design for ``count``
+    coordinates (``lambda_map.lambda_plan``'s groups): 23 a group (two
+    floor divmods by k^(L/2) of 8 each: the sign, two flips, a
+    multiply-high quotient, the remainder; the index, the lookup, two
+    field extractions, two multiply-adds) and one a lower group (the next
+    weight)."""
+    g = plan.groups
+    return count * (23 * g + max(g - 1, 0))
+
+
+def instance_registers(log: str, kernel: str) -> dict:
+    """{"<template arguments>": "registers/spill bytes"}: each instance of
+    ``kernel`` (the map kernels' ``S/K/L/G`` or ``S/L/G``, '-1' the
+    runtime path; the SSD kernels by name) from nvcc's log."""
+    out = {}
+    for e in ptxas_summary(log):
+        m = re.search(kernel + r"(?:I((?:Li-?n?\d+E)+))?", e["entry"])
+        if not m:
+            continue
+        args = re.findall(r"Li(n?\d+)E", m.group(1) or "")
+        text = " ".join(e["ptxas"])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        key = "/".join(a.replace("n", "-") for a in args) or kernel
+        out[key] = (f"{regs.group(1) if regs else '?'}/"
+                    f"{spill.group(1) if spill else 0}")
+    return out
 
 
 def stencil3d_registers(log: str) -> dict:
@@ -765,8 +784,9 @@ def phase_single_bodies_vs_plain(torch, chk, F, R, BlockLayout, sk):
 
 def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_001):
     """nu and lambda against their plain (int64) versions, bit-exact: r in
-    {0, 1, 2, 3, an r whose top nu group is short, the largest r}, n = 4 *
-    250000 + 1 coordinates (nu's scalar tail)."""
+    {0, 1, 2, 3, an r whose top nu group is short and one whose top lambda
+    group is, the largest r}, n = 4 * 250000 + 1 coordinates (the kernels'
+    scalar tails)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
 
@@ -775,8 +795,10 @@ def phase_maps_vs_plain(torch, chk, F, nm, lm, n=1_000_001):
         return torch.randint(lo, hi, (n,), generator=g, device="cuda",
                              dtype=torch.int64).to(torch.int32)
     for frac in F.REGISTRY.values():
-        short = 2 * nm.group_levels(frac.s) + 1
-        for r in sorted({0, 1, 2, 3, short, nm.max_int32_level(frac)}):
+        top = nm.max_int32_level(frac)
+        short = {2 * nm.group_levels(frac.s) + 1,
+                 min(top, 2 * lm.lambda_plan(frac, 0).levels + 1)}
+        for r in sorted({0, 1, 2, 3, top} | short):
             t0 = time.perf_counter()
             side = frac.side(r)
             rows, cols = frac.compact_dims(r)
@@ -1655,16 +1677,19 @@ def phase_attention_ssd_main(torch, chk, ta, ts, tssm, build):
     return launches
 
 
-def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
+def phase_attention_ssd_timing(torch, chk, ta, ts, launches, ssd_regs):
     """Phase 16: rows 12 and 13. Attention at gemma2-2b's global layer
     with the softcap off, where SDPA computes the same function (timed
     here only as the yardstick); the other main-path shapes beside it.
     Bounds count visible (query, key) pairs, 4 D operations each, at the
     bf16 tensor rate, and Q, K, V and O once; the tensor-core body's
     split-P design does 6 D a pair (its own bound beside). The SSD
-    kernel at mamba2-780m: C B^T once a chunk on its lower triangle, the y
-    triangle and the state per head at the FP32 rate; x, dt, B, C in and
-    y_diag and the states out once."""
+    kernel at mamba2-780m: x, dt, B, C in and y_diag and the states out
+    once; C B^T once a chunk on its lower triangle, the y triangle and the
+    state per head, at the FP32 rate and, as the design runs them (three
+    TF32 products each), at the TF32 tensor rate; the bound is the larger
+    of the bytes and the products at the tensor rate. Then the kernel at
+    chunks of 256 and 512 at the same S."""
     F = torch.nn.functional
     g2, mb = GEMMA2, MAMBA2
     full, dec = _gemma2_inputs(torch, 91)
@@ -1735,9 +1760,22 @@ def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
     plain_ms = cuda_ms(torch, lambda: ts.ssd_chunk_plain(xc, dtc, a, bc,
                                                          cc), 3)
     ops_ms, bytes_ms = 1e3 * ops / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    tf32_ms = 1e3 * 3 * ops / TF32_FLOPS
+    by_chunk = {}
+    for chunk in SSD_CHUNKS:   # the same S, longer chunks
+        xl, dtl, bl, cl = ts.to_chunks(x, dt, bm, cm, chunk)
+        for got, want in zip(ts.ssd_chunk(xl, dtl, a, bl, cl),
+                             ts.ssd_chunk_plain(xl, dtl, a, bl, cl)):
+            chk.check(f"timing/ssd/chunk{chunk}", "ssd_chunk_scan", got,
+                      want, False, SSD_TOL)
+        by_chunk[chunk] = cuda_ms(torch, lambda: ts.ssd_chunk(
+            xl, dtl, a, bl, cl), 10)
+        del xl, dtl, bl, cl
+    plan = ts.ssd_plan(n_chunks, ll, hh, p)
     emit("kernel_timing", name="ssd_chunk_scan", shape=list(xc.shape),
          n=n, ms=ms, plain_ms=plain_ms, ops=ops, ops_ms=ops_ms,
-         bytes=nbytes, bytes_ms=bytes_ms)
+         ops_3xtf32_ms=tf32_ms, bytes=nbytes, bytes_ms=bytes_ms,
+         ms_by_chunk=by_chunk, plan=plan._asdict(), registers=ssd_regs)
     row_att = att["global"]
     rows = [dict(
         name="flash_attention", route="cuda", source=KERNELS[
@@ -1753,9 +1791,11 @@ def phase_attention_ssd_timing(torch, chk, ta, ts, launches):
         replaces=KERNELS["ssd_chunk_scan"][1],
         launches=launches["ssd_chunk_scan"],
         max_abs_err=chk.max_err["ssd_chunk_scan"], ms=ms, plain_ms=plain_ms,
-        bound_ms=max(ops_ms, bytes_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)]
+        bound_ms=max(tf32_ms, bytes_ms),
+        bound_by="bytes" if bytes_ms >= tf32_ms else "operations",
+        bound_bytes_ms=bytes_ms, bound_ops_fp32_ms=ops_ms,
+        bound_ops_3xtf32_ms=tf32_ms, ms_by_chunk=by_chunk,
+        registers=ssd_regs, library_ms=None)]
     return rows
 
 
@@ -1813,7 +1853,11 @@ def main() -> int:
                   for n, v in built.items()})
     mxu_regs = mxu_registers(built["squeeze_stencil"]["log"])
     fused_regs = fused_registers(built["squeeze_stencil"]["log"])
-    nu_regs = nu_registers(built["squeeze_maps"]["log"])
+    nu_regs = instance_registers(built["squeeze_maps"]["log"], "nu_kernel")
+    lambda_regs = instance_registers(built["squeeze_maps"]["log"],
+                                     "lambda_kernel")
+    ssd_regs = {name: instance_registers(built["ssd_chunk"]["log"], name)
+                for name in ("lower_cb_kernel", "ssd_kernel")}
     regs3 = stencil3d_registers(built["squeeze_stencil3d"]["log"])
 
     chk = Checker(torch)
@@ -1999,9 +2043,8 @@ def main() -> int:
     # each input read and each output written once. A stencil step does
     # about 12 operations (Moore aggregate and rule) per cell and substep;
     # v5's halo ring, padding slots and zero band entries are not counted.
-    # lambda runs r digit steps per coordinate, 6 integer operations a level
-    # (one division/modulus pair, two lookups, two multiply-adds); nu a
-    # lookup a group of levels (``nu_ops``).
+    # The maps take a lookup a group of levels (``nu_ops``,
+    # ``lambda_ops``).
     s1 = mxu.init_random(3)
     sb = torch.stack([mxu.init_random(i) for i in range(4)])
     o1, ob = torch.empty_like(s1), torch.empty_like(sb)
@@ -2068,7 +2111,8 @@ def main() -> int:
         "lambda_map_tc": dict(
             fn=lambda: lm.lambda_map_tc(frac, r, cxm, cym),
             plain=lambda: lm.lambda_map_tc_plain(frac, r, cxm, cym),
-            shape=cxm.shape, r=r, bytes=16 * n16, ops=6 * r * n16,
+            shape=cxm.shape, r=r, bytes=16 * n16,
+            ops=lambda_ops(lm.lambda_plan(frac, r), n16),
             extra=dict(matmul=lambda: M.lambda_map_matmul(frac, r, cxm,
                                                           cym))),
     }
@@ -2125,6 +2169,9 @@ def main() -> int:
         if kname == "nu_map_tc":
             rows[-1].update(registers=nu_regs,
                             plan=nm.nu_plan(frac, r)._asdict())
+        if kname == "lambda_map_tc":
+            rows[-1].update(registers=lambda_regs,
+                            plan=lm.lambda_plan(frac, r)._asdict())
         if "design_bytes" in spec:   # rows 1 and 2
             rows[-1].update(
                 bound_design_ms=1e3 * spec["design_bytes"] / HBM_BYTES_PER_S,
@@ -2186,7 +2233,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_a = phase_attention_ssd_main(torch, chk, ta, ts, tssm, build)
     torch.cuda.empty_cache()
-    rows += phase_attention_ssd_timing(torch, chk, ta, ts, launches_a)
+    rows += phase_attention_ssd_timing(torch, chk, ta, ts, launches_a,
+                                       ssd_regs)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -21,10 +21,32 @@
 // < 2^31, compact sides below 2^31). Each coordinate reads 8 bytes and
 // writes 8 (lambda) or 9 (nu), so bytes are their bound.
 //
-// lambda (lambda_kernel): one thread per coordinate runs the digit loop,
-// H_lambda (k, 2) in shared memory; the divisor k is a template constant
-// for the registry's fractals (a division/modulus pair is a multiply-high
-// and a few integer operations), another k takes the runtime path.
+// lambda (lambda_kernel): the same shape as nu's. A thread per coordinate
+// running the level loop (sixteen floor divisions by k, two lookups and two
+// multiply-adds a level at r = 16) was bound by issue at 2.5 times its
+// bytes. So one lookup takes L levels at once (kLambdaL2 = 8 for s = 2,
+// kLambdaL3 = 4 for s = 3; lambda_map.lambda_plan, which takes fewer where
+// a table would not fit, for any other fractal):
+//   * a group of L levels (L even, so it starts at an odd level) reads L/2
+//     base-k digits of cx and L/2 of cy, the remainders of one floor
+//     division of each by D = k^(L/2); its table, built on the host
+//     (lambda_map.lambda_group_table), indexed by rx + D ry, holds in one
+//     int32 the group's partial ex and ey (bits 0-15 and 16-31, each below
+//     s^L <= 2^16), which add times s^(gL). Floor division keeps lambda's
+//     no-clip semantics: negative and past-the-edge coordinates take one
+//     floor divmod by D a group, which equals L/2 of them by k;
+//   * the top group, over the last R levels, reads a table of its own
+//     where R < L, indexed the same way, whose entries take only the
+//     digits of those R levels (padding the levels past r with digit 0
+//     would be wrong: tau(0) is not (0, 0) for vicsek, whose replica 0
+//     sits at (1, 0));
+//   * s, k, L and the group count G = ceil(r / L) are template constants
+//     for the registry's (s, k) (the division by D a multiply-high, the
+//     weights s^(gL) constants), and a runtime instance takes any other;
+//   * four coordinates a thread with 16-byte loads and stores, a scalar
+//     path for a tail and for pointers that are not 16-byte aligned, in a
+//     persistent grid, as nu's.
+// At r = 16 and s = 2 that is two lookups for sixteen levels.
 //
 // nu (nu_kernel): what costs is taking the coordinates apart into digits,
 // not the sum: a thread per coordinate running the level loop (a division
@@ -63,16 +85,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxCtas = 132 * 16;  // grid-stride: 16 CTAs per SM
 constexpr int kLevels2 = 4;   // levels a nu lookup covers for s = 2
 constexpr int kLevels3 = 2;   // and for s = 3 and any other s
+constexpr int kLambdaL2 = 8;  // levels a lambda lookup covers for s = 2
+constexpr int kLambdaL3 = 4;  // and for s = 3
 constexpr int kHole = 1 << 15;            // a nu table entry's hole bit
 constexpr size_t kMaxSmem = 232448;       // shared bytes one CTA can use
-
-unsigned grid_for(long long count) {
-  long long ctas = (count + kThreads - 1) / kThreads;
-  return (unsigned)(ctas < kMaxCtas ? ctas : kMaxCtas);
-}
 
 __host__ __device__ constexpr long long ipow(long long b, int e) {
   return e > 0 ? b * ipow(b, e - 1) : 1;
@@ -166,50 +184,87 @@ nu_kernel(const int* __restrict__ ex, const int* __restrict__ ey,
 }
 
 // Floor division of q by d > 0: q becomes floor(q / d), the result is the
-// non-negative remainder. Inlined, so a constant d divides by a constant.
+// non-negative remainder. The division is unsigned (a multiply-high for a
+// constant d) on q or, for q < 0, on -q - 1 = ~q, whose quotient and
+// remainder flip back: floor(q / d) = ~(~q / d), q mod d = d - 1 - ~q % d.
 __device__ __forceinline__ int floor_divmod(int& q, int d) {
-  int quot = q / d;
-  int rem = q - quot * d;
-  if (rem < 0) {
-    rem += d;
-    quot -= 1;
-  }
-  q = quot;
+  const int neg = q >> 31;
+  const unsigned u = (unsigned)(q ^ neg);
+  const unsigned uq = u / (unsigned)d;
+  const int rem = ((int)(u - uq * (unsigned)d) ^ neg) + (neg & d);
+  q = (int)uq ^ neg;
   return rem;
 }
 
-// K > 0: k is the constant K; K == 0: k_rt.
-template <int K>
+// What a lambda launch needs besides the pointers (sq_lambda_map fills it).
+struct LambdaGeom {
+  int d;         // D = k^(L/2): one group's divisor of cx and cy
+  int sl;        // s^L: one group's weight over the one below
+  int groups;    // G = ceil(r / L) (read where it is not a template)
+  int top_off;   // where the top group's table starts (0: the group's)
+  int entries;   // entries of the tables
+  int vec;       // 1: the coordinates are read and written four at once
+};
+
+// lambda of one compact coordinate (x, y) from the tables in shared
+// memory: ex, ey into ox, oy.
+template <int S, int K, int L, int NG>
+__device__ __forceinline__ void lambda_one(int x, int y, const LambdaGeom& g,
+                                           const int* tab, int& ox,
+                                           int& oy) {
+  const int d = S > 0 ? (int)ipow(K, L / 2) : g.d;
+  const int sl = S > 0 ? (int)ipow(S, L) : g.sl;
+  const int groups = NG >= 0 ? NG : g.groups;
+  int ax = 0, ay = 0, w = 1;
+#pragma unroll
+  for (int i = 0; i < groups; ++i) {
+    const int rx = floor_divmod(x, d), ry = floor_divmod(y, d);
+    const int e = tab[(i < groups - 1 ? 0 : g.top_off) + rx + d * ry];
+    ax += (e & 0xffff) * w;
+    ay += (int)((unsigned)e >> 16) * w;
+    if (i < groups - 1) w *= sl;
+  }
+  ox = ax;
+  oy = ay;
+}
+
+// S > 0: s, k, L and the group count NG are constants; S == 0: all at run
+// time (NG = -1).
+template <int S, int K, int L, int NG>
 __global__ void __launch_bounds__(kThreads)
 lambda_kernel(const int* __restrict__ cx, const int* __restrict__ cy,
               int* __restrict__ ex, int* __restrict__ ey, long long count,
-              int r, int s, int k_rt, const int* __restrict__ h_lambda) {
-  extern __shared__ int hl[];  // (k, 2): tau_x, tau_y of each replica
-  const int k = K > 0 ? K : k_rt;
-  for (int t = threadIdx.x; t < 2 * k; t += blockDim.x) hl[t] = h_lambda[t];
+              LambdaGeom g, const int* __restrict__ table) {
+  extern __shared__ int tab[];
+  for (int t = threadIdx.x; t < g.entries; t += blockDim.x) tab[t] = table[t];
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < count; i += stride) {
-    int qx = cx[i], qy = cy[i];
-    int ax = 0, ay = 0, scale = 1;
-    for (int mu = 1; mu <= r; ++mu) {
-      const int beta = floor_divmod((mu & 1) ? qx : qy, k);
-      ax += hl[2 * beta] * scale;
-      ay += hl[2 * beta + 1] * scale;
-      if (mu < r) scale *= s;
-    }
-    ex[i] = ax;
-    ey[i] = ay;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long quads = g.vec ? count / 4 : 0;
+  for (long long i = first; i < quads; i += stride) {
+    const int4 x = reinterpret_cast<const int4*>(cx)[i];
+    const int4 y = reinterpret_cast<const int4*>(cy)[i];
+    int4 ox, oy;
+    lambda_one<S, K, L, NG>(x.x, y.x, g, tab, ox.x, oy.x);
+    lambda_one<S, K, L, NG>(x.y, y.y, g, tab, ox.y, oy.y);
+    lambda_one<S, K, L, NG>(x.z, y.z, g, tab, ox.z, oy.z);
+    lambda_one<S, K, L, NG>(x.w, y.w, g, tab, ox.w, oy.w);
+    reinterpret_cast<int4*>(ex)[i] = ox;
+    reinterpret_cast<int4*>(ey)[i] = oy;
+  }
+  for (long long i = 4 * quads + first; i < count; i += stride) {
+    int ox, oy;
+    lambda_one<S, K, L, NG>(cx[i], cy[i], g, tab, ox, oy);
+    ex[i] = ox;
+    ey[i] = oy;
   }
 }
 
-template <int S, int L, int NG>
-int launch_nu_kernel(const int* ex, const int* ey, int* cx, int* cy,
-                     uint8_t* valid, long long count, const NuGeom& g,
-                     const int* table, cudaStream_t stream) {
-  auto kernel = nu_kernel<S, L, NG>;
-  const size_t smem = (size_t)g.entries * sizeof(int);
+// A grid of as many CTAs as are resident at most, a thread a quad of
+// coordinates (or a coordinate); the kernel's table in `smem` bytes.
+template <typename Kernel>
+int persistent_ctas(Kernel kernel, long long items, size_t smem,
+                    long long& ctas) {
   int rc = 0, dev = 0, sms = 0, per_sm = 0;
   if (smem > 48 * 1024 &&
       (rc = (int)cudaFuncSetAttribute(
@@ -221,12 +276,52 @@ int launch_nu_kernel(const int* ex, const int* ey, int* cx, int* cy,
       (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, kernel, kThreads, smem)))
     return rc;
-  // a thread a quad of coordinates (or a coordinate), as many CTAs as are
-  // resident at most
-  const long long items = g.vec ? count / 4 + count % 4 : count;
-  long long ctas = (items + kThreads - 1) / kThreads;
+  ctas = (items + kThreads - 1) / kThreads;
   const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   if (ctas > resident) ctas = resident;
+  return 0;
+}
+
+template <int S, int K, int L, int NG>
+int launch_lambda_kernel(const int* cx, const int* cy, int* ex, int* ey,
+                         long long count, const LambdaGeom& g,
+                         const int* table, cudaStream_t stream) {
+  auto kernel = lambda_kernel<S, K, L, NG>;
+  const size_t smem = (size_t)g.entries * sizeof(int);
+  long long ctas = 0;
+  const int rc = persistent_ctas(
+      kernel, g.vec ? count / 4 + count % 4 : count, smem, ctas);
+  if (rc) return rc;
+  kernel<<<(unsigned)ctas, kThreads, smem, stream>>>(cx, cy, ex, ey, count,
+                                                     g, table);
+  return (int)cudaGetLastError();
+}
+
+// The instance of (s, k) = (S, K) compiled for `groups` groups.
+template <int S, int K, int L, int NG>
+int launch_lambda_groups(const int* cx, const int* cy, int* ex, int* ey,
+                         long long count, const LambdaGeom& g,
+                         const int* table, cudaStream_t stream) {
+  if (g.groups == NG)
+    return launch_lambda_kernel<S, K, L, NG>(cx, cy, ex, ey, count, g, table,
+                                             stream);
+  if constexpr (NG < max_groups(S, L))
+    return launch_lambda_groups<S, K, L, NG + 1>(cx, cy, ex, ey, count, g,
+                                                 table, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int S, int L, int NG>
+int launch_nu_kernel(const int* ex, const int* ey, int* cx, int* cy,
+                     uint8_t* valid, long long count, const NuGeom& g,
+                     const int* table, cudaStream_t stream) {
+  auto kernel = nu_kernel<S, L, NG>;
+  const size_t smem = (size_t)g.entries * sizeof(int);
+  long long ctas = 0;
+  const int rc = persistent_ctas(
+      kernel, g.vec ? count / 4 + count % 4 : count, smem, ctas);
+  if (rc) return rc;
   kernel<<<(unsigned)ctas, kThreads, smem, stream>>>(ex, ey, cx, cy, valid,
                                                      count, g, table);
   return (int)cudaGetLastError();
@@ -245,15 +340,6 @@ int launch_nu_groups(const int* ex, const int* ey, int* cx, int* cy,
                                           table, stream);
   else
     return (int)cudaErrorInvalidValue;
-}
-
-template <int K>
-int launch_lambda(const int* cx, const int* cy, int* ex, int* ey,
-                  long long count, int r, int s, int k, const int* h_lambda,
-                  cudaStream_t stream) {
-  lambda_kernel<K><<<grid_for(count), kThreads, 2 * k * sizeof(int),
-                     stream>>>(cx, cy, ex, ey, count, r, s, k, h_lambda);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -304,26 +390,48 @@ int sq_nu_map(const int* ex, const int* ey, int* cx, int* cy, uint8_t* valid,
   }
 }
 
-// lambda(w) over `count` int32 compact coordinates (any sign); s^r < 2^31;
-// h_lambda (k, 2) int32 on the card. Writes int32 ex, ey.
+// lambda(w) over `count` int32 compact coordinates (any sign), s^r < 2^31,
+// with the tables of lambda_map.lambda_tables on the card: `entries`
+// int32, k^L for a group of L = `levels` levels, then k^L more for the top
+// group where it has R < L levels. Writes int32 ex, ey.
 int sq_lambda_map(const int* cx, const int* cy, int* ex, int* ey,
-                  long long count, int r, int s, int k, const int* h_lambda,
-                  void* stream) {
-  if (count < 1 || r < 0 || s < 2 || k < 1)
+                  long long count, int r, int s, int k, int levels,
+                  const int* table, int entries, void* stream) {
+  if (count < 1 || r < 0 || s < 2 || k < 1 || levels < 2 || levels % 2)
     return (int)cudaErrorInvalidValue;
+  long long n = 1;
+  for (int mu = 0; mu < r && n < (1LL << 31); ++mu) n *= s;
+  const long long sl = ipow(s, levels), d = ipow(k, levels / 2);
+  if (n >= (1LL << 31) || sl > (1 << 16) || d >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int groups = (r + levels - 1) / levels;
+  const int top = groups > 0 ? r - (groups - 1) * levels : 0;
+  const long long want = d * d * (top > 0 && top < levels ? 2 : 1);
+  if (want != entries || (size_t)want * sizeof(int) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  LambdaGeom g;
+  g.d = (int)d;
+  g.sl = (int)sl;
+  g.groups = groups;
+  g.top_off = top > 0 && top < levels ? (int)(d * d) : 0;
+  g.entries = entries;
+  g.vec = (((uintptr_t)cx | (uintptr_t)cy | (uintptr_t)ex | (uintptr_t)ey) &
+           15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 3: return launch_lambda<3>(cx, cy, ex, ey, count, r, s, k, h_lambda,
-                                    st);
-    case 5: return launch_lambda<5>(cx, cy, ex, ey, count, r, s, k, h_lambda,
-                                    st);
-    case 7: return launch_lambda<7>(cx, cy, ex, ey, count, r, s, k, h_lambda,
-                                    st);
-    case 8: return launch_lambda<8>(cx, cy, ex, ey, count, r, s, k, h_lambda,
-                                    st);
-    default: return launch_lambda<0>(cx, cy, ex, ey, count, r, s, k,
-                                     h_lambda, st);
-  }
+  if (s == 2 && k == 3 && levels == kLambdaL2)
+    return launch_lambda_groups<2, 3, kLambdaL2, 0>(cx, cy, ex, ey, count, g,
+                                                    table, st);
+  if (s == 3 && k == 8 && levels == kLambdaL3)
+    return launch_lambda_groups<3, 8, kLambdaL3, 0>(cx, cy, ex, ey, count, g,
+                                                    table, st);
+  if (s == 3 && k == 5 && levels == kLambdaL3)
+    return launch_lambda_groups<3, 5, kLambdaL3, 0>(cx, cy, ex, ey, count, g,
+                                                    table, st);
+  if (s == 3 && k == 7 && levels == kLambdaL3)
+    return launch_lambda_groups<3, 7, kLambdaL3, 0>(cx, cy, ex, ey, count, g,
+                                                    table, st);
+  return launch_lambda_kernel<0, 0, 0, -1>(cx, cy, ex, ey, count, g, table,
+                                           st);
 }
 
 }  // extern "C"

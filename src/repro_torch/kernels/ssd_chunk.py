@@ -12,14 +12,16 @@ reference keeps it in XLA. B and C are shared by the heads (n_groups = 1);
 everything is float32. Its oracle is ``models.ssm._ssd_chunked``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The kernel's launches count in ``LAUNCHES['ssd_chunk_scan']``. The
-kernel holds a chunk in one CTA's shared memory, so it refuses a chunk
-whose layout does not fit (over 128 at N = 128; the shipped configurations
-use 128 or less).
+raises. The kernel's launches count in ``LAUNCHES['ssd_chunk_scan']``. On
+the card the products run on the tensor cores (3xTF32), the geometry from
+the pure ``ssd_plan``: a persistent grid over (chunk, head) units, each
+unit's x staged whole in one CTA's shared memory, which bounds the chunk
+(816 at P = 64; a longer one is refused).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,24 +31,61 @@ from repro_torch.kernels import build
 build.LAUNCHES.setdefault("ssd_chunk_scan", 0)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# x, dt, a, bm, cm, y, st, n_chunks, L, H, P, N, HG, stream
-_ARGS = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
+# x, dt, a, bm, cm, y, st, work, n_chunks, L, H, P, N, heads, ctas,
+# x_buffers, warps, stream
+_ARGS = [_P] * 8 + [_LL] + [_I] * 8 + [_P]
+
+#: shared bytes an SM of an H100 holds, and what each CTA reserves of it
+SM_SMEM, CTA_RESERVED = 233472, 1024
+#: SMs of an H100
+SMS = 132
 
 
-def smem_bytes(chunk: int, n: int, p: int) -> int:
-    """Shared bytes of one CTA's layout (``ssd_smem`` of the CUDA source):
-    B, C then one head's x, cb, and three chunk vectors."""
-    ns = -(-n // 32) * 32 + 4
-    xs = -(-p // 32) * 32
-    return 4 * chunk * (ns + max(ns, xs) + chunk + 4)
+class SsdPlan(NamedTuple):
+    """The kernel's geometry for one call (``ssd_plan``): what the C entry
+    takes, and the workspace's side."""
+    rows: int          # Lp, the chunk padded to whole 16-row tiles
+    heads: int         # (chunk, head) units one CTA takes at most
+    ctas: int          # the persistent grid
+    warps: int         # warps of a CTA: 16 an SM (two CTAs of 8, or one)
+    x_buffers: int     # 2: the next unit's x staged during this one's work
 
 
-def heads_per_cta(n_chunks: int, h: int) -> int:
-    """Heads of one CTA: the fewest groups of heads that give the grid
-    about ``build.PERSISTENT_CTAS`` CTAs (each CTA forms C B^T once for its
-    heads)."""
-    groups = min(h, max(1, -(-build.PERSISTENT_CTAS // n_chunks)))
-    return -(-h // groups)
+def smem_bytes(chunk: int, p: int, heads: int, x_buffers: int) -> int:
+    """Shared bytes of one CTA (``ssd_smem`` of the CUDA source): x_buffers
+    of Lp rows of x (P padded to 32, plus 4) and of w, cs and dt of
+    ``heads`` units, a ticket, and a done count and a ready flag a
+    buffer."""
+    lp = -(-chunk // 16) * 16
+    xs = -(-p // 32) * 32 + 4
+    return 4 * (x_buffers * lp * (xs + 1) + 2 * heads * lp + 1
+                + 2 * x_buffers)
+
+
+def ssd_plan(n_chunks: int, chunk: int, h: int, p: int) -> SsdPlan:
+    """The grid for ``n_chunks`` chunks of ``chunk`` rows and ``h`` heads
+    of width ``p``: two CTAs of 8 warps an SM where two x buffers fit them
+    (the next unit's x staged while a unit runs), else one CTA of 16 warps
+    with two x buffers, or with one; as many CTAs as are resident (at most
+    one a unit), the units split evenly (``heads`` at most each), more
+    CTAs than are resident only where a CTA's cs and dt would not fit.
+    Raises where one x does not fit a CTA's shared memory."""
+    if min(n_chunks, chunk, h, p) < 1:
+        raise ValueError(f"empty SSD call: {n_chunks} chunks of {chunk}, "
+                         f"{h} heads of {p}")
+    units = n_chunks * h
+    lp = -(-chunk // 16) * 16
+    for per_sm, xb in ((2, 2), (1, 2), (1, 1)):
+        budget = min(build.MAX_SMEM, SM_SMEM // per_sm - CTA_RESERVED)
+        # the units whose cs and dt fit beside x_buffers of x
+        room = (budget - smem_bytes(chunk, p, 0, xb)) // (8 * lp)
+        if room >= 1:
+            heads = min(-(-units // min(units, per_sm * SMS)), room)
+            return SsdPlan(lp, heads, -(-units // heads), 16 // per_sm, xb)
+    raise ValueError(
+        f"a chunk of {chunk} at P={p} takes "
+        f"{smem_bytes(chunk, p, 1, 1)} bytes of x, over one CTA's "
+        f"{build.MAX_SMEM} of shared memory")
 
 
 def ssd_chunk_plain(xc: torch.Tensor, dtc: torch.Tensor, a: torch.Tensor,
@@ -93,10 +132,7 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, a: torch.Tensor,
         return ssd_chunk_plain(xc, dtc, a, bc, cc)
     c, ll, h, p = xc.shape
     n = bc.shape[-1]
-    if smem_bytes(ll, n, p) > build.MAX_SMEM:
-        raise ValueError(
-            f"a chunk of {ll} at N={n}, P={p} takes {smem_bytes(ll, n, p)} "
-            f"bytes, over one CTA's {build.MAX_SMEM} of shared memory")
+    plan = ssd_plan(c, ll, h, p) if xc.numel() and n else None
     fn = build.c_function("ssd_chunk", "sq_ssd_chunk", _ARGS)
     if xc.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got "
@@ -104,13 +140,16 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, a: torch.Tensor,
     x, dt, av, bm, cm = (t.float().contiguous() for t in (xc, dtc, a, bc, cc))
     y = torch.empty_like(x)
     st = torch.empty((c, h, p, n), dtype=torch.float32, device=x.device)
-    if x.numel() == 0 or n == 0:
+    if plan is None:
         return y, st.zero_()
+    work = torch.empty((c, plan.rows, plan.rows), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), av.data_ptr(), bm.data_ptr(),
-                cm.data_ptr(), y.data_ptr(), st.data_ptr(), c, ll, h, p, n,
-                heads_per_cta(c, h), stream)
+                cm.data_ptr(), y.data_ptr(), st.data_ptr(), work.data_ptr(),
+                c, ll, h, p, n, plan.heads, plan.ctas, plan.x_buffers,
+                plan.warps, stream)
     build.finish_launch(rc, "ssd_chunk_scan")
     return y, st
 

@@ -567,20 +567,30 @@ def test_cuda_attention_matches_plain(cuda, case):
         assert bool((err <= bound).all()), float((err - bound).max())
 
 
-@pytest.mark.parametrize("shape", [(1, 40, 3, 8, 16, 16),
-                                   (2, 256, 4, 64, 128, 128)],
-                         ids=["ragged", "mamba2-width"])
-def test_cuda_ssd_matches_plain(cuda, shape):
-    """The intra-chunk kernel against its plain version, and the whole scan
-    (kernel and recurrence) against the chunked oracle, at 2e-5."""
-    b, s, h, p, n, chunk = shape
+def _ssd_inputs(cuda, b, s, h, p, n):
+    """x, dt (softplus), a (negative), B and C as the reference test draws
+    them, seeded by s, on the card."""
     g = torch.Generator().manual_seed(s)
     x = torch.randn((b, s, h, p), generator=g)
     dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g)
                                       - 1.0)
     a = -torch.exp(torch.randn(h, generator=g) * 0.3)
     bm, cm = (torch.randn((b, s, n), generator=g) * 0.5 for _ in range(2))
-    x, dt, a, bm, cm = (t.to(cuda) for t in (x, dt, a, bm, cm))
+    return [t.to(cuda) for t in (x, dt, a, bm, cm)]
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 3, 8, 16, 16),
+                                   (2, 256, 4, 64, 128, 128),
+                                   (1, 600, 4, 64, 128, 256),
+                                   (1, 1024, 2, 64, 128, 512)],
+                         ids=["ragged", "mamba2-width", "chunk256",
+                              "chunk512"])
+def test_cuda_ssd_matches_plain(cuda, shape):
+    """The intra-chunk kernel against its plain version, and the whole scan
+    (kernel and recurrence) against the chunked oracle, at 2e-5; chunks of
+    256 (S ragged) and 512 too."""
+    b, s, h, p, n, chunk = shape
+    x, dt, a, bm, cm = _ssd_inputs(cuda, b, s, h, p, n)
     xc, dtc, bc, cc = ts.to_chunks(x, dt, bm, cm, chunk)
     chunks = (xc, dtc, a, bc, cc)
     name = "ssd_chunk_scan"
@@ -598,11 +608,16 @@ def test_cuda_ssd_matches_plain(cuda, shape):
 
 
 def test_cuda_attention_and_ssd_refuse_bad_inputs(cuda):
-    """D over 256, inputs on two devices and a chunk over one CTA's shared
-    memory raise on the card; nothing falls back and nothing is counted."""
+    """D over 256 and inputs on two devices raise on the card; nothing
+    falls back and nothing is counted for them. A chunk of 256 at
+    mamba2-780m's widths (once refused: over one CTA's shared memory) runs
+    the kernel, counted once, never the plain version, and matches it."""
     q = torch.zeros((1, 1, 64, 320), device=cuda)
     chunks = [torch.zeros(s, device=cuda) for s in
               ((1, 16, 2, 8), (1, 16, 2), (2,), (1, 16, 8), (1, 16, 8))]
+    x, dt, a, bm, cm = _ssd_inputs(cuda, 1, 256, 2, 64, 128)
+    long = ts.to_chunks(x, dt, bm, cm, 256)
+    long = (long[0], long[1], a, long[2], long[3])
     before = dict(build.LAUNCHES)
     with mock.patch.object(ta, "attention_plain",
                            side_effect=AssertionError("fell back")), \
@@ -614,11 +629,15 @@ def test_cuda_attention_and_ssd_refuse_bad_inputs(cuda):
             ta.flash_attention(q[..., :64], q[..., :64].cpu(), q[..., :64])
         with pytest.raises(ValueError, match="one device"):
             ts.ssd_chunk(*chunks[:2], chunks[2].cpu(), *chunks[3:])
-        with pytest.raises(ValueError, match="shared memory"):
-            ts.ssd_chunk(*(torch.zeros(s, device=cuda) for s in (
-                (1, 256, 2, 64), (1, 256, 2), (2,), (1, 256, 128),
-                (1, 256, 128))))
-    assert build.LAUNCHES == before
+        assert build.LAUNCHES == before
+        got = ts.ssd_chunk(*long)
+    assert {n: v - before[n] for n, v in build.LAUNCHES.items() if
+            v != before[n]} == {"ssd_chunk_scan": 1}
+    for g, w in zip(got, ts.ssd_chunk_plain(*long)):
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
 
 # ------------------------------------------------------- distributed
 def _pieces(lay, wl, lead, k, seed=0, scale=1.0):
@@ -1173,6 +1192,39 @@ def test_cuda_nu_every_level_count_and_alignment(cuda, name):
         assert odd_x.is_contiguous() and odd_x.data_ptr() % 16
         for g, w in zip(nm.nu_map_tc(frac, r, odd_x, odd_y),
                         nm.nu_map_tc_plain(frac, r, ex[1:], ey[1:])):
+            assert torch.equal(g.cpu(), w), r
+
+
+@pytest.mark.parametrize("name", sorted(tf.REGISTRY))
+def test_cuda_lambda_every_level_count_and_alignment(cuda, name):
+    """lambda bit for bit against its plain version at r in {0, 1, 2, 3,
+    an r whose top group is short, the largest r}; over counts of 1, 3 and
+    4n + 1 (the scalar tail), compact coordinates negative and past the
+    edges, and a contiguous view that is not 16-byte aligned (the kernel's
+    scalar path)."""
+    frac = tf.REGISTRY[name]
+    rng = np.random.default_rng(10)
+    top = nm.max_int32_level(frac)
+    short = min(top, 2 * lm.lambda_plan(frac, 0).levels + 1)
+    for r in sorted({0, 1, 2, 3, short, top}):
+        rows, cols = frac.compact_dims(r)
+        cx, cy = (torch.from_numpy(rng.integers(
+            max(-2 * side, -2 ** 31), min(2 * side, 2 ** 31),
+            size=4 * 257 + 1).astype(np.int32)) for side in (cols, rows))
+        cx[:4] = torch.tensor([-1, 0, cols - 1, cols], dtype=torch.int32)
+        cy[:4] = torch.tensor([rows, rows - 1, 0, -1], dtype=torch.int32)
+        for count in (1, 3, cx.numel()):
+            a, b = cx[:count], cy[:count]
+            sk.reset_launches()
+            got = lm.lambda_map_tc(frac, r, a.to(cuda), b.to(cuda))
+            assert sk.LAUNCHES["lambda_map_tc"] == 1
+            for g, w in zip(got, lm.lambda_map_tc_plain(frac, r, a, b)):
+                assert torch.equal(g.cpu(), w), (r, count)
+        flat = torch.cat([cx, cy]).to(cuda)
+        odd_x, odd_y = flat[1:cx.numel()], flat[cx.numel() + 1:]
+        assert odd_x.is_contiguous() and odd_x.data_ptr() % 16
+        for g, w in zip(lm.lambda_map_tc(frac, r, odd_x, odd_y),
+                        lm.lambda_map_tc_plain(frac, r, cx[1:], cy[1:])):
             assert torch.equal(g.cpu(), w), r
 
 
