@@ -170,7 +170,28 @@ jax or the reference package). Phases, each printing one JSON line:
      operations in FP32 and as its design runs them (3xTF32), the
      registers of its two kernels, and its time at chunks of 256 and 512
      at the same S; their rows join the ``kernels`` line (thirteen rows;
-     attention's launches summed over its three bodies).
+     attention's launches summed over its three bodies);
+ 17. the fault-tolerant simulation service on the main path's layout
+     (sierpinski r=16 m=2, the ``shared_layout`` phases 4 and 12 built:
+     no new layout is built), with telemetry on: six requests
+     (``SERVE_REQUESTS``: four cuda-fused LIFE with snapshots every 8
+     steps, the last submitted once the bucket runs so it joins the batch
+     of four; one cuda-mxu HEAT; one dist-fused LIFE over 4 shards on
+     cuda:0 with sharded checkpoints) through ``FractalService`` and a
+     ``BatchedRunner`` on the card, every final state and snapshot held
+     against an uninterrupted ``runner.run`` of its seed (CA bit for bit,
+     HEAT at rtol = atol = 1e-5); the same requests again under a
+     ``FaultInjector`` (a corrupt checkpoint, an exception at the next
+     segment, whose restore falls back past the damaged step, and a stall
+     past the hang threshold), one bucket at a time, equal to the same
+     references, with ``serve.retries``, ``serve.restarts``,
+     ``serve.recoveries``, ``checkpoint.fallbacks`` and
+     ``watchdog.hangs`` exactly what was injected; a checkpoint of one
+     LIFE state saved and restored, timed; ``ElasticDistributedRunner``
+     over 4 shards losing a device at launch 2, resharded to 2 and equal to
+     cuda-fused bit for bit; the service's time a step beside the runner's
+     for a batch of four; and the phase's kernel launches (v3/v4, v5 and
+     kernel 6 must have run).
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -294,6 +315,24 @@ DIST_CHECK = [("sierpinski", 13, 2), ("carpet", 7, 1), ("vicsek", 9, 1)]
 #: visible cards: all on cuda:0 on one card)
 DIST_MAIN = ("sierpinski", 16, 2)
 DIST_SHARDS = 4
+#: phase 17, the simulation service on the main path's layout: requests
+#: (kind, workload, seed, steps, snapshot_every), served by one
+#: ``FractalService``; the last is submitted once the first bucket runs, so
+#: it joins that batch
+SERVE_MAIN = ("sierpinski", 16, 2)
+SERVE_REQUESTS = [("cuda-fused", "life", 0, 48, 8),
+                  ("cuda-fused", "life", 1, 24, 8),
+                  ("cuda-fused", "life", 2, 32, 8),
+                  ("cuda-mxu", "heat", 4, 16, 0),
+                  ("dist-fused", "life", 5, 24, 8),
+                  ("cuda-fused", "life", 3, 24, 8)]
+#: the chaos run's hang threshold and injected stall (seconds): a segment
+#: of the main path takes milliseconds, so only the stall trips it
+SERVE_HANG_S = 2.0
+SERVE_STALL_S = 3.0
+#: the elastic run: seed, steps, checkpoint cadence, the launch that loses
+#: a device (4 -> 2 shards)
+ELASTIC = dict(seed=9, steps=16, ckpt_every=4, lost_at=2)
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -1799,6 +1838,292 @@ def phase_attention_ssd_timing(torch, chk, ta, ts, launches, ssd_regs):
     return rows
 
 
+def phase_serving(torch, F, R, shared_layout, build):
+    """Phase 17: the fault-tolerant simulation service and the elastic
+    runner on the main path's layout (module docstring, item 17)."""
+    import asyncio
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.device import synchronize
+    from repro_torch.core.elastic import ElasticDistributedRunner
+    from repro_torch.core.stencil import make_engine
+    from repro_torch.runtime.fault import Fault, FaultInjector
+    from repro_torch.serving import FractalService, ServiceConfig, SimRequest
+    from repro_torch.workloads import BatchedRunner
+
+    name, r, m = SERVE_MAIN
+    frac = F.REGISTRY[name]
+    misses = shared_layout.cache_info().misses
+    lay = shared_layout(frac, r, m)
+    launches0 = dict(build.LAUNCHES)
+    was_enabled = obs.enabled()
+    obs.enable(True)
+    obs.reset()
+    reg = obs.default_registry()
+    runner = BatchedRunner()
+
+    def requests(prefix):
+        return [SimRequest(
+            frac=frac, r=r, m=m, kind=kind, workload=R.get_workload(wl),
+            seed=seed, steps=steps, snapshot_every=snap,
+            n_shards=DIST_SHARDS if kind.startswith("dist-") else None,
+            rid=f"{prefix}-{seed}")
+            for kind, wl, seed, steps, snap in SERVE_REQUESTS]
+
+    def serve(svc, reqs):
+        """Serve ``reqs``; the last is submitted once a segment of its
+        bucket has started, so it joins the running batch."""
+        async def go():
+            await svc.start()
+            try:
+                futs = [asyncio.ensure_future(svc.submit(q))
+                        for q in reqs[:-1]]
+                t0 = time.perf_counter()
+                while not reg.value("serve.segments", kind=reqs[-1].kind):
+                    if time.perf_counter() - t0 > 600:
+                        raise AssertionError("serving: no segment in 600 s")
+                    await asyncio.sleep(0.002)
+                futs.append(asyncio.ensure_future(svc.submit(reqs[-1])))
+                return await asyncio.gather(*futs)
+            finally:
+                await svc.stop()
+        t = time.perf_counter()
+        res = asyncio.run(go())
+        # join the worker threads (an abandoned stall among them), so no
+        # leftover launch overlaps what is timed next
+        for th in threading.enumerate():
+            if th.name.startswith("serve_"):
+                th.join(timeout=60)
+        return res, time.perf_counter() - t
+
+    def host(q, eng, state):
+        dist = q.kind.startswith("dist-")
+        return (eng.to_dense(state) if dist else state[0]).cpu().numpy()
+
+    def uninterrupted(q):
+        """{step: host state} of one ``runner.run`` of q's seed in legs of
+        ``snapshot_every`` steps (one leg without snapshots)."""
+        eng = runner.engine_for(q.bucket, frac=frac, workload=q.workload)
+        state = eng.init_random(q.seed)
+        if not q.kind.startswith("dist-"):
+            state = state[None]
+        legs, done = {}, 0
+        while done < q.steps:
+            n = min(q.snapshot_every or q.steps, q.steps - done)
+            state = runner.run(q.bucket, states=state, steps=n, frac=frac,
+                               workload=q.workload)
+            done += n
+            legs[done] = host(q, eng, state)
+        return legs
+
+    def max_err(got, want, exact, what):
+        """Largest |served - run|: 0 for CA (bit for bit), within
+        rtol = atol = 1e-5 for floats."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs "
+                                 f"{want.shape}/{want.dtype}")
+        if exact:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{what}: {int((got != want).sum())} "
+                                     "cells differ")
+            return 0.0
+        diff = np.abs(got - want)
+        if not (np.isfinite(got).all() and (diff <= FLOAT_TOL["atol"] + (
+                FLOAT_TOL["rtol"] * np.abs(want))).all()):
+            raise AssertionError(f"{what}: max |served - run| = "
+                                 f"{float(diff.max())}")
+        return float(diff.max())
+
+    def check_results(res, reqs, refs, what):
+        errs = {}
+        for q, out in zip(reqs, res):
+            if out.status != "ok" or out.steps_done != q.steps:
+                raise AssertionError(f"{what}/{q.rid}: {out.status} at "
+                                     f"{out.steps_done}: {out.error}")
+            want = refs[q.seed]
+            snaps = dict(out.snapshots)
+            if sorted(snaps) != sorted(want)[:-1]:
+                raise AssertionError(f"{what}/{q.rid}: snapshots at "
+                                     f"{sorted(snaps)}")
+            exact = q.workload.dtype != torch.float32
+            errs[q.rid] = max(
+                [max_err(out.state, want[q.steps], exact, what)]
+                + [max_err(v, want[step], exact, f"{what}@{step}")
+                   for step, v in snaps.items()])
+        return errs
+
+    def counts(*names):
+        return {n: sum(mm.value for mm in reg.metrics() if mm.name == n)
+                for n in names}
+
+    with tempfile.TemporaryDirectory(prefix="squeeze-serving-") as tmp:
+        # -- the six requests, served clean
+        base = dict(max_batch=4, backoff_base_s=0.01, backoff_cap_s=0.05)
+        svc = FractalService(ServiceConfig(
+            ckpt_dir=f"{tmp}/clean", hang_threshold_s=10 * SERVE_HANG_S,
+            **base), runner)
+        clean_reqs = requests("clean")
+        clean, clean_s = serve(svc, clean_reqs)
+        batches = counts("serve.batches", "serve.joins")
+        max_batch = reg.get("serve.batch_size", kind="cuda-fused").max
+        recovery = counts("serve.retries", "serve.restarts",
+                          "serve.recoveries")
+        if any(recovery.values()) or max_batch != 4:
+            raise AssertionError(f"serving/clean: recovery {recovery}, "
+                                 f"largest cuda-fused batch {max_batch}")
+        refs = {q.seed: uninterrupted(q) for q in clean_reqs}
+        clean_errs = check_results(clean, clean_reqs, refs, "serving/clean")
+        save_h = reg.get("checkpoint.save_seconds")
+        emit("serving", fractal=frac.name, r=r, m=m,
+             state_bytes=int(refs[0][48].nbytes), seconds=clean_s,
+             latency_s={q.rid: o.latency_s for q, o in zip(clean_reqs,
+                                                          clean)},
+             queue_wait_s={q.rid: o.queue_wait_s
+                           for q, o in zip(clean_reqs, clean)},
+             snapshots={q.rid: len(o.snapshots)
+                        for q, o in zip(clean_reqs, clean)},
+             max_abs_err=clean_errs, largest_cuda_fused_batch=max_batch,
+             checkpoint_saves=save_h.count,
+             checkpoint_save_seconds_mean=save_h.mean, **batches)
+
+        # -- the same requests under chaos, one bucket at a time so the
+        #    segment indices of the faults are the cuda-fused bucket's; the
+        #    runner is warm (kernels built, engines cached), so a batch
+        #    size's first segment gets no more time than any other
+        obs.reset()
+        inj = FaultInjector([
+            Fault("corrupt", at_segment=1, target_rid="chaos-0"),
+            Fault("exception", at_segment=2),
+            Fault("stall", at_segment=5, stall_s=SERVE_STALL_S)])
+        svc = FractalService(ServiceConfig(
+            ckpt_dir=f"{tmp}/chaos", hang_threshold_s=SERVE_HANG_S,
+            compile_grace_s=SERVE_HANG_S, max_inflight=1, **base), runner,
+            injector=inj)
+        chaos_reqs = requests("chaos")
+        chaos, chaos_s = serve(svc, chaos_reqs)
+        if not inj.all_fired():
+            raise AssertionError(f"serving/chaos: faults not fired "
+                                 f"{inj.pending()}")
+        chaos_errs = check_results(chaos, chaos_reqs, refs, "serving/chaos")
+        got = counts("serve.retries", "serve.restarts", "serve.recoveries",
+                     "checkpoint.fallbacks", "checkpoint.corrupt",
+                     "watchdog.hangs")
+        want = {"serve.retries": 1, "serve.restarts": 1,
+                "serve.recoveries": 2, "checkpoint.fallbacks": 1,
+                "checkpoint.corrupt": 1, "watchdog.hangs": 1}
+        if got != want:
+            raise AssertionError(f"serving/chaos: counts {got}, injected "
+                                 f"{want}")
+        rec = reg.get("serve.recovery_seconds", kind="cuda-fused")
+        recovery_s = rec.mean
+        emit("serving_chaos", seconds=chaos_s, injected=inj.log, **got,
+             recovery_seconds_mean=recovery_s, recovery_seconds_max=rec.max,
+             hang_threshold_s=SERVE_HANG_S, stall_s=SERVE_STALL_S,
+             max_abs_err=chaos_errs,
+             latency_s={q.rid: o.latency_s
+                        for q, o in zip(chaos_reqs, chaos)})
+
+        # -- a checkpoint of one LIFE state, saved and restored
+        state = clean[0].state
+        mgr = CheckpointManager(f"{tmp}/one")
+        t = time.perf_counter()
+        mgr.save(1, {"state": state})
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = mgr.restore({"state": state})["state"]
+        restore_s = time.perf_counter() - t
+        if not np.array_equal(back, state):
+            raise AssertionError("serving: checkpoint round trip differs")
+
+        # -- elastic: 4 shards, a device lost at a launch, 2 shards on
+        e = ELASTIC
+        ref_eng = make_engine("cuda-fused", frac, r, m, workload=R.LIFE)
+        want_el = ref_eng.run(ref_eng.init_random(e["seed"]), e["steps"])
+        inj = FaultInjector([Fault("device_loss", at_segment=e["lost_at"],
+                                   shard=1)])
+        with ElasticDistributedRunner(
+                lay, n_shards=DIST_SHARDS, workload=R.LIFE,
+                compute="fused", ckpt_dir=f"{tmp}/elastic",
+                ckpt_every=e["ckpt_every"],
+                launch_timeout_s=10 * SERVE_HANG_S, backoff_base_s=0.01,
+                backoff_cap_s=0.05, injector=inj) as el:
+            t = time.perf_counter()
+            out = el.run(e["steps"], seed=e["seed"])
+            synchronize(out)
+            elastic_s = time.perf_counter() - t
+            got_el = el.engine.to_dense(out)
+            st = el.stats
+            if el.n_shards != DIST_SHARDS // 2 or st.reshards != 1 or \
+                    not torch.equal(got_el, want_el):
+                raise AssertionError(
+                    f"serving/elastic: {el.n_shards} shards, {st}, equal "
+                    f"{torch.equal(got_el, want_el)}")
+        emit("serving_elastic", shards_before=DIST_SHARDS,
+             shards_after=el.n_shards, steps=e["steps"],
+             seconds=elastic_s, reshard_recovery_seconds=st.recovery_seconds,
+             launches=st.launches, restores=st.restores,
+             checkpoints=st.checkpoints, max_abs_err=float(
+                 (got_el.double() - want_el.double()).abs().max()))
+
+        # -- the service's time a step beside the runner's, one bucket:
+        #    four LIFE requests of 64 steps, no snapshots or checkpoints
+        steps = 64
+        timing = [SimRequest(frac=frac, r=r, m=m, kind="cuda-fused",
+                             seed=s, steps=steps, rid=f"time-{s}")
+                  for s in range(4)]
+        svc = FractalService(ServiceConfig(
+            hang_threshold_s=10 * SERVE_HANG_S, **base), runner)
+        svc.serve(timing)            # warm: the batch of four
+        obs.reset()
+        t = time.perf_counter()
+        res = svc.serve(timing)
+        serve_s = time.perf_counter() - t
+        if not all(o.ok for o in res):
+            raise AssertionError("serving/timing: a request failed")
+        seg = reg.get("watchdog.step_seconds", watchdog="serve")
+        bucket = timing[0].bucket
+        eng = runner.engine_for(bucket, frac=frac, workload=R.LIFE)
+        states = torch.stack([eng.init_random(q.seed) for q in timing])
+        runner.run(bucket, states=states, steps=steps, frac=frac)
+        synchronize(states)
+        t = time.perf_counter()
+        ran = runner.run(bucket, states=states, steps=steps, frac=frac)
+        synchronize(ran)
+        run_s = time.perf_counter() - t
+        for q, o in zip(timing, res):
+            if not np.array_equal(o.state, ran[q.seed].cpu().numpy()):
+                raise AssertionError(f"serving/timing: {q.rid} differs")
+
+    deltas = {k: v - launches0.get(k, 0) for k, v in build.LAUNCHES.items()
+              if v != launches0.get(k, 0)}
+    grew = {"v3 or v4": deltas.get("stencil_step_fused", 0)
+            + deltas.get("stencil_step_fused_k", 0),
+            "v5": deltas.get("stencil_step_mxu_batched", 0),
+            "kernel 6": deltas.get("stencil_step_fused_k_local", 0)}
+    if not all(grew.values()):
+        raise AssertionError(f"serving: kernels not launched {grew}")
+    if shared_layout.cache_info().misses != misses:
+        raise AssertionError("serving: a new r=16 layout was built")
+    emit("serving_numbers", card=nvidia_smi(), launches=deltas,
+         kernels_grew=grew, batch=4, steps=steps,
+         service_seconds=serve_s, service_ms_per_step=1e3 * serve_s / steps,
+         service_segment_ms_per_step=1e3 * seg.sum / steps,
+         runner_ms_per_step=1e3 * run_s / steps,
+         checkpoint_save_seconds=save_s,
+         checkpoint_restore_seconds=restore_s,
+         checkpoint_state_bytes=int(state.nbytes),
+         recovery_seconds_mean=recovery_s,
+         reshard_recovery_seconds=st.recovery_seconds[0])
+    obs.enable(was_enabled)
+    del runner, svc, ref_eng, want_el, got_el, out, el, eng, states, ran
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2235,6 +2560,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_attention_ssd_timing(torch, chk, ta, ts, launches_a,
                                        ssd_regs)
+    torch.cuda.empty_cache()
+
+    # 17. the simulation service on the main path's layout ----------------
+    phase_serving(torch, F, R, shared_layout, build)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

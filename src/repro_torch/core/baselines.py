@@ -25,7 +25,7 @@ from repro_torch.workloads.base import (MOORE_DIRS, StencilWorkload,
                                         check_workload_ndim,
                                         weighted_gather_agg,
                                         weighted_moore_agg)
-from repro_torch.workloads.rules import LIFE
+from repro_torch.workloads.rules import LIFE, life_rule  # noqa: F401
 
 #: bytes of int32/f32 aggregate one BB row band may hold: bounds the
 #: temporaries of a step at the paper's r=16 (65536^2 cells)

@@ -15,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def synchronize(state) -> None:
+    """Wait until the cards holding ``state`` (a tensor or a tuple of
+    shard tensors) have finished its work; nothing to wait for on the
+    CPU."""
+    shards = state if isinstance(state, tuple) else (state,)
+    for dev in {t.device for t in shards}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

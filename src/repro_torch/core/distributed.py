@@ -54,6 +54,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compact import BlockLayout, StripDecomposition
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import squeeze_stencil as sk
@@ -238,12 +239,27 @@ class DistributedSqueezeEngine:
     def _account(self, k: int, batch: int) -> None:
         st = self._stats
         if self.exchange_mode == "p2p":
-            st.bytes_permuted += self.permute_bytes(k, batch)
-            st.neighbor_sends += 2 * (self.n_shards - 1)
+            gathered = 0
+            permuted = self.permute_bytes(k, batch)
+            sends = 2 * (self.n_shards - 1)
         else:
-            st.bytes_gathered += self.strip_bytes(k, batch)
+            gathered = self.strip_bytes(k, batch)
+            permuted = sends = 0
+        st.bytes_gathered += gathered
+        st.bytes_permuted += permuted
+        st.neighbor_sends += sends
         st.steps += k
         st.collectives += 1
+        if obs.enabled():
+            # the same accounting on the telemetry registry, labeled by
+            # the compute backend
+            obs.inc("dist.steps", k, compute=self.compute)
+            obs.inc("dist.collectives", compute=self.compute)
+            obs.inc("dist.bytes_gathered", gathered, compute=self.compute)
+            obs.inc("dist.bytes_permuted", permuted, compute=self.compute)
+            obs.inc("dist.neighbor_sends", sends, compute=self.compute)
+            obs.inc("engine.fused_launches", engine=type(self).__name__,
+                    variant=self.compute)
 
     def memory_bytes(self, dtype_size: Optional[int] = None) -> int:
         """All shards' state bytes, padding blocks included."""
@@ -634,8 +650,10 @@ class DistributedSqueezeEngine:
         depths = [k] * (steps // k) + ([steps % k] if steps % k else [])
         bufs = [tuple(torch.empty_like(s) for s in s5) for _ in range(2)]
         cur = s5
-        for i, depth in enumerate(depths):
-            cur = self._launch(cur, bufs[i % 2], depth)
+        with obs.span("dist.run", compute=self.compute, steps=steps, k=k,
+                      batch=s5[0].shape[0]):
+            for i, depth in enumerate(depths):
+                cur = self._launch(cur, bufs[i % 2], depth)
         return self._uncanon(cur, batched)
 
 

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.baselines import BBEngine, LambdaEngine, _generator
 from repro_torch.core.compact import (BlockLayout, compact_meshgrid,
                                       compact_to_expanded, shared_layout)
@@ -153,9 +154,26 @@ class _BlockEngine:
     def memory_bytes(self, dtype_size: int = 1) -> int:
         return self.workload.n_channels * self.layout.memory_bytes(dtype_size)
 
+    def _count_run(self, steps: int) -> None:
+        """With telemetry on: the run, its steps, fused launches and
+        single steps, labeled by engine class and kernel variant."""
+        if not obs.enabled():
+            return
+        k = self.effective_fusion_k
+        lbl = dict(engine=type(self).__name__,
+                   variant=getattr(self, "variant", ""))
+        obs.inc("engine.runs", **lbl)
+        obs.inc("engine.steps", steps, **lbl)
+        if k > 1:
+            obs.inc("engine.fused_launches", steps // k, **lbl)
+            obs.inc("engine.single_steps", steps % k, **lbl)
+        else:
+            obs.inc("engine.single_steps", steps, **lbl)
+
     def run(self, state: torch.Tensor, steps: int) -> torch.Tensor:
         """floor(steps/k) fused k-step calls plus steps % k single
         steps."""
+        self._count_run(steps)
         k = self.effective_fusion_k
         if k > 1:
             for _ in range(steps // k):
@@ -178,6 +196,7 @@ class _KernelEngine(_BlockEngine):
         """floor(steps/k) k-step launches plus steps % k single steps,
         ping-ponging between two engine-owned buffers; ``state`` is never
         written. A leading batch axis is stepped natively."""
+        self._count_run(steps)
         k = self.effective_fusion_k
         if steps == 0:
             return state
@@ -316,19 +335,25 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
         spec = EngineSpec.from_args(kind, frac, r, m, workload, fusion_k,
                                     macro_p, exchange, n_shards)
     norm = spec.normalize()
+    frac = frac if frac is not None else norm.build_frac()
+    workload = workload if workload is not None else norm.build_workload()
+    engine = _make_engine(norm, frac, workload, device)
+    if obs.enabled():
+        obs.inc("engine.builds", kind=norm.kind)
+        obs.set_gauge("engine.memory_bytes", engine.memory_bytes(
+            dtype_size=workload.dtype.itemsize), kind=norm.kind)
+    return engine
+
+
+def _make_engine(norm: EngineSpec, frac, workload: StencilWorkload, device):
     if norm.is_dist:
         from repro_torch.core.distributed import make_distributed_engine
         return make_distributed_engine(
-            shared_layout(frac if frac is not None else norm.build_frac(),
-                          norm.r, norm.m),
-            n_shards=norm.n_shards, device=device,
-            workload=workload if workload is not None
-            else norm.build_workload(),
+            shared_layout(frac, norm.r, norm.m), n_shards=norm.n_shards,
+            device=device, workload=workload,
             compute=_DIST_COMPUTE[norm.kind], fusion_k=norm.fusion_k,
             exchange=norm.exchange, macro_p=norm.macro_p)
     dev = str(resolve_device(device))
-    frac = frac if frac is not None else norm.build_frac()
-    workload = workload if workload is not None else norm.build_workload()
     kind, r, m = norm.kind, norm.r, norm.m
     if norm.is_3d:
         from repro_torch.core import stencil3d as s3

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 FP32, TC, SPLIT = ("flash_attention", "flash_attention[tc]",
@@ -164,6 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype. Sq and Sk must divide by ``bq`` and ``bk`` (each first cut to
     its length), as the reference asserts; the kernels tile by their own
     sizes whatever they are (``plan``)."""
+    obs.inc("kernel.entry", op="flash_attention")
     _check(q, k, v, bq, bk)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import maps
 from repro_torch.core.fractals import NBBFractal
 from repro_torch.kernels import build
@@ -135,6 +136,7 @@ def lambda_map_tc(frac: NBBFractal, r: int, cx: torch.Tensor,
                   cy: torch.Tensor):
     """lambda(w) of compact coordinates: int32 (ex, ey) in the input's
     shape."""
+    obs.inc("kernel.entry", op="lambda_map_tc")
     check_level(frac, r, MAX_R)
     if cx.device.type == "cpu" and cy.device.type == "cpu":
         return lambda_map_tc_plain(frac, r, cx, cy)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import maps
 from repro_torch.core.fractals import NBBFractal
 from repro_torch.kernels import build
@@ -157,6 +158,7 @@ def nu_map_tc(frac: NBBFractal, r: int, ex: torch.Tensor, ey: torch.Tensor):
     """nu(w) and membership of expanded coordinates (clipped to the grid;
     off the grid is not a member): int32 cx, cy and bool valid in the
     input's shape."""
+    obs.inc("kernel.entry", op="nu_map_tc")
     check_level(frac, r, MAX_R)
     if ex.device.type == "cpu" and ey.device.type == "cpu":
         return nu_map_tc_plain(frac, r, ex, ey)

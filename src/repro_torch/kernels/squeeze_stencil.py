@@ -58,6 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compact import BlockLayout, halo_regions
 from repro_torch.kernels import build
 from repro_torch.workloads.base import (StencilWorkload, banded_operators,
@@ -335,6 +336,7 @@ def _gather_halo_strips(layout: BlockLayout, s: torch.Tensor,
 def gather_halo_strips(layout: BlockLayout, state: torch.Tensor
                        ) -> torch.Tensor:
     """Single-channel entry point: (nb, rho, rho) -> (nb, 4, rho+2)."""
+    obs.inc("kernel.entry", op="gather_halo_strips")
     return _gather_halo_strips(layout, state[None])[0]
 
 
@@ -654,6 +656,7 @@ def stencil_step_blocks(layout: BlockLayout, state: torch.Tensor,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v1: one step, the center and its 8 Moore-neighbor blocks staged
     whole. ``state`` (B?, C?, nb, rho, rho) -> same; ``out`` as for v3."""
+    obs.inc("kernel.entry", op="stencil_step_blocks")
     if state.device.type == "cpu":
         return _into(state, stencil_step_blocks_plain(layout, state,
                                                       workload), out)
@@ -666,6 +669,7 @@ def stencil_step_strips(layout: BlockLayout, state: torch.Tensor,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v2: one step from the center and its halo strips; the strips the
     workload reads (``halo_needs``) are gathered on the card first."""
+    obs.inc("kernel.entry", op="stencil_step_strips")
     if state.device.type == "cpu":
         return _into(state, stencil_step_strips_plain(layout, state,
                                                       workload), out)
@@ -697,6 +701,7 @@ def stencil_step_fused(layout: BlockLayout, state: torch.Tensor,
     """v3: one step, v4 at k = 1. ``state`` (B?, C?, nb, rho, rho) -> same;
     ``out`` receives the result on the card (it must not alias
     ``state``)."""
+    obs.inc("kernel.entry", op="stencil_step_fused")
     if state.device.type == "cpu":
         return _into(state, stencil_step_fused_plain(layout, state,
                                                      workload), out)
@@ -707,6 +712,7 @@ def stencil_step_fused_k(layout: BlockLayout, state: torch.Tensor,
                          workload: StencilWorkload = LIFE, *, k: int = 2,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v4: ``k`` exact steps in one launch, 1 <= k <= rho."""
+    obs.inc("kernel.entry", op="stencil_step_fused_k")
     _check_k(layout, k, "the fused kernel")
     if state.device.type == "cpu":
         return _into(state, stencil_step_fused_k_plain(layout, state,
@@ -725,6 +731,7 @@ def stencil_step_mxu_batched(layout: BlockLayout, states: torch.Tensor,
     from ``mxu_plan``); states (B, C?, nb, rho, rho) -> same. ``p``
     overrides the slots per CTA work item (None = ``layout.macro_tiles``
     default); the result does not depend on it."""
+    obs.inc("kernel.entry", op="stencil_step_mxu_batched")
     _check_k(layout, k, "the mxu kernel")
     if states.device.type == "cpu":
         return _into(states, stencil_step_mxu_batched_plain(
@@ -832,6 +839,7 @@ def stencil_step_fused_k_local(layout: BlockLayout, state: torch.Tensor,
     there); ``halo`` = (top, bot, west, east) with top/bot (B?, C, nbl, k,
     rho+2k) and west/east (B?, C, nbl, rho, k); ``existence`` (nbl, 8)
     int32 {0, 1} (padding blocks all zero)."""
+    obs.inc("kernel.entry", op="stencil_step_fused_k_local")
     _check_k(layout, k, "the fused kernel")
     if state.device.type == "cpu":
         return _into(state, stencil_step_fused_k_local_plain(
@@ -862,6 +870,7 @@ def stencil_step_mxu_k_local(layout: BlockLayout, states: torch.Tensor,
     blocks in one launch, in work items packed with
     ``layout.macro_tiles_for(nbl, k, p)``. ``states`` (B, C, nbl, rho,
     rho), the pieces with the same (B, C) axes, ``existence`` (nbl, 8)."""
+    obs.inc("kernel.entry", op="stencil_step_mxu_k_local")
     _check_k(layout, k, "the mxu kernel")
     if states.device.type == "cpu":
         return _into(states, stencil_step_mxu_k_local_plain(

@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compact3d import BlockLayout3D, halo_regions3
 from repro_torch.kernels import build
 from repro_torch.kernels.squeeze_stencil import _check_cuda, _into
@@ -407,6 +408,7 @@ def stencil3d_step_fused_k(layout: BlockLayout3D, state: torch.Tensor,
     """3D v4: ``k`` exact steps in one launch, 1 <= k <= rho. ``state``
     (B?, nb, rho, rho, rho) -> same; ``out`` receives the result on the
     card (it must not alias ``state``)."""
+    obs.inc("kernel.entry", op="stencil3d_step_fused_k")
     check_workload3d(workload)
     _check_k(layout, k, "the fused 3D kernel")
     batch = _check_shape(layout, state)
@@ -445,6 +447,7 @@ def stencil3d_step_mxu_k(layout: BlockLayout3D, state: torch.Tensor,
     """3D v5: ``k`` exact steps in one launch over P-block CTAs (``p``
     overrides ``layout.macro_tiles``'s P; the result does not depend on
     it). ``state`` (B?, nb, rho, rho, rho) -> same."""
+    obs.inc("kernel.entry", op="stencil3d_step_mxu_k")
     check_workload3d(workload)
     _check_k(layout, k, "the mxu 3D kernel")
     batch = _check_shape(layout, state)

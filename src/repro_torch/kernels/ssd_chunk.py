@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 build.LAUNCHES.setdefault("ssd_chunk_scan", 0)
@@ -181,6 +182,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Full SSD scan: the intra-chunk kernel and the inter-chunk recurrence.
     x (B,S,H,P); dt (B,S,H) fp32 post-softplus; a (H,) negative; bm/cm
     (B,S,N) (n_groups=1). Returns (B,S,H,P) fp32."""
+    obs.inc("kernel.entry", op="ssd_chunk_scan")
     b, s, h, p = x.shape
     n = bm.shape[-1]
     xc, dtc, bc, cc = to_chunks(x, dt, bm, cm, chunk)

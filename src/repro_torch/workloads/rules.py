@@ -37,6 +37,14 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 MAX_COUNT = 26
 
 
+def life_rule(alive: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
+    """Conway B3/S23 on a state and its neighbor counts, uint8 out (the
+    paper's Section 4 rule)."""
+    born = neighbors == 3
+    survive = (alive > 0) & (neighbors == 2)
+    return (born | survive).to(torch.uint8)
+
+
 def count_mask(counts: FrozenSet[int]) -> int:
     """A neighbor-count set as a 27-bit mask (bit c set iff c in counts)."""
     if any(not 0 <= c <= MAX_COUNT for c in counts):

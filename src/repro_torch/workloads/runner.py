@@ -28,16 +28,28 @@ as in 2D.
 Every public method takes an ``EngineSpec`` first -- ``run(spec, states,
 steps)`` -- or the argument list ``run(kind, frac, r, states, steps, ...)``.
 The runner's ``device`` follows the port's rule: ``None`` is the card.
+``default_runner()`` is the process-wide runner on the card (a serving
+process wants one cache).
+
+With telemetry on (``repro_torch.obs``) the runner records the
+reference's series: ``runner.cache.{hit,miss,evict,invalidate}``,
+``runner.build`` (labeled by kind, workload and k), and per ``run`` the
+``runner.run`` span, ``runner.runs`` and the ``runner.run.seconds``,
+``runner.batch_size`` and ``runner.steps`` histograms. ``run`` returns
+once the kernels are launched, so ``runner.run.seconds`` is host time,
+as the reference's is dispatch time.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.device import resolve_device
 from repro_torch.tuning.spec import EngineSpec
 from repro_torch.workloads.base import StencilWorkload
@@ -105,6 +117,7 @@ class BatchedRunner:
                 engine = self._cache.get(key)
                 if engine is not None:
                     self._cache.move_to_end(key)
+                    obs.inc("runner.cache.hit", kind=key.kind)
                     return engine
                 ev = self._building.get(key)
                 if ev is None:
@@ -113,6 +126,9 @@ class BatchedRunner:
             ev.wait()
         try:
             from repro_torch.core.stencil import make_engine
+            obs.inc("runner.cache.miss", kind=key.kind)
+            obs.inc("runner.build", kind=key.kind, workload=key.workload,
+                    k=key.fusion_k)
             engine = make_engine(key, frac=res.frac, workload=res.workload,
                                  device=self.device)
             with self._lock:
@@ -121,6 +137,7 @@ class BatchedRunner:
                 if len(self._cache) > self.capacity:
                     self._cache.popitem(last=False)
                     self.stats.evictions += 1
+                    obs.inc("runner.cache.evict")
             return engine
         finally:
             with self._lock:
@@ -146,7 +163,10 @@ class BatchedRunner:
         builds it anew; True when one was dropped."""
         res = self._resolve(kind, frac, r, m, workload, k, macro_p)
         with self._lock:
-            return self._cache.pop(res.spec, None) is not None
+            dropped = self._cache.pop(res.spec, None) is not None
+        if dropped:
+            obs.inc("runner.cache.invalidate", kind=res.spec.kind)
+        return dropped
 
     def cache_size(self) -> int:
         return len(self._cache)
@@ -191,11 +211,24 @@ class BatchedRunner:
         Spec form: ``run(spec, states, steps)``."""
         if isinstance(kind, EngineSpec) and states is None:
             states, steps, frac, r = frac, r, None, None
-        engine = self._get(self._resolve(kind, frac, r, m, workload, k,
-                                         macro_p))
-        if _steps_batches(engine):
-            return engine.run(states, int(steps))
-        return torch.stack([engine.run(s, int(steps)) for s in states])
+        t0 = time.perf_counter() if obs.enabled() else None
+        res = self._resolve(kind, frac, r, m, workload, k, macro_p)
+        engine = self._get(res)
+        label, steps = res.spec.kind, int(steps)
+        with obs.span("runner.run", kind=label, steps=steps):
+            if _steps_batches(engine):
+                out = engine.run(states, steps)
+            else:
+                out = torch.stack([engine.run(s, steps) for s in states])
+        if t0 is not None:
+            obs.observe("runner.run.seconds", time.perf_counter() - t0,
+                        kind=label)
+            batch = (states[0] if isinstance(states, tuple)
+                     else states).shape[0]
+            obs.observe("runner.batch_size", int(batch), kind=label)
+            obs.observe("runner.steps", steps, kind=label)
+            obs.inc("runner.runs", kind=label)
+        return out
 
     def to_expanded(self, kind, frac=None, r=None, states=None, m=0,
                     workload=None) -> torch.Tensor:
@@ -214,3 +247,18 @@ class BatchedRunner:
 def _is_dist(engine) -> bool:
     from repro_torch.core.distributed import DistributedSqueezeEngine
     return isinstance(engine, DistributedSqueezeEngine)
+
+
+#: the process-wide runner (a serving process wants one engine cache)
+_DEFAULT: Optional[BatchedRunner] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_runner() -> BatchedRunner:
+    """The process-wide ``BatchedRunner`` on the card, built at first
+    call (raises without CUDA, as ``BatchedRunner()`` does)."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = BatchedRunner()
+        return _DEFAULT

@@ -1242,3 +1242,80 @@ def test_cuda_lambda_nu_round_trip_on_the_compact_grid(cuda, name):
     bx, by, valid = nm.nu_map_tc(frac, r, *lm.lambda_map_tc(frac, r, cx, cy))
     assert torch.equal(bx, cx) and torch.equal(by, cy)
     assert bool(valid.all())
+
+
+# ----------------------------------------------------------------------
+# the simulation service and the elastic runner on the card
+# ----------------------------------------------------------------------
+def _legs(runner, q, frac):
+    """{step: host state} of one uninterrupted ``runner.run`` of q's seed
+    in legs of ``snapshot_every`` steps."""
+    eng = runner.engine_for(q.bucket, frac=frac, workload=q.workload)
+    dist = q.kind.startswith("dist-")
+    state = eng.init_random(q.seed)
+    state = state if dist else state[None]
+    out, done = {}, 0
+    while done < q.steps:
+        n = min(q.snapshot_every, q.steps - done)
+        state = runner.run(q.bucket, states=state, steps=n, frac=frac)
+        done += n
+        out[done] = (eng.to_dense(state) if dist else state[0]).cpu().numpy()
+    return out
+
+
+def test_cuda_service_matches_runner_run(cuda, tmp_path):
+    """cuda-fused and dist-fused (4 shards on one card) LIFE requests with
+    snapshots through ``FractalService`` on the card, one injected
+    exception: every final state and snapshot equals an uninterrupted
+    ``runner.run`` of the same seed, and the kernels ran."""
+    from repro_torch.runtime.fault import Fault, FaultInjector
+    from repro_torch.serving import (FractalService, ServiceConfig,
+                                     SimRequest)
+    frac = tf.SIERPINSKI
+    runner = BatchedRunner()
+    reqs = [SimRequest(frac=frac, r=6, m=2, kind=kind, seed=seed, steps=12,
+                       snapshot_every=4, rid=f"{kind}-{seed}",
+                       n_shards=4 if kind == "dist-fused" else None)
+            for kind, seed in (("cuda-fused", 0), ("cuda-fused", 1),
+                               ("dist-fused", 2))]
+    inj = FaultInjector([Fault("exception", at_segment=1)])
+    svc = FractalService(ServiceConfig(ckpt_dir=str(tmp_path), max_batch=4,
+                                       backoff_base_s=0.01,
+                                       hang_threshold_s=60.0), runner,
+                         injector=inj)
+    sk.reset_launches()
+    res = svc.serve(reqs)
+    assert inj.all_fired()
+    assert sk.LAUNCHES["stencil_step_fused_k"] > 0
+    assert sk.LAUNCHES["stencil_step_fused_k_local"] > 0
+    assert sum(r.retries for r in res) >= 1
+    for q, r in zip(reqs, res):
+        assert r.ok and r.steps_done == 12, (q.rid, r.status, r.error)
+        want = _legs(runner, q, frac)
+        assert [s for s, _ in r.snapshots] == [4, 8]
+        for step, snap in r.snapshots:
+            np.testing.assert_array_equal(snap, want[step])
+        np.testing.assert_array_equal(r.state, want[12])
+
+
+def test_cuda_elastic_reshard_matches_runner_run(cuda, tmp_path):
+    """4 shards on one card lose a device at launch 2, reshard to 2 and
+    end equal to the single-device cuda-fused run, bit for bit."""
+    from repro_torch.core.elastic import ElasticDistributedRunner
+    from repro_torch.runtime.fault import Fault, FaultInjector
+    frac = tf.SIERPINSKI
+    runner = BatchedRunner()
+    eng = runner.engine_for("cuda-fused", frac, 6, m=2)
+    want = runner.run("cuda-fused", frac, 6, eng.init_random(3)[None], 12,
+                      m=2)[0]
+    inj = FaultInjector([Fault("device_loss", at_segment=2, shard=1)])
+    sk.reset_launches()
+    with ElasticDistributedRunner(
+            BlockLayout(frac, 6, 2), n_shards=4, compute="fused",
+            ckpt_dir=str(tmp_path), ckpt_every=4, launch_timeout_s=60.0,
+            backoff_base_s=0.01, injector=inj) as el:
+        out = el.run(12, seed=3)
+        assert el.n_shards == 2 and el.stats.reshards == 1
+        assert el.stats.restores == 1
+        _equal(el.engine.to_dense(out), want)
+    assert sk.LAUNCHES["stencil_step_fused_k_local"] > 0
