@@ -191,7 +191,20 @@ jax or the reference package). Phases, each printing one JSON line:
      over 4 shards losing a device at launch 2, resharded to 2 and equal to
      cuda-fused bit for bit; the service's time a step beside the runner's
      for a batch of four; and the phase's kernel launches (v3/v4, v5 and
-     kernel 6 must have run).
+     kernel 6 must have run);
+ 18. the autotuner (``repro_torch.tuning``) on the same layout (no new
+     layout is built): the card's copy bandwidth (``measured_bandwidth_gbs``,
+     1 GiB, past the L2), then ``tune_spec`` sweeps of cuda-fused LIFE (k =
+     1..4), cuda-mxu LIFE (k x P) and dist-fused LIFE over 4 shards on
+     cuda:0 (k x {p2p, gather}), each candidate held bit for bit against
+     the heuristic engine before it is timed (any difference fails the
+     phase), each with its timing matrix, winner, heuristic baseline,
+     speedup, roofline and ``suspect`` flag; the three winners saved as a
+     table under ``build/`` and made the active one
+     (``SQUEEZE_TUNING_TABLE``): ``make_engine`` of each spec with k left
+     unset hits it exactly once, takes its k, P and exchange, and runs 16
+     steps bit for bit with the heuristic engine; the phase's launches and
+     seconds.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -333,6 +346,14 @@ SERVE_STALL_S = 3.0
 #: the elastic run: seed, steps, checkpoint cadence, the launch that loses
 #: a device (4 -> 2 shards)
 ELASTIC = dict(seed=9, steps=16, ckpt_every=4, lost_at=2)
+#: phase 18, the autotuner: its layout (the main path's, phases 4, 12 and
+#: 17), the dist sweep's shards, the steps of a timed run, the rounds, and
+#: the steps of the table-hit check
+TUNE_MAIN = ("sierpinski", 16, 2)
+TUNE_SHARDS = 4
+TUNE_STEPS = 8
+TUNE_ROUNDS = 3
+TUNE_HIT_STEPS = 16
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -2124,6 +2145,120 @@ def phase_serving(torch, F, R, shared_layout, build):
     torch.cuda.empty_cache()
 
 
+def phase_tuning(torch, F, shared_layout, build):
+    """Phase 18: the autotuner at the main path's full width (module
+    docstring, item 18)."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.tuning import (EngineSpec, TuningTable,
+                                    reset_default_table_cache, tune_spec)
+    from repro_torch.tuning.measure import measured_bandwidth_gbs
+    from repro_torch.core.stencil import make_engine
+
+    t_phase = time.perf_counter()
+    name, r, m = TUNE_MAIN
+    misses = shared_layout.cache_info().misses
+    lay = shared_layout(F.REGISTRY[name], r, m)
+    launches0 = dict(build.LAUNCHES)
+    gbs = measured_bandwidth_gbs()
+    emit("tuning_bandwidth", card=nvidia_smi(), bandwidth_gbs=gbs,
+         copy_bytes=1 << 30, share_of_3350=gbs / (HBM_BYTES_PER_S / 1e9))
+
+    specs = [EngineSpec("cuda-fused", 2, name, r, m, "life"),
+             EngineSpec("cuda-mxu", 2, name, r, m, "life"),
+             EngineSpec("dist-fused", 2, name, r, m, "life",
+                        mesh_shape=(TUNE_SHARDS,))]
+    table = TuningTable(meta={"generator": "chip_smoke.py phase 18",
+                              "card": nvidia_smi()})
+    for spec in specs:
+        t0 = time.perf_counter()
+        res = tune_spec(spec, steps=TUNE_STEPS, rounds=TUNE_ROUNDS, seed=0)
+        if res.parity_failures:
+            raise AssertionError(f"tuning/{spec.kind}: candidates "
+                                 f"{res.parity_failures} differ from the "
+                                 "heuristic engine")
+        table.put(res.spec, res.entry())
+        emit("tuning_sweep", kind=spec.kind, rho=lay.rho,
+             n_blocks=lay.n_blocks, steps=TUNE_STEPS, rounds=TUNE_ROUNDS,
+             ms_per_step={k: 1e3 * v for k, v in res.times.items()},
+             best=res.best.label, baseline=res.baseline.label,
+             speedup=res.speedup, roofline_ms=1e3 * res.roofline_s,
+             suspect=res.suspect, candidates=len(res.times),
+             seconds=time.perf_counter() - t0)
+        del res
+        torch.cuda.empty_cache()
+
+    # the winners as the active table: make_engine with k left None hits it
+    path = build.BUILD_DIR.parent / "tuning" / "phase18.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    table.save(str(path))
+    prev_env = os.environ.get("SQUEEZE_TUNING_TABLE")
+    was_enabled = obs.enabled()
+    os.environ["SQUEEZE_TUNING_TABLE"] = str(path)
+    reset_default_table_cache()
+    obs.enable(True)
+    obs.reset()
+    hits = {}
+    try:
+        for spec in specs:
+            entry = table.get(spec)
+            eng = make_engine(spec)
+            hits[spec.kind] = obs.default_registry().value(
+                "engine.tune.hit", kind=spec.kind)
+            if hits[spec.kind] != 1:
+                raise AssertionError(f"tuning/{spec.kind}: "
+                                     f"{hits[spec.kind]} table hits")
+            got = (eng.fusion_k, getattr(eng, "macro_p", None),
+                   getattr(eng, "exchange", "auto"))
+            want = (entry.fusion_k, lay.macro_tiles(
+                entry.fusion_k, p=entry.macro_p)[0] if spec.is_mxu else None,
+                entry.exchange)
+            if got != want:
+                raise AssertionError(f"tuning/{spec.kind}: engine knobs "
+                                     f"{got}, table {want}")
+            base = make_engine(spec, table=None)
+            out = eng.run(eng.init_random(7), TUNE_HIT_STEPS)
+            ref = base.run(base.init_random(7), TUNE_HIT_STEPS)
+            if spec.is_dist:
+                out, ref = eng.to_dense(out), base.to_dense(ref)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"tuning/{spec.kind}: the table's "
+                                     "engine differs from the heuristic's")
+            emit("tuning_hit", kind=spec.kind, table=entry.to_json(),
+                 engine={"fusion_k": got[0], "macro_p": got[1],
+                         "exchange": got[2]},
+                 heuristic={"fusion_k": base.fusion_k,
+                            "macro_p": getattr(base, "macro_p", None),
+                            "exchange": getattr(base, "exchange", "auto")},
+                 steps=TUNE_HIT_STEPS, bit_for_bit=True)
+            del eng, base, out, ref
+    finally:
+        if prev_env is None:
+            os.environ.pop("SQUEEZE_TUNING_TABLE", None)
+        else:
+            os.environ["SQUEEZE_TUNING_TABLE"] = prev_env
+        reset_default_table_cache()
+        obs.enable(was_enabled)
+
+    deltas = {k: v - launches0.get(k, 0) for k, v in build.LAUNCHES.items()
+              if v != launches0.get(k, 0)}
+    grew = {"v3 or v4": deltas.get("stencil_step_fused", 0)
+            + deltas.get("stencil_step_fused_k", 0),
+            "v5": sum(v for k, v in deltas.items()
+                      if k.startswith("stencil_step_mxu_batched")),
+            "kernel 6": deltas.get("stencil_step_fused_k_local", 0)}
+    if not all(grew.values()):
+        raise AssertionError(f"tuning: kernels not launched {grew}")
+    if shared_layout.cache_info().misses != misses:
+        raise AssertionError("tuning: a new r=16 layout was built")
+    emit("tuning_numbers", card=nvidia_smi(), hits=hits, launches=deltas,
+         kernels_grew=grew, table=table.to_json()["entries"],
+         seconds=time.perf_counter() - t_phase)
+    del lay
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2564,6 +2699,9 @@ def main() -> int:
 
     # 17. the simulation service on the main path's layout ----------------
     phase_serving(torch, F, R, shared_layout, build)
+
+    # 18. the autotuner at the main path's full width ---------------------
+    phase_tuning(torch, F, shared_layout, build)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -41,7 +41,8 @@ from repro_torch.core.fractals import NBBFractal
 from repro_torch.kernels import lambda_map as lm
 from repro_torch.kernels import nu_map as nm
 from repro_torch.kernels import squeeze_stencil as sk
-from repro_torch.tuning.spec import KINDS, REFERENCE_KINDS, EngineSpec
+from repro_torch.tuning.spec import (ACTIVE_TABLE, KINDS, REFERENCE_KINDS,
+                                     EngineSpec)
 from repro_torch.workloads.base import (MOORE_DIRS, StencilWorkload,
                                         check_workload_ndim,
                                         weighted_gather_agg)
@@ -307,7 +308,8 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
                 workload: Optional[StencilWorkload] = None,
                 fusion_k: Optional[int] = None,
                 macro_p: Optional[int] = None, device=None,
-                exchange: str = "auto", n_shards: Optional[int] = None):
+                exchange: str = "auto", n_shards: Optional[int] = None,
+                table=ACTIVE_TABLE):
     """Engine factory: ``make_engine(spec)`` with an ``EngineSpec``, or
     ``make_engine(kind, frac, r, m=..., workload=...)``.
 
@@ -321,10 +323,13 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
     engine (``core/distributed.py``) over ``n_shards`` shards placed by
     ``shard_devices`` (default one per visible card; on the CPU pass
     ``n_shards``), with ``exchange`` 'auto' | 'p2p' | 'gather'.
-    The spec is normalized first (alias rewritten, fusion depth and MXU
-    packing resolved, explicit > heuristic). ``frac``/``workload``
-    objects may be passed with a spec to supply custom ones. ``device=None`` means the card, and raises
-    when CUDA is missing; pass ``device="cpu"`` for the CPU.
+    The spec is normalized first (alias rewritten; fusion depth, MXU
+    packing and exchange resolved, explicit > tuning-table hit >
+    heuristic); ``table=None`` pins it to the heuristics (no table
+    consult), a ``TuningTable`` replaces the active one.
+    ``frac``/``workload`` objects may be passed with a spec to supply
+    custom ones. ``device=None`` means the card, and raises when CUDA is
+    missing; pass ``device="cpu"`` for the CPU.
     """
     if isinstance(kind, EngineSpec):
         spec = kind
@@ -334,7 +339,7 @@ def make_engine(kind, frac=None, r: Optional[int] = None, m: int = 0,
                             "and r")
         spec = EngineSpec.from_args(kind, frac, r, m, workload, fusion_k,
                                     macro_p, exchange, n_shards)
-    norm = spec.normalize()
+    norm = spec.normalize(table=table)
     frac = frac if frac is not None else norm.build_frac()
     workload = workload if workload is not None else norm.build_workload()
     engine = _make_engine(norm, frac, workload, device)

@@ -41,6 +41,8 @@ What the instrumented modules record (the reference's names):
     bytes_permuted,neighbor_sends,steps}``, ``engine.fused_launches`` and
     the ``dist.run`` span;
   * every kernel wrapper: ``kernel.entry{op=...}``, one a call;
+  * ``tuning/table.py``: ``engine.tune.{hit,miss,fallback}``, one a table
+    consult of ``EngineSpec.normalize()``;
   * ``checkpoint/``, ``runtime/fault.py``, ``serving/`` and
     ``core/elastic.py``: the ``checkpoint.*``, ``watchdog.*``,
     ``fault.restarts``, ``chaos.injected``, ``serve.*`` and ``dist.*``

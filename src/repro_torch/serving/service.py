@@ -190,6 +190,10 @@ class FractalService:
         while self._tasks:
             await asyncio.gather(*list(self._tasks),
                                  return_exceptions=True)
+            # a gather of tasks that are all done completes without
+            # yielding (Python 3.12): yield, so that their done callbacks,
+            # which drop them from ``_tasks``, run
+            await asyncio.sleep(0)
         self._shed_all("preempted" if self._preempted() else "rejected")
         if self._executor is not None:
             self._executor.shutdown(wait=False)

@@ -64,8 +64,9 @@ class SimRequest:
         same object the BatchedRunner LRU keys on, so requests batch
         together exactly when they would share one engine (alias kinds,
         an explicit ``k`` equal to the resolved default, etc. all
-        collapse). Computed once per request; mutating the identity
-        fields afterwards does not re-bucket."""
+        collapse). Computed once per request (the tuning-table consult
+        and its ``engine.tune.*`` counter happen at first access);
+        mutating the identity fields afterwards does not re-bucket."""
         b = self.__dict__.get("_bucket")
         if b is None:
             from repro_torch.tuning.spec import EngineSpec

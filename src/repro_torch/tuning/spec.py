@@ -1,23 +1,26 @@
 """``EngineSpec`` -- the canonical engine-configuration identity of the port.
 
-One frozen, hashable dataclass names a configuration:
-``make_engine(spec)`` builds an engine from it, and the ``BatchedRunner``
-keys its engine cache on ``spec.normalize()``. ``canonical()`` validates
+One frozen, hashable, JSON-serializable dataclass names a configuration:
+``make_engine(spec)`` builds an engine from it, the ``BatchedRunner`` keys
+its engine cache on ``spec.normalize()``, ``SimRequest.bucket`` batches
+serving traffic by it, and the tuning table (``tuning/table.py``) keeps
+autotuned winners under ``spec.tuning_key()``. ``canonical()`` validates
 the kind, rewrites an alias (``KIND_ALIASES``) and zeroes the knobs that do
-not apply to it; ``normalize()``
-then resolves the tunable knobs left ``None`` by the rule
+not apply to it; ``normalize()`` then resolves the tunable knobs left
+``None`` (or ``'auto'``) by the rule
 
-    explicit argument  >  static heuristic
+    explicit argument  >  tuning-table hit  >  static heuristic
 
-(no tuning table: the port has no measurements to fill one yet). Two
+counting one ``engine.tune.{hit,miss,fallback}`` a table consult. Two
 configurations share an engine exactly when their normalized specs are
 equal.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 #: port kind -> the reference kind it is held against (parity tests walk
 #: this one list)
@@ -57,7 +60,18 @@ EXCHANGES = ("auto", "p2p", "gather")
 KINDS_3D = frozenset({"bb3d", "cell3d", "block3d", "cuda-3d",
                       "cuda-3d-mxu"})
 
+#: sentinel of ``normalize(table=...)``: consult the active tuning table
+ACTIVE_TABLE = object()
+
 FracId = Union[str, Tuple[Tuple[int, ...], ...]]
+
+
+def is_block_kind(kind: str) -> bool:
+    return kind in BLOCK_KINDS
+
+
+def is_dist_kind(kind: str) -> bool:
+    return kind in DIST_KINDS
 
 
 def _frac_identity(frac) -> Tuple[int, FracId]:
@@ -111,7 +125,7 @@ class EngineSpec:
 
     @property
     def is_block(self) -> bool:
-        return self.kind in BLOCK_KINDS
+        return is_block_kind(self.kind)
 
     @property
     def is_mxu(self) -> bool:
@@ -123,7 +137,7 @@ class EngineSpec:
 
     @property
     def is_dist(self) -> bool:
-        return self.kind in DIST_KINDS
+        return is_dist_kind(self.kind)
 
     @property
     def n_shards(self) -> Optional[int]:
@@ -168,26 +182,89 @@ class EngineSpec:
             exchange=self.exchange if dist else "auto",
             mesh_shape=mesh if dist else None)
 
-    def normalize(self) -> "EngineSpec":
-        """``canonical()`` with ``fusion_k`` and (single-device MXU kinds)
-        ``macro_p`` resolved to concrete values, explicit > heuristic;
-        idempotent. A dist-mxu engine packs each shard's blocks by its own
-        count, so its ``macro_p`` stays as given, and ``exchange='auto'``
-        is resolved by the engine from its decomposition."""
+    def normalize(self, table: Any = ACTIVE_TABLE) -> "EngineSpec":
+        """``canonical()`` with the tunable knobs resolved, explicit >
+        tuning-table hit > heuristic: a table ``fusion_k`` clamped to [1,
+        rho], a table ``macro_p`` on the MXU kinds, a table exchange of
+        'p2p' or 'gather' on the dist kinds; then the heuristic k, and on
+        the single-device MXU kinds the packing P at the resolved k.
+
+        ``table``: the default consults the active table
+        (``tuning/table.py``: the shipped ``tables/default.json`` unless
+        ``SQUEEZE_TUNING_TABLE`` names another or ``SQUEEZE_TUNING=off``);
+        pass a ``TuningTable``, or ``None`` for the heuristic alone (no
+        consult, no counter). One ``engine.tune.{hit,miss,fallback}`` is
+        counted a consult, and a spec whose knobs are all set passes
+        through without one. A dist-mxu engine packs each shard's blocks by
+        its own count, so its ``macro_p`` stays as given (or as the table
+        gives it), and ``exchange='auto'`` is resolved by the engine from
+        its decomposition."""
         spec = self.canonical()
         if not spec.is_block:
             return spec
-        from repro_torch.core.stencil import default_fusion_k
-        k = spec.fusion_k if spec.fusion_k is not None \
-            else default_fusion_k(spec.rho)
-        p = spec.macro_p
+        k, p, ex = spec.fusion_k, spec.macro_p, spec.exchange
+        need_k = k is None
+        need_p = p is None and spec.is_mxu
+        need_ex = ex == "auto" and spec.is_dist
+        if table is not None and (need_k or need_p or need_ex):
+            from repro_torch.tuning.table import consult
+            entry = consult(spec, None if table is ACTIVE_TABLE else table)
+            if entry is not None:
+                if need_k and entry.fusion_k is not None:
+                    # the fused kernels cap k at rho (one block ring)
+                    k = max(1, min(entry.fusion_k, spec.rho))
+                if need_p and entry.macro_p is not None:
+                    p = entry.macro_p
+                if need_ex and entry.exchange in ("p2p", "gather"):
+                    ex = entry.exchange
+        if k is None:
+            from repro_torch.core.stencil import default_fusion_k
+            k = default_fusion_k(spec.rho)
         if spec.is_mxu and not spec.is_dist:
             from repro_torch.core.compact import BlockLayout
             from repro_torch.core.compact3d import BlockLayout3D
             layout = (BlockLayout3D if spec.is_3d else BlockLayout)(
                 self.build_frac(), spec.r, spec.m)
             p = layout.macro_tiles(k, p=p)[0]
-        return dataclasses.replace(spec, fusion_k=k, macro_p=p)
+        return dataclasses.replace(spec, fusion_k=k, macro_p=p, exchange=ex)
+
+    def tuning_key(self) -> str:
+        """The key of this configuration in a tuning table: the canonical
+        identity less the tunable knobs, as sorted, compact JSON (the
+        shard count as ``mesh_shape``)."""
+        c = self.canonical()
+        ident = {
+            "kind": c.kind, "s": c.s,
+            "frac": c.frac if isinstance(c.frac, str)
+            else [list(p) for p in c.frac],
+            "r": c.r, "m": c.m, "workload": c.workload,
+            "mesh_shape": (list(c.mesh_shape)
+                           if c.mesh_shape is not None else None),
+        }
+        return json.dumps(ident, sort_keys=True, separators=(",", ":"))
+
+    def to_json(self) -> Dict[str, Any]:
+        """A plain-JSON dict; ``from_json`` gives this spec back exactly."""
+        d = dataclasses.asdict(self)
+        if not isinstance(self.frac, str):
+            d["frac"] = [list(p) for p in self.frac]
+        if self.mesh_shape is not None:
+            d["mesh_shape"] = list(self.mesh_shape)
+        return d
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "EngineSpec":
+        frac = d["frac"]
+        if not isinstance(frac, str):
+            frac = tuple(tuple(int(c) for c in p) for p in frac)
+        mesh = d.get("mesh_shape")
+        return cls(
+            kind=d["kind"], s=int(d["s"]), frac=frac, r=int(d["r"]),
+            m=int(d.get("m", 0)), workload=d.get("workload", "life"),
+            fusion_k=d.get("fusion_k"), macro_p=d.get("macro_p"),
+            exchange=d.get("exchange", "auto"),
+            mesh_shape=tuple(int(x) for x in mesh)
+            if mesh is not None else None)
 
     def build_frac(self):
         """The fractal object this spec names."""

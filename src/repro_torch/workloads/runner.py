@@ -129,8 +129,10 @@ class BatchedRunner:
             obs.inc("runner.cache.miss", kind=key.kind)
             obs.inc("runner.build", kind=key.kind, workload=key.workload,
                     k=key.fusion_k)
+            # the key is normalized already: build with the table off, so
+            # a runner call consults it once (in ``_resolve``), not twice
             engine = make_engine(key, frac=res.frac, workload=res.workload,
-                                 device=self.device)
+                                 device=self.device, table=None)
             with self._lock:
                 self._cache[key] = engine
                 self.stats.builds += 1

@@ -492,7 +492,8 @@ def test_runner_dispatches_3d_states():
     assert torch.equal(step, torch.stack([eng.step(s) for s in states]))
 
 
-def test_runner_3d_cache_key_includes_k():
+def test_runner_3d_cache_key_includes_k(monkeypatch):
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     frac, r, m = tf3.SIERPINSKI3D, 4, 1  # rho = 2 -> heuristic k = 2
     runner = BatchedRunner(device="cpu")
     e_default = runner.engine_for("block3d", frac, r, m=m,
@@ -508,7 +509,8 @@ def test_runner_3d_cache_key_includes_k():
     assert runner.stats.builds == 3
 
 
-def test_3d_kinds_and_specs():
+def test_3d_kinds_and_specs(monkeypatch):
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     for kind in KINDS3D:
         assert kind in REFERENCE_KINDS
     assert REFERENCE_KINDS["cuda-3d"] == "pallas-3d"

@@ -1319,3 +1319,56 @@ def test_cuda_elastic_reshard_matches_runner_run(cuda, tmp_path):
         assert el.stats.restores == 1
         _equal(el.engine.to_dense(out), want)
     assert sk.LAUNCHES["stencil_step_fused_k_local"] > 0
+
+
+# ------------------------------------------------------------ the autotuner
+@pytest.mark.parametrize("kind", ["cuda-fused", "cuda-mxu"])
+def test_cuda_tune_spec_is_parity_exact(cuda, kind, monkeypatch):
+    """The sweep on the card at sierpinski r=8 m=2: every candidate (k in
+    1..4, and P for cuda-mxu) bit for bit with the heuristic engine (the
+    search's own gate on the compact states), the winner no slower than
+    the baseline on its own matrix."""
+    from repro_torch.tuning import EngineSpec, candidate_space, tune_spec
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")
+    spec = EngineSpec(kind, 2, "sierpinski", 8, 2, "life")
+    res = tune_spec(spec, steps=4, rounds=2, seed=1)
+    assert not res.parity_failures
+    assert set(res.times) == {c.label for c in candidate_space(spec, 3 ** 6)}
+    assert res.speedup >= 1.0 and res.roofline_s > 0
+    win = dataclasses.replace(spec, fusion_k=res.best.fusion_k,
+                              macro_p=res.best.macro_p)
+    e_win = make_engine(win, table=None)
+    e_base = make_engine(spec, table=None)
+    _equal(e_win.run(e_win.init_random(2), 9),
+           e_base.run(e_base.init_random(2), 9))
+
+
+def test_cuda_make_engine_hits_an_override_table(cuda, tmp_path,
+                                                 monkeypatch):
+    from repro_torch import obs
+    from repro_torch.tuning import (EngineSpec, TableEntry, TuningTable,
+                                    reset_default_table_cache)
+    spec = EngineSpec("cuda-mxu", 2, "sierpinski", 8, 2, "life")
+    table = TuningTable()
+    table.put(spec, TableEntry(fusion_k=3, macro_p=4))
+    path = str(tmp_path / "t.json")
+    table.save(path)
+    monkeypatch.delenv("SQUEEZE_TUNING", raising=False)
+    monkeypatch.setenv("SQUEEZE_TUNING_TABLE", path)
+    reset_default_table_cache()
+    with obs.enabled_scope(True) as reg:
+        obs.reset()
+        eng = make_engine(spec)
+        assert reg.value("engine.tune.hit", kind="cuda-mxu") == 1
+    reset_default_table_cache()
+    assert (eng.fusion_k, eng.macro_p) == (3, 4)
+    base = make_engine(spec, table=None)
+    assert (base.fusion_k, base.macro_p) != (3, 4)
+    _equal(eng.run(eng.init_random(5), 7), base.run(base.init_random(5), 7))
+
+
+def test_cuda_measured_bandwidth_is_near_the_card(cuda):
+    """A 1 GiB float32 copy: under the H100's 3.35 TB/s, over 0.5 TB/s."""
+    from repro_torch.tuning.measure import measured_bandwidth_gbs
+    gbs = measured_bandwidth_gbs()
+    assert 500.0 < gbs < 3350.0

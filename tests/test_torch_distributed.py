@@ -425,7 +425,8 @@ def test_devices_default_to_the_card():
 @pytest.mark.parametrize("kind,compute", [("dist-block", "jnp"),
                                           ("dist-fused", "fused"),
                                           ("dist-mxu", "mxu")])
-def test_make_engine_dist_kinds(kind, compute):
+def test_make_engine_dist_kinds(kind, compute, monkeypatch):
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     eng = make_engine(kind, tf.SIERPINSKI, R, M, workload=trules.HEAT,
                       device="cpu", n_shards=NS, exchange="gather")
     assert isinstance(eng, DistributedSqueezeEngine)
@@ -438,7 +439,8 @@ def test_make_engine_dist_kinds(kind, compute):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_spec_dist_knobs_match_reference_canonical():
+def test_spec_dist_knobs_match_reference_canonical(monkeypatch):
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     for kind in ("dist-mxu", "dist-block", "cuda-fused", "cell"):
         ref_kind = kind.replace("cuda", "pallas")
         ref = RefSpec(ref_kind, 2, FRAC, R, M, "life", None, 3, "gather",

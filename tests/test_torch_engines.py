@@ -81,9 +81,10 @@ def test_kind_table_names_reference_kinds():
     assert REFERENCE_KINDS["cuda-mxu"] == "pallas-mxu"
 
 
-def test_cuda_alias_is_strips_and_shares_one_engine():
+def test_cuda_alias_is_strips_and_shares_one_engine(monkeypatch):
     """'cuda' is 'cuda-strips', as the reference's 'pallas' is
     'pallas-strips' (v2 is the reference's default kernel)."""
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     from repro.tuning.spec import KIND_ALIASES as REF_ALIASES
     assert REFERENCE_KINDS[KIND_ALIASES["cuda"]] == REF_ALIASES["pallas"]
     spec = EngineSpec("cuda", 2, "sierpinski", R, M).normalize()
@@ -229,7 +230,8 @@ def test_runner_batch_matches_reference(kind, wl_name):
                                **_tol(wl))
 
 
-def test_runner_cache_keys_are_normalized_specs():
+def test_runner_cache_keys_are_normalized_specs(monkeypatch):
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     runner = BatchedRunner(capacity=2, device="cpu")
     spec = EngineSpec("cuda-mxu", 2, "sierpinski", 5, 2, "life")
     e1 = runner.engine_for(spec)
@@ -266,7 +268,8 @@ def test_runner_builds_once_under_concurrent_misses():
 
 
 # ------------------------------------------------------------- spec
-def test_engine_spec_normalize():
+def test_engine_spec_normalize(monkeypatch):
+    monkeypatch.setenv("SQUEEZE_TUNING", "off")  # pin the heuristic k
     spec = EngineSpec.from_args("cuda-mxu", tf.CARPET, 4, 1, trules.HEAT)
     norm = spec.normalize()
     assert norm.fusion_k == default_fusion_k(3) == 2

@@ -162,14 +162,19 @@ def test_type_collision_raises(reg):
 
 
 def _series(registry):
-    """Every ``runner.*`` series but the traces, and the engine builds and
-    memory gauges: counters and gauges by value, histograms by count, sum
-    (but the seconds), min and max."""
+    """Every ``runner.*`` series but the traces, the engine builds and
+    memory gauges, and the ``engine.tune.*`` table consults: counters and
+    gauges by value, histograms by count, sum (but the seconds), min and
+    max."""
     out = {}
     for m in registry.metrics():
-        if not (m.name.startswith("runner.") or m.name in (
+        if not (m.name.startswith(("runner.", "engine.tune.")) or m.name in (
                 "engine.builds", "engine.memory_bytes")) or \
                 m.name == "runner.trace":
+            continue
+        if m.name.startswith("engine.tune.") and m.value == 0:
+            # reset() keeps a series at 0, and the table consults of
+            # earlier tests in this process left each package other kinds
             continue
         key = (m.name, m.labels)
         if m.kind == "histogram":
@@ -208,6 +213,8 @@ def test_runner_counters_match_reference_call_for_call(reg, monkeypatch):
     assert mine[("runner.cache.hit", (("kind", "block"),))] == 3
     assert mine[("runner.cache.invalidate", (("kind", "block"),))] == 1
     assert mine[("engine.builds", (("kind", "block"),))] == 2
+    # one table consult a runner call (off: a fallback), none a build
+    assert mine[("engine.tune.fallback", (("kind", "block"),))] == 7
 
 
 def test_runner_spans_and_histograms(reg):

@@ -1,6 +1,7 @@
-"""The port's public names: ``repro_torch.core`` and
-``repro_torch.workloads`` export every name of the reference's
-``repro.core`` and ``repro.workloads`` ``__all__``, with one stated
+"""The port's public names: ``repro_torch.core``,
+``repro_torch.workloads`` and ``repro_torch.tuning`` export every name of
+the reference's ``repro.core``, ``repro.workloads`` and ``repro.tuning``
+``__all__``, with one stated
 rename (the reference's Pallas engine is the port's kernel engine), and
 the ported ``life_rule`` and ``default_runner`` behave as the
 reference's."""
@@ -10,8 +11,10 @@ import pytest
 import torch
 
 import repro.core
+import repro.tuning
 import repro.workloads
 import repro_torch.core
+import repro_torch.tuning
 import repro_torch.workloads
 from repro.workloads import rules as rrules
 from repro_torch.workloads import rules as trules
@@ -23,8 +26,9 @@ RENAMES = {"SqueezePallasEngine": "SqueezeKernelEngine"}
 
 @pytest.mark.parametrize("ref,port", [(repro.core, repro_torch.core),
                                       (repro.workloads,
-                                       repro_torch.workloads)],
-                         ids=["core", "workloads"])
+                                       repro_torch.workloads),
+                                      (repro.tuning, repro_torch.tuning)],
+                         ids=["core", "workloads", "tuning"])
 def test_port_exports_every_reference_name(ref, port):
     wanted = {RENAMES.get(n, n) for n in ref.__all__}
     assert wanted <= set(port.__all__), sorted(wanted - set(port.__all__))

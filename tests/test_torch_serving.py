@@ -221,6 +221,39 @@ def test_requests_join_and_share_one_engine(tmp_path):
     assert SimRequest(frac=tf.SIERPINSKI, r=R, steps=1).kind == "block"
 
 
+def test_stop_lets_finished_buckets_call_back(monkeypatch):
+    """``stop()`` yields to the loop while it drains: a gather of bucket
+    tasks that are all done completes without yielding (Python 3.12), so a
+    finished task whose done callback had not run yet kept the loop from
+    ever running it, and ``stop()`` spun."""
+    real_gather, calls = asyncio.gather, [0]
+
+    def gather(*aws, **kw):
+        calls[0] += 1
+        if calls[0] > 50:
+            raise RuntimeError("stop() does not yield to the loop")
+        return real_gather(*aws, **kw)
+    monkeypatch.setattr(asyncio, "gather", gather)
+
+    async def finished():
+        return None
+
+    async def go():
+        svc = FractalService(ServiceConfig(), BatchedRunner(device="cpu"))
+        await svc.start()
+        bucket = SimRequest(frac=tf.SIERPINSKI, r=R, m=M, steps=1).bucket
+        task = asyncio.get_running_loop().create_task(finished())
+        svc._tasks.add(task)
+        svc._running.add(bucket)
+        task.add_done_callback(svc._on_task_done(bucket))
+        await asyncio.sleep(0)    # the task ends; its callback is queued
+        assert task.done() and task in svc._tasks
+        await svc.stop()
+        assert not svc._tasks and not svc._running
+    asyncio.run(go())
+    assert calls[0] == 1
+
+
 def test_admission_deadline_and_breaker(tmp_path):
     runner = BatchedRunner(device="cpu")
     res = FractalService(ServiceConfig(max_segment_steps=1), runner).serve(
