@@ -204,7 +204,26 @@ jax or the reference package). Phases, each printing one JSON line:
      (``SQUEEZE_TUNING_TABLE``): ``make_engine`` of each spec with k left
      unset hits it exactly once, takes its k, P and exchange, and runs 16
      steps bit for bit with the heuristic engine; the phase's launches and
-     seconds.
+     seconds;
+ 19. the language-model serving path (``models/``, ``launch/serve.py``;
+     no hand-written kernel is on it, as the reference's models call no
+     Pallas kernel, and the phase fails if one launches): (a) every
+     architecture at its smoke config (float32), the port's own seeded
+     weights on the card and a copy on the CPU, prefill and 4 decode
+     steps within rtol = atol = 2e-4 and greedy tokens equal (up to a
+     near tie of the CPU's two largest logits within 2e-4), the largest
+     error of each; (b) smollm-135m at full width in float32, forward and
+     prefill logits at B=4, S=32, card against CPU within 1e-3; (c)
+     smollm-135m (B=4, prompt 32, 16 new), gemma2-2b (prompts 24 / 17 /
+     31 / 8, 12 new) and mamba2-780m (B=4, 32, 16) at full width in their
+     bf16 through ``BatchServer``, twice, the greedy tokens equal and
+     inside the logits, with prefill ms, ms a decoded token, tokens/s,
+     ``max_memory_allocated``, the decode step's byte bound (its stored
+     parameters over 3.35 TB/s) and the device's busy share of a decode
+     loop (the device events of ``torch.profiler``, each kernel once); (d) one gemma2-2b forward at
+     B=1, S=4096, every attention layer through ``_sdpa_chunked``, finite,
+     timed; (e) every ``examples/torch`` script's ``main`` on the card at
+     its defaults (``fractal_large.py``'s is r = 14), with its launches.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -354,6 +373,23 @@ TUNE_SHARDS = 4
 TUNE_STEPS = 8
 TUNE_ROUNDS = 3
 TUNE_HIT_STEPS = 16
+
+#: phase 19, the language-model serving path: (a) every arch at its smoke
+#: config, card against CPU (batch, prompt, decode steps fed, greedy new
+#: tokens, cache length) at the reference's MoE bar
+LM_SMOKE = dict(batch=2, prompt=12, decode=4, new=6, max_len=20)
+LM_TOL = (2e-4, 2e-4)
+#: (b) a full-width float32 prefill, card against CPU: arch, B, S, bar
+LM_FULL_F32 = ("smollm-135m", 4, 32, 1e-3)
+#: (c) full-width serving in the config's bf16: arch, prompts, new tokens
+LM_SERVE = [("smollm-135m", (32, 32, 32, 32), 16),
+            ("gemma2-2b", (24, 17, 31, 8), 12),
+            ("mamba2-780m", (32, 32, 32, 32), 16)]
+#: decode steps under ``torch.profiler`` for the busy share (few: the
+#: profiler's trace of a step's ~3,000 launches is slow to gather)
+LM_PROFILE_STEPS = 4
+#: (d) one long forward through the chunked attention: arch, B, S
+LM_LONG = ("gemma2-2b", 1, 4096)
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -2259,6 +2295,331 @@ def phase_tuning(torch, F, shared_layout, build):
     torch.cuda.empty_cache()
 
 
+def _lm_within(torch, what, got, want, rtol, atol) -> float:
+    """max |got - want|, raising where |got - want| > atol + rtol |want|
+    or ``got`` is not finite."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or non-finite values")
+    diff = (got - want).abs()
+    if bool((diff > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"{what}: max |card - cpu| = {float(diff.max())}")
+    return float(diff.max())
+
+
+def _lm_replay(torch, lm, model, cfg, batch, toks, start, max_len, device):
+    """Prefill, then one decode step a column of ``toks`` (B, n): the
+    logits before each fed token and after the last, (B, n + 1, V)."""
+    cache = lm.init_cache(cfg, toks.shape[0], max_len, device)
+    last, cache, extras = lm.prefill(model, batch, cfg, cache)
+    out = [last]
+    for i in range(toks.shape[1]):
+        last, cache = lm.decode_step(model, toks[:, i:i + 1].to(device),
+                                     start + i, cfg, cache, extras=extras)
+        out.append(last)
+    return torch.stack(out, dim=1)
+
+
+def decode_param_bytes(model, cfg, batch: int) -> int:
+    """Bytes of the parameters one decode step reads, as stored: every
+    decoder parameter once, B rows of an untied token table or of a
+    learned position table, no encoder parameter."""
+    total = 0
+    for name, p in model.named_parameters():
+        if name.startswith("enc_"):
+            continue
+        if name == "embed.pos_embed" or (name == "embed.tok_embed"
+                                         and not cfg.tie_embeddings):
+            total += batch * p.shape[1] * p.element_size()
+        else:
+            total += p.numel() * p.element_size()
+    return total
+
+
+def device_event_us(events) -> float:
+    """Microseconds of work on the card among ``torch.profiler`` events:
+    the events that ran there (kernels, copies, memsets), each once. The
+    host op that launched a kernel carries that kernel's time as its own
+    device time too, so summing every event counts each kernel twice;
+    user annotations on the device span kernels as well."""
+    from torch.autograd import DeviceType
+    return float(sum(ev.self_device_time_total for ev in events
+                     if ev.device_type == DeviceType.CUDA
+                     and not ev.is_user_annotation))
+
+
+def _device_busy_ms(torch, fn):
+    """(wall ms of ``fn()`` ending in a synchronize, ms of device work in
+    it) from ``torch.profiler``; device time None where the profiler
+    shows none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy_us = device_event_us(prof.events())
+    return wall, (busy_us / 1e3 if busy_us > 0 else None)
+
+
+def phase_lm_serve(torch, build):
+    """Phase 19: the language-model serving path (module docstring, item
+    19). No hand-written kernel is on it: the reference's models call no
+    Pallas kernel, and the phase asserts that the port's launch none."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as lm
+
+    t_phase = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rtol, atol = LM_TOL
+    card = nvidia_smi()
+    build.reset_launches()
+
+    def on_cpu(model, cfg):
+        twin = lm.build_model(cfg, cpu, None)
+        twin.load_state_dict(model.state_dict())
+        return twin
+
+    def to(batch, dev):
+        return {k: v.to(dev) for k, v in batch.items()}
+
+    # (a) every arch at its smoke config: card against CPU -------------------
+    sm = LM_SMOKE
+    smoke = {}
+    with torch.no_grad():
+        for i, arch in enumerate(configs.ARCHS):
+            t0 = time.perf_counter()
+            cfg = configs.get_smoke_config(arch)
+            model = lm.init_params(100 + i, cfg, device=cuda)
+            twin = on_cpu(model, cfg)
+            rng = np.random.default_rng(i)
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (sm["batch"], sm["prompt"] + sm["decode"])
+            ).astype(np.int32))
+            batch = {"tokens": toks[:, :sm["prompt"]]}
+            if cfg.family == "encdec":
+                batch["frames"] = torch.from_numpy(rng.standard_normal(
+                    (sm["batch"], cfg.enc_seq, cfg.d_model)
+                ).astype(np.float32))
+            fed = toks[:, sm["prompt"]:]
+            got = _lm_replay(torch, lm, model, cfg, to(batch, cuda), fed,
+                             sm["prompt"], sm["max_len"], cuda)
+            want = _lm_replay(torch, lm, twin, cfg, batch, fed, sm["prompt"],
+                              sm["max_len"], cpu)
+            err = _lm_within(torch, f"lm {arch} prefill + decode", got, want,
+                             rtol, atol)
+            run = dict(max_new=sm["new"], max_len=sm["max_len"])
+            g_card = lm.generate(model, to(batch, cuda), cfg, **run).cpu()
+            g_cpu = lm.generate(twin, batch, cfg, **run)
+            # a near tie in the CPU's own greedy trajectory (two largest
+            # logits within the bar) excuses that step's token and later
+            traj = _lm_replay(torch, lm, twin, cfg, batch, g_cpu,
+                              sm["prompt"], sm["max_len"], cpu)[:, :-1]
+            top2 = traj.topk(2, dim=-1).values
+            tied = ((top2[..., 0] - top2[..., 1]) <= atol).any(dim=0)
+            upto = int(tied.nonzero()[0, 0]) if bool(tied.any()) \
+                else sm["new"]
+            if not torch.equal(g_card[:, :upto], g_cpu[:, :upto]):
+                raise AssertionError(f"lm {arch}: greedy tokens differ, card "
+                                     f"{g_card.tolist()} cpu "
+                                     f"{g_cpu.tolist()}")
+            smoke[arch] = dict(max_abs_err=err, greedy_steps_equal=upto,
+                               greedy_all_equal=bool(torch.equal(g_card,
+                                                                 g_cpu)),
+                               seconds=time.perf_counter() - t0)
+            emit("lm_smoke", arch=arch, **smoke[arch])
+            del model, twin
+
+    # (b) full width, float32: card against CPU ---------------------------
+    t_full = time.perf_counter()
+    arch, b, s, bar = LM_FULL_F32
+    cfg = dataclasses.replace(configs.get_config(arch), dtype="float32")
+    with torch.no_grad():
+        model = lm.init_params(7, cfg, device=cuda)
+        twin = on_cpu(model, cfg)
+        toks = torch.from_numpy(np.random.default_rng(7).integers(
+            0, cfg.vocab, (b, s)).astype(np.int32))
+        full = _lm_within(torch, f"lm {arch} f32 forward",
+                          lm.forward(model, {"tokens": toks.to(cuda)}, cfg)[0],
+                          lm.forward(twin, {"tokens": toks}, cfg)[0], 0.0, bar)
+        last = [lm.prefill(m, {"tokens": toks.to(dev)}, cfg,
+                           lm.init_cache(cfg, b, s, dev))[0]
+                for m, dev in ((model, cuda), (twin, cpu))]
+        pre = _lm_within(torch, f"lm {arch} f32 prefill", *last, 0.0, bar)
+    full_f32 = dict(arch=arch, batch=b, seq=s, forward_max_abs_err=full,
+                    prefill_max_abs_err=pre, bar=bar,
+                    params=sum(p.numel() for p in model.parameters()),
+                    seconds=time.perf_counter() - t_full)
+    emit("lm_full_f32", **full_f32)
+    del model, twin
+    torch.cuda.empty_cache()
+
+    # (c) full width, the config's bf16: served through BatchServer -------
+    served = {}
+    for arch, prompts, new in LM_SERVE:
+        t_model = time.perf_counter()
+        cfg = configs.get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        model = lm.init_params(0, cfg, device=cuda)
+        rng = np.random.default_rng(0)
+        prompt_np = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+                     for n in prompts]
+        server = BatchServer(cfg, model)
+        outs, serve_s = [], []
+        for _ in range(2):
+            reqs = [Request(prompt=p, max_new=new) for p in prompt_np]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.serve(reqs)
+            serve_s.append(time.perf_counter() - t0)
+            outs.append(np.stack([r.out for r in reqs]))
+        if not np.array_equal(outs[0], outs[1]):
+            raise AssertionError(f"lm {arch}: two greedy runs differ")
+        if not ((outs[0] >= 0) & (outs[0] < cfg.vocab_padded)).all():
+            raise AssertionError(f"lm {arch}: a token outside the logits")
+        # prefill and decode timed apart, as the server runs them
+        b, s_max = len(prompts), max(prompts)
+        toks = np.zeros((b, s_max), np.int32)
+        for j, p in enumerate(prompt_np):
+            toks[j, s_max - len(p):] = p
+        batch = {"tokens": torch.from_numpy(toks).to(cuda)}
+        state = {}
+
+        def prefill():
+            state["cache"] = lm.init_cache(cfg, b, s_max + new, cuda)
+            state["last"], state["cache"], _ = lm.prefill(
+                model, batch, cfg, state["cache"])
+
+        def decode(steps=new):
+            last, cache = state["last"], state["cache"]
+            for i in range(steps):
+                tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+                last, cache = lm.decode_step(model, tok, s_max + i, cfg,
+                                             cache)
+
+        pre_ms, dec_ms = [], []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                decode()
+                torch.cuda.synchronize()
+                pre_ms.append(1e3 * (t1 - t0))
+                dec_ms.append(1e3 * (time.perf_counter() - t1) / new)
+            prefill()
+            wall, busy = _device_busy_ms(
+                torch, lambda: decode(LM_PROFILE_STEPS))
+        read = decode_param_bytes(model, cfg, b)
+        served[arch] = dict(
+            batch=b, prompts=list(prompts), new=new, dtype=cfg.dtype,
+            params=sum(p.numel() for p in model.parameters()),
+            prefill_ms=sorted(pre_ms)[1], prefill_ms_runs=pre_ms,
+            decode_ms_per_token=sorted(dec_ms)[1], decode_ms_runs=dec_ms,
+            serve_s=serve_s, tokens_per_s=b * new / serve_s[1],
+            decode_tokens_per_s=1e3 * b / sorted(dec_ms)[1],
+            # the phases before leave tensors on the card (layouts): the
+            # peak less what was allocated before the model is the
+            # model's own
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            allocated_before=held_before,
+            peak_bytes=torch.cuda.max_memory_allocated() - held_before,
+            decode_param_bytes=read,
+            decode_bound_ms=1e3 * read / HBM_BYTES_PER_S,
+            profiled_steps=LM_PROFILE_STEPS, profiled_decode_wall_ms=wall,
+            decode_kernel_ms_per_token=None if busy is None
+            else busy / LM_PROFILE_STEPS,
+            # kernel time (profiled) over the unprofiled decode time: the
+            # profiler's own host cost would inflate the wall time
+            device_busy_share=None if busy is None
+            else busy / LM_PROFILE_STEPS / sorted(dec_ms)[1],
+            tokens_at_or_past_vocab=int((outs[0] >= cfg.vocab).sum()),
+            first_tokens=outs[0][:, :8].tolist(), card=card,
+            seconds=time.perf_counter() - t_model)
+        emit("lm_serve_model", arch=arch, **served[arch])
+        del model, server, state, batch
+        torch.cuda.empty_cache()
+
+    # (d) one long forward through the chunked attention ------------------
+    arch, b, s = LM_LONG
+    cfg = configs.get_config(arch)
+    if s * s <= attn_mod._CHUNK_THRESHOLD:
+        raise AssertionError("the long forward would not take the chunked "
+                             "attention")
+    calls = []
+    plain_chunked = attn_mod._sdpa_chunked
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain_chunked(*args, **kw)
+
+    with torch.no_grad():
+        model = lm.init_params(0, cfg, device=cuda)
+        toks = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab, (b, s)).astype(np.int32)).to(cuda)
+        attn_mod._sdpa_chunked = counted
+        try:
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = lm.forward(model, {"tokens": toks}, cfg)[0]
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            attn_mod._sdpa_chunked = plain_chunked
+        finite = bool(torch.isfinite(logits).all())
+    if not finite or len(calls) != 2 * cfg.n_layers:
+        raise AssertionError(f"lm {arch} S={s}: finite {finite}, chunked "
+                             f"attention calls {len(calls)}")
+    long = dict(arch=arch, batch=b, seq=s, seconds=times,
+                chunked_calls=len(calls) // 2, logits=list(logits.shape),
+                card=card)
+    emit("lm_long_forward", **long)
+    del model, logits
+    torch.cuda.empty_cache()
+    lm_launches = sum(build.LAUNCHES.values())
+    if lm_launches:
+        raise AssertionError(f"the LM path launched hand-written kernels: "
+                             f"{build.LAUNCHES}")
+
+    # (e) the examples, on the card ---------------------------------------
+    examples = {}
+    root = Path(__file__).resolve().parent / "examples" / "torch"
+    for path in sorted(root.glob("*.py")):
+        build.reset_launches()
+        spec = importlib.util.spec_from_file_location(
+            f"example_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main([])
+        torch.cuda.synchronize()
+        examples[path.stem] = dict(
+            seconds=time.perf_counter() - t0,
+            launches={k: v for k, v in build.LAUNCHES.items() if v})
+        emit("lm_example", name=path.stem, **examples[path.stem])
+        torch.cuda.empty_cache()
+    if len(examples) != 7:
+        raise AssertionError(f"examples run: {sorted(examples)}")
+    emit("lm_serve", card=card, smoke=smoke, full_f32=full_f32,
+         served=served, long_forward=long, lm_kernel_launches=lm_launches,
+         examples=examples, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2702,6 +3063,10 @@ def main() -> int:
 
     # 18. the autotuner at the main path's full width ---------------------
     phase_tuning(torch, F, shared_layout, build)
+    torch.cuda.empty_cache()
+
+    # 19. the language-model serving path and the examples -----------------
+    phase_lm_serve(torch, build)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,2 +1,14 @@
-"""Model code of the port: so far only the Mamba-2 chunked SSD scan
-(``ssm._ssd_chunked``), the oracle of the SSD chunk kernel."""
+"""LM substrate: the config-driven model zoo (dense / MoE / SSM / hybrid /
+enc-dec / VLM backbone) in plain PyTorch, one ``nn.Module`` a layer kind
+and a model family, with the reference's module-level functions.
+
+``train_loss`` is not ported yet (the training path is a later slice)."""
+from repro_torch.models.config import (LayerSpec, ModelConfig, MoESpec,
+                                       RecSpec, SSMSpec)
+from repro_torch.models.model import (decode_step, forward, generate,
+                                      greedy_generate, init_cache,
+                                      init_params, prefill)
+
+__all__ = ["LayerSpec", "ModelConfig", "MoESpec", "RecSpec", "SSMSpec",
+           "decode_step", "forward", "generate", "greedy_generate",
+           "init_cache", "init_params", "prefill"]

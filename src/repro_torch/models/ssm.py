@@ -1,11 +1,93 @@
-"""The Mamba-2 chunked SSD scan in plain PyTorch: the port of the
-reference's ``src/repro/models/ssm.py::_ssd_chunked`` and nothing else of
-that module. It is the oracle the SSD chunk kernel is held to
-(``kernels/ssd_chunk.py``), as ``ref.ssd_ref`` holds the Pallas kernel."""
+"""Mamba-2 SSD (state-space duality) mixer [arXiv:2405.21060]: the port of
+the reference's ``src/repro/models/ssm.py`` in plain PyTorch.
+
+Prefill without a cache runs the chunked SSD algorithm (intra-chunk
+quadratic block + inter-chunk linear state recurrence, ``_ssd_chunked``);
+with a cache the tokens run through the recurrence one at a time, carrying
+the (B, H, P, N) state and the depthwise-conv window -- O(1) per token.
+
+``_ssd_chunked`` is also the oracle the SSD chunk kernel is held to
+(``kernels/ssd_chunk.py``), as ``ref.ssd_ref`` holds the Pallas kernel;
+the mixer does not call that kernel, as the reference's does not call its
+Pallas kernel. The causal conv is the reference's sum of shifted products
+(no ``conv1d``, whose TF32 mode would change its float32 products on the
+card).
+"""
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import const, dense_init, dtype_of
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return d_in, nh, conv_dim
+
+
+class SSM(nn.Module):
+    """``in_proj``, the depthwise conv ``conv_w``/``conv_b``, ``A_log``,
+    ``D``, ``dt_bias``, the gated norm's ``norm_scale`` and ``out_proj``."""
+
+    def __init__(self, cfg: ModelConfig, device, gen=None):
+        super().__init__()
+        s = cfg.ssm
+        d = cfg.d_model
+        d_in, nh, conv_dim = _dims(cfg)
+        d_proj = 2 * d_in + 2 * s.n_groups * s.d_state + nh
+        self.in_proj = dense_init(gen, (d, d_proj), cfg, device)
+        self.conv_w = dense_init(gen, (s.conv_width, conv_dim), cfg, device)
+        self.conv_b = const((conv_dim,), 0.0, cfg, device)
+        self.A_log = const((nh,), 0.0, cfg, device)  # A = -exp(0) = -1
+        self.D = const((nh,), 1.0, cfg, device)
+        self.dt_bias = const((nh,), 0.0, cfg, device)
+        self.norm_scale = const((d_in,), 0.0, cfg, device)
+        self.out_proj = dense_init(gen, (d_in, d), cfg, device, out=True)
+
+
+def init_ssm(gen, cfg: ModelConfig, device) -> SSM:
+    return SSM(cfg, device, gen)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, device):
+    s = cfg.ssm
+    d_in, nh, conv_dim = _dims(cfg)
+    return {
+        "state": torch.zeros((batch, nh, s.head_dim, s.d_state),
+                             device=device),
+        "conv": torch.zeros((batch, s.conv_width - 1, conv_dim),
+                            dtype=dtype_of(cfg.dtype), device=device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv; x (B,S,C), w (K,C): the window below from
+    K-1 zero inputs."""
+    zeros = x.new_zeros((x.shape[0], w.shape[0] - 1, x.shape[2]))
+    return _conv_window(zeros, x, w, b)[0]
+
+
+def _conv_window(cache_conv: torch.Tensor, u: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor):
+    """The causal conv of ``u`` (B,S,C) continued from the cached last
+    K-1 inputs, a sum of K shifted products as the reference writes it:
+    (conv output, the new cached window)."""
+    k = w.shape[0]
+    s = u.shape[1]
+    window = torch.cat([cache_conv, u], dim=1)   # (b, k-1+s, c)
+    out = torch.zeros_like(u)
+    for j in range(k):
+        out = out + window[:, j:j + s] * w[j][None, None].to(u.dtype)
+    return out + b[None, None].to(u.dtype), window[:, -(k - 1):]
 
 
 def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -62,3 +144,62 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         * torch.exp(da_t).permute(0, 1, 3, 2)[..., None]
     y = (y_diag + y_off).reshape(b, sp, h, p)
     return y[:, :s]
+
+
+def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, cache=None
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x (B,S,d) -> (out (B,S,d), new_cache)."""
+    s_cfg = cfg.ssm
+    b, s, _ = x.shape
+    d_in, nh, conv_dim = _dims(cfg)
+    g, n = s_cfg.n_groups, s_cfg.d_state
+    hd = s_cfg.head_dim
+    dt_ = x.dtype
+
+    zxbcdt = torch.matmul(x, p.in_proj.to(dt_))
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:d_in + conv_dim]
+    dt_raw = zxbcdt[..., d_in + conv_dim:]
+
+    if cache is None:
+        xbc = _causal_conv(xbc, p.conv_w, p.conv_b)
+        new_conv = None
+    else:
+        xbc, new_conv = _conv_window(cache["conv"], xbc, p.conv_w, p.conv_b)
+    xbc = F.silu(xbc)
+
+    xs = xbc[..., :d_in].reshape(b, s, nh, hd)
+    bm = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
+    cm = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+    dt = F.softplus(dt_raw.float() + p.dt_bias.float())
+    a = -torch.exp(p.A_log.float())
+
+    if cache is None:
+        y = _ssd_chunked(xs, dt, a, bm, cm, s_cfg.chunk)
+        new_state = None
+    else:
+        # recurrent: state (b,h,p,n), one token at a time
+        hpg = nh // g
+        bh = bm.repeat_interleave(hpg, dim=2).float()       # (b,s,h,n)
+        chh = cm.repeat_interleave(hpg, dim=2).float()
+        state = cache["state"]
+        ys = []
+        for i in range(s):  # s == 1 in decode
+            da = torch.exp(dt[:, i] * a[None])                # (b,h)
+            upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, i],
+                               xs[:, i].float(), bh[:, i])
+            state = state * da[..., None, None] + upd
+            ys.append(torch.einsum("bhpn,bhn->bhp", state, chh[:, i]))
+        y = torch.stack(ys, dim=1)
+        new_state = state
+
+    y = y + xs.float() * p.D.float()[None, None, :, None]
+    y = y.reshape(b, s, d_in)
+    # gated RMSNorm (mamba2)
+    y = y * F.silu(z.float())
+    ms = y.square().mean(dim=-1, keepdim=True)
+    y = y * torch.rsqrt(ms + 1e-6) * (1.0 + p.norm_scale.float())
+    out = torch.matmul(y.to(dt_), p.out_proj.to(dt_))
+    new_cache = None if cache is None else {"state": new_state,
+                                            "conv": new_conv}
+    return out, new_cache

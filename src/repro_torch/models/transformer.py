@@ -1,0 +1,203 @@
+"""Decoder-only LM assembly: a repeating unit of layers run ``n_units``
+times plus a tail, the port of the reference's ``models/transformer.py``.
+The reference scans one stacked parameter tree over the units
+(``lax.scan``); here the units are an ``nn.ModuleList`` and a loop.
+
+Covers dense (tinyllama/qwen/smollm), local+global alternating (gemma2),
+SWA MoE (mixtral), MoE + dense residual (arctic), hybrid RG-LRU (recurrent-
+gemma), attention-free SSD (mamba2), and the VLM backbone (llava, patch-
+prefix stub). The decode cache is ``{"units": [unit cache, ...], "tail":
+{...}}``, a unit cache ``{"l0": layer cache, ...}``.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rec_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.layers import (Head, apply_mlp, apply_norm,
+                                       embed_tokens, init_embed, init_mlp,
+                                       init_norm, unembed)
+
+
+# ======================================================================
+# single layer
+# ======================================================================
+class Layer(nn.Module):
+    """``pre_norm``, the mixer (``attn`` / ``rec`` / ``ssm``),
+    ``post_norm`` (gemma2), and unless the layer is an SSM ``mlp_norm``,
+    ``mlp`` or ``moe``, ``mlp_post_norm``."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device, gen=None):
+        super().__init__()
+        self.pre_norm = init_norm(cfg, device)
+        if spec.kind == "attn":
+            self.attn = attn_mod.init_attn(gen, cfg, device)
+        elif spec.kind == "rec":
+            self.rec = rec_mod.init_rec(gen, cfg, device)
+        else:
+            self.ssm = ssm_mod.init_ssm(gen, cfg, device)
+        if cfg.post_norms:
+            self.post_norm = init_norm(cfg, device)
+        if spec.kind != "ssm":  # mamba2 layers are mixer-only
+            self.mlp_norm = init_norm(cfg, device)
+            if cfg.moe is not None:
+                self.moe = moe_mod.init_moe(gen, cfg, device)
+            else:
+                self.mlp = init_mlp(gen, cfg, device)
+            if cfg.post_norms:
+                self.mlp_post_norm = init_norm(cfg, device)
+
+
+def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device) -> Layer:
+    return Layer(cfg, spec, device, gen)
+
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, device):
+    if spec.kind == "attn":
+        return attn_mod.init_attn_cache(cfg, spec, batch, max_len, device)
+    if spec.kind == "rec":
+        return rec_mod.init_rec_cache(cfg, batch, device)
+    return ssm_mod.init_ssm_cache(cfg, batch, device)
+
+
+def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+                pos_offset: int, cache=None
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """-> (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), device=x.device)
+    h = apply_norm(p.pre_norm, x, cfg)
+    if spec.kind == "attn":
+        mixed, new_cache = attn_mod.apply_attn(p.attn, h, cfg, spec,
+                                               pos_offset, cache)
+    elif spec.kind == "rec":
+        mixed, new_cache = rec_mod.apply_rec(p.rec, h, cfg, cache)
+    else:
+        mixed, new_cache = ssm_mod.apply_ssm(p.ssm, h, cfg, cache)
+    if cfg.post_norms:
+        mixed = apply_norm(p.post_norm, mixed, cfg)
+    x = x + mixed
+
+    if spec.kind != "ssm":
+        h = apply_norm(p.mlp_norm, x, cfg)
+        if cfg.moe is not None:
+            m, aux = moe_mod.apply_moe(p.moe, h, cfg)
+        else:
+            m = apply_mlp(p.mlp, h, cfg)
+        if cfg.post_norms:
+            m = apply_norm(p.mlp_post_norm, m, cfg)
+        x = x + m
+    return x, new_cache, aux
+
+
+# ======================================================================
+# unit (the repeating group of layers) + the whole model
+# ======================================================================
+def init_unit(gen, cfg: ModelConfig, device) -> nn.ModuleDict:
+    return nn.ModuleDict({f"l{i}": init_layer(gen, cfg, spec, device)
+                          for i, spec in enumerate(cfg.unit)})
+
+
+def init_unit_cache(cfg: ModelConfig, specs, batch: int, max_len: int,
+                    device):
+    return {f"l{i}": init_layer_cache(cfg, spec, batch, max_len, device)
+            for i, spec in enumerate(specs)}
+
+
+def apply_unit(p_unit, x: torch.Tensor, cfg: ModelConfig, specs,
+               pos_offset: int, cache=None):
+    aux = torch.zeros((), device=x.device)
+    new_cache = {} if cache is not None else None
+    for i, spec in enumerate(specs):
+        li = f"l{i}"
+        x, nc, a = apply_layer(p_unit[li], x, cfg, spec, pos_offset,
+                               None if cache is None else cache[li])
+        if cache is not None:
+            new_cache[li] = nc
+        aux = aux + a
+    return x, new_cache, aux
+
+
+class Transformer(nn.Module):
+    """``embed``, ``units`` (one ``ModuleDict`` of layers a unit),
+    ``tail``, ``final_norm`` and, untied, ``head``. Parameter names are the
+    reference's tree paths with the unit index after ``units``."""
+
+    def __init__(self, cfg: ModelConfig, device, gen=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = init_embed(gen, cfg, device)
+        self.units = nn.ModuleList(init_unit(gen, cfg, device)
+                                   for _ in range(cfg.n_units))
+        if cfg.tail:
+            self.tail = nn.ModuleDict({
+                f"t{i}": init_layer(gen, cfg, spec, device)
+                for i, spec in enumerate(cfg.tail)})
+        self.final_norm = init_norm(cfg, device)
+        if not cfg.tie_embeddings:
+            self.head = Head(cfg, device, gen)
+
+    def forward(self, tokens, *, pos_offset: int = 0, cache=None,
+                prefix_embeds=None):
+        return forward(self, tokens, self.cfg, pos_offset=pos_offset,
+                       cache=cache, prefix_embeds=prefix_embeds)
+
+
+def init_params(gen, cfg: ModelConfig, device) -> Transformer:
+    return Transformer(cfg, device, gen)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    cache = {"units": [init_unit_cache(cfg, cfg.unit, batch, max_len, device)
+                       for _ in range(cfg.n_units)]}
+    if cfg.tail:
+        cache["tail"] = {f"t{i}": init_layer_cache(cfg, spec, batch, max_len,
+                                                   device)
+                         for i, spec in enumerate(cfg.tail)}
+    return cache
+
+
+# ======================================================================
+# forward
+# ======================================================================
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            pos_offset: int = 0, cache=None,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """tokens (B, S) int -> (logits (B, S_total, V), new_cache, aux)."""
+    x = embed_tokens(params.embed, tokens, cfg, pos_offset=pos_offset)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+    has_cache = cache is not None
+    aux = torch.zeros((), device=x.device)
+    new_units = [] if has_cache else None
+    for i, p_unit in enumerate(params.units):
+        c_unit = cache["units"][i] if has_cache else None
+        x, new_c, a = apply_unit(p_unit, x, cfg, cfg.unit, pos_offset, c_unit)
+        aux = aux + a
+        if has_cache:
+            new_units.append(new_c)
+
+    new_cache = {"units": new_units} if has_cache else None
+    if cfg.tail:
+        if has_cache:
+            new_cache["tail"] = {}
+        for i, spec in enumerate(cfg.tail):
+            ti = f"t{i}"
+            c = cache["tail"][ti] if has_cache else None
+            x, nc, a = apply_layer(params.tail[ti], x, cfg, spec, pos_offset,
+                                   c)
+            aux = aux + a
+            if has_cache:
+                new_cache["tail"][ti] = nc
+
+    x = apply_norm(params.final_norm, x, cfg)
+    logits = unembed(params.embed, getattr(params, "head", None), x, cfg)
+    return logits, new_cache, aux

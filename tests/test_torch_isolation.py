@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and no script under ``tools/`` imports jax or the
-reference package, and the CPU path runs with neither loaded."""
+``chip_smoke.py``, no script under ``tools/`` and no example under
+``examples/torch/`` imports jax or the reference package, and the CPU
+path (the simulation engines, the kernels' plain versions, the language
+models and their server, the examples) runs with neither loaded."""
 import ast
 import os
 import subprocess
@@ -11,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
+    sorted((ROOT / "examples" / "torch").glob("*.py"))
 
 
 def _imported_roots(path: Path):
@@ -70,13 +73,40 @@ runner = BatchedRunner(device="cpu")
 states = runner.init_batch("cuda-mxu", SIERPINSKI, 4, [0, 1], m=2)
 assert runner.run("cuda-mxu", SIERPINSKI, 4, states, 5, m=2).shape == \\
     states.shape
+import numpy as np
+from repro_torch import configs
+from repro_torch.configs.sierpinski import CONFIG, FRACTAL
+from repro_torch.launch.serve import BatchServer, Request
+from repro_torch.models import model as lm
+assert FRACTAL is SIERPINSKI and CONFIG.m == 4
+for arch in configs.ARCHS:
+    cfg = configs.get_smoke_config(arch)
+    server = BatchServer(cfg, lm.init_params(0, cfg, device="cpu"))
+    for r in server.serve([Request(prompt=np.arange(3 + i, dtype=np.int32),
+                                   max_new=3) for i in range(2)]):
+        assert r.out.shape == (3,) and (r.out < cfg.vocab_padded).all()
+import importlib.util
+EXAMPLES = sys.argv[1]
+small = {"quickstart": ["--r", "4", "--steps", "4"],
+         "workloads": ["--r", "4", "--steps", "2", "--batch", "2"],
+         "fractal_large": ["--r", "4", "--m", "1", "--steps", "2"],
+         "distributed": ["--r", "4", "--steps", "2", "--shards", "2"],
+         "serve_fractals": ["--r", "3"], "telemetry": ["--r", "4"],
+         "serve_lm": []}
+for name, args in small.items():
+    spec = importlib.util.spec_from_file_location(
+        name, f"{EXAMPLES}/{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(args + ["--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(ROOT / "examples" / "torch")], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")
