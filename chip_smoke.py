@@ -223,7 +223,27 @@ jax or the reference package). Phases, each printing one JSON line:
      loop (the device events of ``torch.profiler``, each kernel once); (d) one gemma2-2b forward at
      B=1, S=4096, every attention layer through ``_sdpa_chunked``, finite,
      timed; (e) every ``examples/torch`` script's ``main`` on the card at
-     its defaults (``fractal_large.py``'s is r = 14), with its launches.
+     its defaults (``fractal_large.py``'s is r = 14), with its launches;
+ 20. the language-model training path (``launch/train.py``,
+     ``launch/specs.py::make_train_step``, ``train_loss`` with autograd,
+     ``optim/adamw.py``; no hand-written kernel is on it, as no reference
+     model calls a Pallas kernel and the reference differentiates plain
+     XLA, and the phase fails if one launches): (a) one ``make_train_step``
+     step of every architecture's smoke config on the card against the
+     same step on the CPU, from the same weights, seeded non-zero moments
+     and batch, and smollm-135m and mixtral-8x22b again at ``accum_steps``
+     = 4: loss, grad norm, every parameter and moment within the
+     reference's step bar (rtol 5e-4, atol 5e-6); (b) smollm-135m at full
+     width through the CLI's ``main`` (``--steps 50`` at its defaults B=8,
+     S=256, lr 3e-4, warm-up 20; then B=16, S=1024 for 10 steps), the loss
+     falling (the CLI's own check), with the median ms a step after three
+     warm-up steps, tokens/s, the peak memory the run added and the share
+     6 N tokens / (step time x 989 TFLOP/s); the device's busy share of
+     one profiled step and its kernel count; (c) the smoke smollm-135m
+     trained 12 steps with a checkpoint every 4, killed after step 6 and
+     resumed, bit for bit with the uninterrupted run (deterministic
+     algorithms on for this part); (d) gemma2-2b and mamba2-780m at full
+     width, 3 steps at B=2, S=1024: finite losses, ms a step, peak memory.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -390,6 +410,24 @@ LM_SERVE = [("smollm-135m", (32, 32, 32, 32), 16),
 LM_PROFILE_STEPS = 4
 #: (d) one long forward through the chunked attention: arch, B, S
 LM_LONG = ("gemma2-2b", 1, 4096)
+#: phase 20, the language-model training path: (a) every arch's smoke step
+#: card against CPU (batch, sequence) at the reference's step bar, and the
+#: archs taken again at ``accum_steps`` = 4
+LM_STEP = dict(batch=4, seq=16)
+LM_STEP_TOL = (5e-4, 5e-6)
+LM_STEP_ACCUM = ("smollm-135m", "mixtral-8x22b")
+#: (b) smollm-135m at full width through the CLI: its arguments, and the
+#: steps left out of the median
+LM_TRAIN_CLI = [["--steps", "50"],
+                ["--steps", "10", "--batch", "16", "--seq", "1024"]]
+LM_TRAIN_WARMUP = 3
+#: (c) the restart: steps, checkpoint interval, the step after which the
+#: first attempt dies
+LM_RESTART = dict(steps=12, ckpt_every=4, fail_at=6)
+#: (d) full width: arch, B, S, steps
+LM_TRAIN_FULL = [("gemma2-2b", 2, 1024, 3), ("mamba2-780m", 2, 1024, 3)]
+#: one H100's dense bf16 peak, for the FLOP share of a training step
+PEAK_BF16_FLOPS = 989e12
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -2613,11 +2651,264 @@ def phase_lm_serve(torch, build):
             launches={k: v for k, v in build.LAUNCHES.items() if v})
         emit("lm_example", name=path.stem, **examples[path.stem])
         torch.cuda.empty_cache()
-    if len(examples) != 7:
+    if len(examples) != 8:
         raise AssertionError(f"examples run: {sorted(examples)}")
     emit("lm_serve", card=card, smoke=smoke, full_f32=full_f32,
          served=served, long_forward=long, lm_kernel_launches=lm_launches,
          examples=examples, seconds=time.perf_counter() - t_phase)
+
+
+def _seeded_moments(torch, state, named, seed):
+    """Non-zero float32 moments from a CPU generator (a step from zero
+    moments moves every parameter by +-lr, whatever its gradient's size,
+    so it would compare the signs of gradients that are rounding noise)."""
+    gen = torch.Generator().manual_seed(seed)
+    for n, p in named.items():
+        state["m"][n].copy_(1e-3 * torch.randn(p.shape, generator=gen))
+        state["v"][n].copy_(1e-6 * torch.rand(p.shape, generator=gen) + 1e-8)
+    return state
+
+
+def _train_batch(torch, np, cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        batch["prefix_embeds"] = rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _train_run_figures(torch, res, cfg, b, s, held_before, card):
+    """Median ms a step past the warm-up, tokens/s, the FLOP share and the
+    peak memory the run added, from a ``TrainResult``."""
+    times = sorted(res.step_seconds[LM_TRAIN_WARMUP:] or res.step_seconds)
+    med = times[len(times) // 2]
+    n = cfg.param_count()
+    return dict(batch=b, seq=s, steps=res.step, step_ms=1e3 * med,
+                step_ms_runs=[1e3 * t for t in res.step_seconds],
+                tokens_per_s=b * s / med, params=n,
+                step_flops=6.0 * n * b * s,
+                flop_share=6.0 * n * b * s / (med * PEAK_BF16_FLOPS),
+                loss_first5=sum(res.losses[:5]) / len(res.losses[:5]),
+                loss_last5=sum(res.losses[-5:]) / len(res.losses[-5:]),
+                losses=res.losses,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                allocated_before=held_before,
+                peak_bytes=torch.cuda.max_memory_allocated() - held_before,
+                card=card)
+
+
+def phase_lm_train(torch, build):
+    """Phase 20: the language-model training path (module docstring, item
+    20). No hand-written kernel is on it, and the phase asserts that none
+    launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticMarkov
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import run_with_restarts
+
+    t_phase = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    card = nvidia_smi()
+    build.reset_launches()
+
+    # (a) every arch's smoke step, card against CPU -----------------------
+    rtol, atol = LM_STEP_TOL
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    cases = [(a, 1) for a in configs.ARCHS] + [(a, 4) for a in LM_STEP_ACCUM]
+    steps = {}
+    for i, (arch, accum) in enumerate(cases):
+        t0 = time.perf_counter()
+        cfg = configs.get_smoke_config(arch)
+        on_card = lm.init_params(300 + i, cfg, device=cuda)
+        on_cpu = lm.build_model(cfg, cpu, None)
+        on_cpu.load_state_dict(on_card.state_dict())
+        step = specs.make_train_step(cfg, ocfg, accum_steps=accum)
+        batch = _train_batch(torch, np, cfg, LM_STEP["batch"],
+                             LM_STEP["seq"], i)
+        out = []
+        for model, dev in ((on_card, cuda), (on_cpu, cpu)):
+            named = dict(model.named_parameters())
+            state = _seeded_moments(torch, adamw.init(ocfg, named), named, i)
+            _, state, metrics = step(model, state,
+                                     {k: v.to(dev) for k, v in batch.items()})
+            out.append((model, state, metrics))
+        (_, s_card, m_card), (_, s_cpu, m_cpu) = out
+        errs = {k: _lm_within(torch, f"lm train {arch} x{accum} {k}",
+                              m_card[k], m_cpu[k], rtol, atol)
+                for k in ("loss", "grad_norm", "lr")}
+        worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+        for n, p in on_cpu.named_parameters():
+            got = on_card.get_parameter(n).detach()
+            worst["params"] = max(worst["params"], _lm_within(
+                torch, f"lm train {arch} x{accum} {n}", got, p.detach(),
+                rtol, atol))
+            for key in ("m", "v"):
+                worst[key] = max(worst[key], _lm_within(
+                    torch, f"lm train {arch} x{accum} {key} {n}",
+                    s_card[key][n], s_cpu[key][n], rtol, atol))
+        steps[f"{arch} x{accum}"] = dict(
+            max_abs_err={**errs, **worst}, loss=float(m_card["loss"]),
+            seconds=time.perf_counter() - t0)
+        emit("lm_train_step", arch=arch, accum_steps=accum,
+             **steps[f"{arch} x{accum}"])
+        del on_card, on_cpu, out, s_card, s_cpu
+    torch.cuda.empty_cache()
+
+    # (b) smollm-135m at full width through the CLI -----------------------
+    cli = []
+    for argv in LM_TRAIN_CLI:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res = train_mod.main(["--arch", "smollm-135m"] + argv)
+        torch.cuda.synchronize()
+        args = dict(zip(argv[::2], argv[1::2]))
+        b, s = int(args.get("--batch", 8)), int(args.get("--seq", 256))
+        row = _train_run_figures(torch, res, configs.get_config(
+            "smollm-135m"), b, s, held, card)
+        row.update(argv=argv, seconds=time.perf_counter() - t0)
+        cli.append(row)
+        emit("lm_train_cli", **row)
+    # one step of the CLI's defaults under the profiler: the device's busy
+    # share (each kernel once) over the unprofiled step time
+    cfg = configs.get_config("smollm-135m")
+    model = lm.init_params(0, cfg, device=cuda)
+    named = dict(model.named_parameters())
+    state = {"s": adamw.init(ocfg, named)}
+    step = specs.make_train_step(cfg, adamw.AdamWConfig(warmup_steps=20,
+                                                        total_steps=50))
+    data = SyntheticMarkov(vocab=cfg.vocab, seq_len=256, global_batch=8)
+    batches = [{k: torch.from_numpy(v).to(cuda)
+                for k, v in data.batch(j).items()} for j in range(6)]
+
+    def one(j):
+        _, state["s"], metrics = step(model, state["s"], batches[j])
+        return float(metrics["loss"])
+
+    walls = []
+    for j in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(j)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    step_ms = sorted(walls[2:])[1]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one(5)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    events = prof.events()
+    busy_ms = device_event_us(events) / 1e3
+    kernels = sum(1 for ev in events if ev.device_type == DeviceType.CUDA
+                  and not ev.is_user_annotation)
+    profiled = dict(step_ms=step_ms, step_ms_runs=walls,
+                    kernel_ms=busy_ms or None,
+                    device_busy_share=busy_ms / step_ms if busy_ms else None,
+                    device_events=kernels, card=card)
+    emit("lm_train_profile", **profiled)
+    del model, named, state, batches
+    torch.cuda.empty_cache()
+
+    # (c) kill, restart, resume: bit for bit ------------------------------
+    t0 = time.perf_counter()
+    cfg = configs.get_smoke_config("smollm-135m")
+    rs = LM_RESTART
+    rcfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                             total_steps=rs["steps"], weight_decay=0.0)
+    data = SyntheticMarkov(vocab=cfg.vocab, seq_len=16, global_batch=2,
+                           seed=3)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    calls = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            clean, broken = f"{tmp}/clean", f"{tmp}/broken"
+            full = train_mod.train(cfg, rcfg, data, steps=rs["steps"],
+                                   ckpt_dir=clean,
+                                   ckpt_every=rs["ckpt_every"], log_every=0)
+
+            def run():
+                calls.append(1)
+                return train_mod.train(
+                    cfg, rcfg, data, steps=rs["steps"], ckpt_dir=broken,
+                    ckpt_every=rs["ckpt_every"], log_every=0,
+                    fail_at=rs["fail_at"] if len(calls) == 1 else None)
+
+            resumed = run_with_restarts(lambda: run().step, max_restarts=2)
+            named = dict(lm.build_model(cfg, cpu, None).named_parameters())
+            like = {"params": named, "opt": adamw.init(rcfg, named)}
+            want = CheckpointManager(clean).restore(like)["params"]
+            got = CheckpointManager(broken).restore(like)["params"]
+            differ = sorted(n for n in named
+                            if not np.array_equal(got[n], want[n]))
+            resumed_from = CheckpointManager(broken).all_steps()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    if resumed != rs["steps"] or len(calls) != 2 or differ:
+        raise AssertionError(f"lm restart: final step {resumed}, attempts "
+                             f"{len(calls)}, parameters that differ {differ}")
+    restart = dict(steps=rs["steps"], ckpt_every=rs["ckpt_every"],
+                   failed_after=rs["fail_at"], attempts=len(calls),
+                   bit_exact=True, params=len(named),
+                   checkpoints_kept=resumed_from, losses=full.losses,
+                   seconds=time.perf_counter() - t0)
+    emit("lm_train_restart", **restart)
+
+    # (d) gemma2-2b and mamba2-780m at full width -------------------------
+    wide = {}
+    for arch, b, s, n_steps in LM_TRAIN_FULL:
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        data = SyntheticMarkov(vocab=cfg.vocab, seq_len=s, global_batch=b)
+        res = train_mod.train(cfg, adamw.AdamWConfig(warmup_steps=1,
+                                                     total_steps=n_steps),
+                              data, steps=n_steps, log_every=0)
+        torch.cuda.synchronize()
+        if not all(np.isfinite(res.losses)):
+            raise AssertionError(f"lm train {arch}: losses {res.losses}")
+        wide[arch] = dict(
+            batch=b, seq=s, steps=n_steps, losses=res.losses,
+            step_ms_runs=[1e3 * t for t in res.step_seconds],
+            step_ms=1e3 * sorted(res.step_seconds)[len(res.step_seconds)
+                                                    // 2],
+            params=cfg.param_count(),
+            flop_share=6.0 * cfg.param_count() * b * s / (
+                sorted(res.step_seconds)[len(res.step_seconds) // 2]
+                * PEAK_BF16_FLOPS),
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            allocated_before=held,
+            peak_bytes=torch.cuda.max_memory_allocated() - held,
+            card=card, seconds=time.perf_counter() - t0)
+        emit("lm_train_full", arch=arch, **wide[arch])
+        torch.cuda.empty_cache()
+
+    launches = sum(build.LAUNCHES.values())
+    if launches:
+        raise AssertionError(f"the LM training path launched hand-written "
+                             f"kernels: {build.LAUNCHES}")
+    emit("lm_train", card=card, steps=steps, cli=cli, profile=profiled,
+         restart=restart, full_width=wide, lm_kernel_launches=launches,
+         seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -3067,6 +3358,10 @@ def main() -> int:
 
     # 19. the language-model serving path and the examples -----------------
     phase_lm_serve(torch, build)
+    torch.cuda.empty_cache()
+
+    # 20. the language-model training path ---------------------------------
+    phase_lm_train(torch, build)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

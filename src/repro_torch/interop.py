@@ -14,7 +14,12 @@ model parameters:
   * ``params_from_numpy(cfg, tree)`` builds the port's model from the
     reference's parameter tree (nested dicts of arrays), splitting the
     leading unit axis of the stacked ``units`` / ``enc_units`` /
-    ``dec_units`` subtrees into one module a unit.
+    ``dec_units`` subtrees into one module a unit; ``params_to_numpy``
+    stacks them back into the reference's tree;
+  * ``opt_state_from_numpy`` / ``opt_state_to_numpy`` do the same for an
+    AdamW state (``step``, the moments ``m`` and ``v`` -- float32, or int8
+    ``q`` with their ``scale`` -- and the residuals ``ef``), so both
+    packages can start a step from the same parameters and moments.
 """
 from __future__ import annotations
 
@@ -71,13 +76,9 @@ def _flatten(tree, prefix=""):
             yield path, np.asarray(value)
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device=None):
-    """The port's model for ``cfg`` on ``device`` (``None`` = the card)
-    holding the reference's parameters ``tree``; every leaf goes through
-    ``np.asarray``. Leaf ``units.l0.attn.wq`` of shape (n_units, ...) lands
-    in ``units.<i>.l0.attn.wq`` for each unit i. Raises KeyError when the
-    names differ and ValueError when a shape does."""
-    device = resolve_device(device)
+def _split_stacked(tree) -> dict:
+    """Port name -> array: a leaf of a stacked subtree, ``units.l0.wq``
+    of shape (n, ...), becomes ``units.<i>.l0.wq`` for each i."""
     leaves = {}
     for path, arr in _flatten(tree):
         top, _, rest = path.partition(".")
@@ -86,6 +87,46 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
                 leaves[f"{top}.{i}.{rest}"] = arr[i]
         else:
             leaves[path] = arr
+    return leaves
+
+
+def _stack_units(cfg: ModelConfig, named) -> dict:
+    """The reference's nested tree of numpy arrays from port names: the
+    per-unit entries of a stacked subtree stacked along a new first axis,
+    in unit order; raises ValueError when a unit is missing."""
+    counts = {"units": cfg.n_units, "enc_units": cfg.n_enc_units,
+              "dec_units": cfg.n_units}
+    flat, units = {}, {}
+    for name, arr in named.items():
+        top, _, rest = name.partition(".")
+        if top in _STACKED:
+            i, _, leaf = rest.partition(".")
+            units.setdefault(f"{top}.{leaf}", {})[int(i)] = arr
+        else:
+            flat[name] = arr
+    for path, by_unit in units.items():
+        n = counts[path.partition(".")[0]]
+        if sorted(by_unit) != list(range(n)):
+            raise ValueError(f"{path}: units {sorted(by_unit)}, want {n}")
+        flat[path] = np.stack([by_unit[i] for i in range(n)])
+    tree = {}
+    for path, arr in flat.items():
+        *parents, leaf = path.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device=None):
+    """The port's model for ``cfg`` on ``device`` (``None`` = the card)
+    holding the reference's parameters ``tree``; every leaf goes through
+    ``np.asarray``. Leaf ``units.l0.attn.wq`` of shape (n_units, ...) lands
+    in ``units.<i>.l0.attn.wq`` for each unit i. Raises KeyError when the
+    names differ and ValueError when a shape does."""
+    device = resolve_device(device)
+    leaves = _split_stacked(tree)
     model = build_model(cfg, device, None)
     own = model.state_dict()
     if set(own) != set(leaves):
@@ -99,3 +140,62 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
                              f"{tuple(tensor.shape)} in the port")
         tensor.copy_(torch.from_numpy(np.array(arr)))
     return model
+
+
+def params_to_numpy(cfg: ModelConfig, model) -> dict:
+    """The reference's parameter tree (nested dicts of numpy arrays) of
+    the port's ``model``: the inverse of ``params_from_numpy``."""
+    return _stack_units(cfg, {n: state_to_numpy(p)
+                              for n, p in model.named_parameters()})
+
+
+def _quantized(sub) -> bool:
+    """Whether a moment tree is int8 (``{"q": ..., "scale": ...}``)."""
+    return set(sub) == {"q", "scale"}
+
+
+def opt_state_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
+    """The port's AdamW state (``repro_torch.optim.adamw``) on ``device``
+    (``None`` = the card) from the reference's: its step, and each
+    parameter tree of moments or residuals split into port names, copied
+    (``adamw.update`` writes the moments in place). Raises KeyError when a
+    tree's names are not ``cfg``'s parameters."""
+    device = resolve_device(device)
+    names = set(build_model(cfg, torch.device("meta"), None).state_dict())
+
+    def put(sub):
+        leaves = _split_stacked(sub)
+        if set(leaves) != names:
+            raise KeyError(f"moment names differ from the parameters': "
+                           f"{sorted(set(leaves) ^ names)[:4]}")
+        return {n: state_from_numpy(np.array(a), device)
+                for n, a in leaves.items()}
+
+    state = {"step": state_from_numpy(np.asarray(tree["step"]), device)}
+    for key in ("m", "v", "ef"):
+        if key not in tree:
+            continue
+        sub = tree[key]
+        if _quantized(sub):
+            state[key] = {k: put(sub[k]) for k in ("q", "scale")}
+        else:
+            state[key] = put(sub)
+    return state
+
+
+def opt_state_to_numpy(cfg: ModelConfig, state) -> dict:
+    """The reference's AdamW state tree of the port's ``state``."""
+    def get(sub):
+        return _stack_units(cfg, {n: state_to_numpy(t)
+                                  for n, t in sub.items()})
+
+    tree = {"step": state_to_numpy(state["step"])}
+    for key in ("m", "v", "ef"):
+        if key not in state:
+            continue
+        sub = state[key]
+        if _quantized(sub):
+            tree[key] = {k: get(sub[k]) for k in ("q", "scale")}
+        else:
+            tree[key] = get(sub)
+    return tree

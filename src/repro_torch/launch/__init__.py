@@ -1,1 +1,3 @@
-"""Entry points of the port: ``python -m repro_torch.launch.serve``."""
+"""Entry points of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` and ``python -m
+repro_torch.launch.dryrun``."""

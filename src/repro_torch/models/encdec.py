@@ -5,7 +5,9 @@ d); everything downstream (bidirectional encoder stack, causal decoder
 with cross-attention, KV caches) is real. The stacks are
 ``nn.ModuleList``s run in a loop where the reference scans stacked
 parameters; ``memory_kv`` and the decode cache hold one entry a decoder
-layer.
+layer. Under ``cfg.remat == "full"`` with gradients on, each encoder and
+decoder layer is recomputed in the backward pass, as the reference's
+``jax.checkpoint`` of its scan bodies.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -20,6 +23,7 @@ from repro_torch.models.layers import (Head, apply_mlp, apply_norm,
                                        dtype_of, embed_tokens, init_embed,
                                        init_mlp, init_norm, param,
                                        trunc_normal, unembed)
+from repro_torch.models.transformer import masked_nll, remat
 
 _SPEC = LayerSpec(kind="attn")
 
@@ -78,6 +82,15 @@ def init_params(gen, cfg: ModelConfig, device) -> EncDec:
 
 
 # ---------------------------------------------------------------- encoder
+def _enc_layer(p_layer, x, cfg):
+    h = apply_norm(p_layer["pre_norm"], x, cfg)
+    a, _ = attn_mod.apply_attn(p_layer["attn"], h, cfg, _SPEC, 0,
+                               causal=False)
+    x = x + a
+    h = apply_norm(p_layer["mlp_norm"], x, cfg)
+    return x + apply_mlp(p_layer["mlp"], h, cfg)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames (B, T, d) stub embeddings -> encoder memory (B, T, d)."""
     x = frames.to(dtype_of(cfg.dtype))
@@ -86,12 +99,10 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     idx = torch.arange(t, device=x.device).clamp(0, pos.shape[0] - 1)
     x = x + pos[idx].to(x.dtype)[None]
     for p_layer in params.enc_units:
-        h = apply_norm(p_layer["pre_norm"], x, cfg)
-        a, _ = attn_mod.apply_attn(p_layer["attn"], h, cfg, _SPEC, 0,
-                                   causal=False)
-        x = x + a
-        h = apply_norm(p_layer["mlp_norm"], x, cfg)
-        x = x + apply_mlp(p_layer["mlp"], h, cfg)
+        if remat(cfg):
+            x = checkpoint(_enc_layer, p_layer, x, cfg, use_reentrant=False)
+        else:
+            x = _enc_layer(p_layer, x, cfg)
     return apply_norm(params.enc_norm, x, cfg)
 
 
@@ -130,7 +141,12 @@ def forward(params, frames: Optional[torch.Tensor], tokens: torch.Tensor,
     new_units = [] if has_cache else None
     for i, p_layer in enumerate(params.dec_units):
         c = cache["units"][i] if has_cache else None
-        x, new_c = _dec_layer(p_layer, x, memory_kv[i], cfg, pos_offset, c)
+        if c is None and remat(cfg):
+            x, new_c = checkpoint(_dec_layer, p_layer, x, memory_kv[i], cfg,
+                                  pos_offset, None, use_reentrant=False)
+        else:
+            x, new_c = _dec_layer(p_layer, x, memory_kv[i], cfg, pos_offset,
+                                  c)
         if has_cache:
             new_units.append(new_c)
 
@@ -144,3 +160,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     return {"units": [attn_mod.init_attn_cache(cfg, _SPEC, batch, max_len,
                                                device)
                       for _ in range(cfg.n_units)]}
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """(ce + z-loss, metrics ``ce`` and ``moe_aux``; no ``z_loss``, as in
+    the reference)."""
+    logits, _, aux = forward(params, batch["frames"], batch["tokens"], cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    ce = masked_nll(logits, lse, batch["labels"])
+    total = ce + 1e-4 * torch.mean(torch.square(lse))
+    return total, {"ce": ce, "moe_aux": aux}

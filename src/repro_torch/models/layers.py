@@ -7,8 +7,9 @@ reference's leaf names (``p["w_up"]`` there is ``p.w_up`` here), and each
 Parameters are drawn from an explicit ``torch.Generator`` on the module's
 device (truncated normal: scale/sqrt(fan_in) for output projections,
 ``init_scale`` for the rest); with no generator a module's storage is
-left empty for ``interop.params_from_numpy`` to fill. Parameters do not
-require gradients: the port serves, it does not train yet.
+left empty for ``interop.params_from_numpy`` to fill. Parameters are built
+without ``requires_grad``, so serving records no graph; the train step
+turns gradients on for the model it trains.
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """Family dispatch: one public API over decoder-only and enc-dec models,
-the port of the reference's ``models/model.py`` (serving side).
+the port of the reference's ``models/model.py``.
 
   init_params(gen, cfg, device)         -> the model (an ``nn.Module``)
+  train_loss(params, batch, cfg)        -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)
   forward / prefill / decode_step       -> serving
   generate / greedy_generate            -> the KV-cached decoding loop
 
-``train_loss`` is not ported yet: the port serves and does not train.
+The train step (optimizer in the loop) is assembled in
+``launch/specs.py::make_train_step``.
 Entry points run on the card unless the caller passes ``device="cpu"``;
 ``gen`` is a ``torch.Generator`` or an int seed of one on that device.
 """
@@ -41,6 +43,12 @@ def build_model(cfg: ModelConfig, device, gen: Optional[torch.Generator]):
 def init_params(gen: Gen, cfg: ModelConfig, device=None):
     device = resolve_device(device)
     return build_model(cfg, device, generator(gen, device))
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return encdec.train_loss(params, batch, cfg)
+    return transformer.train_loss(params, batch, cfg)
 
 
 def device_of(params) -> torch.device:

@@ -122,7 +122,11 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cb = torch.einsum("bclhn,bcmhn->bchlm", ch, bh)
     seg = da_t[..., :, None] - da_t[..., None, :]       # (b,nc,h,L,L)
     tri = torch.ones((ll, ll), dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(tri, torch.exp(seg), torch.zeros((), device=xh.device))
+    # masked before the exp: above the diagonal seg is a growing positive
+    # sum whose exp overflows to inf once a chunk's decay passes ~88, and
+    # the gradient of the reference's where(tri, exp(seg), 0) there is
+    # 0 * inf = NaN (mamba2-780m at full width); the values are the same
+    decay = torch.exp(seg.masked_fill(~tri, float("-inf")))
     scores = cb * decay * dt_t[..., None, :]
     y_diag = torch.einsum("bchlm,bcmhp->bclhp", scores, xc)
 

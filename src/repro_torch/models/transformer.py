@@ -8,6 +8,10 @@ SWA MoE (mixtral), MoE + dense residual (arctic), hybrid RG-LRU (recurrent-
 gemma), attention-free SSD (mamba2), and the VLM backbone (llava, patch-
 prefix stub). The decode cache is ``{"units": [unit cache, ...], "tail":
 {...}}``, a unit cache ``{"l0": layer cache, ...}``.
+
+With ``cfg.remat == "full"`` and gradients on, each unit runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body): its activations are recomputed in the backward pass, not kept.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -125,6 +130,13 @@ def apply_unit(p_unit, x: torch.Tensor, cfg: ModelConfig, specs,
     return x, new_cache, aux
 
 
+def remat(cfg: ModelConfig) -> bool:
+    """Whether a forward recomputes each unit in its backward pass: the
+    config asks for it and gradients are being recorded (serving, under
+    ``no_grad``, never does)."""
+    return cfg.remat == "full" and torch.is_grad_enabled()
+
+
 class Transformer(nn.Module):
     """``embed``, ``units`` (one ``ModuleDict`` of layers a unit),
     ``tail``, ``final_norm`` and, untied, ``head``. Parameter names are the
@@ -180,7 +192,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     new_units = [] if has_cache else None
     for i, p_unit in enumerate(params.units):
         c_unit = cache["units"][i] if has_cache else None
-        x, new_c, a = apply_unit(p_unit, x, cfg, cfg.unit, pos_offset, c_unit)
+        if c_unit is None and remat(cfg):
+            x, new_c, a = checkpoint(apply_unit, p_unit, x, cfg, cfg.unit,
+                                     pos_offset, None, use_reentrant=False)
+        else:
+            x, new_c, a = apply_unit(p_unit, x, cfg, cfg.unit, pos_offset,
+                                     c_unit)
         aux = aux + a
         if has_cache:
             new_units.append(new_c)
@@ -201,3 +218,44 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = apply_norm(params.final_norm, x, cfg)
     logits = unembed(params.embed, getattr(params, "head", None), x, cfg)
     return logits, new_cache, aux
+
+
+# ======================================================================
+# losses
+# ======================================================================
+def masked_nll(logits: torch.Tensor, lse: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Mean of lse - the label's logit over positions with label >= 0,
+    given the logsumexp ``lse`` (which the z-loss shares)."""
+    label_logit = torch.gather(
+        logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - label_logit) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean CE over positions with label >= 0; logits fp32 (B,S,V).
+    The reference selects the label's logit with an iota compare so a
+    vocab-sharded tensor reduces locally; on one card a gather is the same
+    function."""
+    return masked_nll(logits, torch.logsumexp(logits, dim=-1), labels)
+
+
+def train_loss(params, batch, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, dict]:
+    """(ce + z-loss [+ MoE aux], metrics ``ce``, ``z_loss``, ``moe_aux``);
+    the patch prefix's positions (llava) carry no label."""
+    prefix = batch.get("prefix_embeds")
+    logits, _, aux = forward(params, batch["tokens"], cfg,
+                             prefix_embeds=prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    ce = masked_nll(logits, lse, batch["labels"])
+    # z-loss for logit drift control (PaLM-style)
+    zl = 1e-4 * torch.mean(torch.square(lse))
+    total = ce + zl
+    if cfg.moe is not None:
+        total = total + cfg.moe.aux_loss_weight * aux
+    return total, {"ce": ce, "z_loss": zl, "moe_aux": aux}

@@ -1,2 +1,2 @@
 """Fault-tolerance runtime: watchdog, preemption, restarts, chaos
-(``fault.py``)."""
+(``fault.py``); GPipe pipeline parallelism (``pipeline_parallel.py``)."""

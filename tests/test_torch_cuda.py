@@ -1372,3 +1372,108 @@ def test_cuda_measured_bandwidth_is_near_the_card(cuda):
     from repro_torch.tuning.measure import measured_bandwidth_gbs
     gbs = measured_bandwidth_gbs()
     assert 500.0 < gbs < 3350.0
+
+
+# ----------------------------------------------------- the training path
+def _train_batch(cfg, device, b=4, s=16, seed=1):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch,accum", [("smollm-135m", 1),
+                                        ("smollm-135m", 4),
+                                        ("mixtral-8x22b", 1),
+                                        ("whisper-small", 1)])
+def test_cuda_train_step_matches_cpu(cuda, arch, accum):
+    """One ``make_train_step`` step of a smoke config on the card against
+    the same step on the CPU, from the same weights, seeded non-zero
+    moments and batch: loss, grad norm, parameters and moments within the
+    reference's step bar, rtol 5e-4, atol 5e-6."""
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke_config(arch)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    card = lm.init_params(3, cfg, device=cuda)
+    host = lm.build_model(cfg, torch.device("cpu"), None)
+    host.load_state_dict(card.state_dict())
+    states = []
+    for model in (card, host):
+        named = dict(model.named_parameters())
+        state = adamw.init(ocfg, named)
+        gen = torch.Generator().manual_seed(5)
+        for n, p in named.items():
+            state["m"][n].copy_(1e-3 * torch.randn(p.shape, generator=gen))
+            state["v"][n].copy_(1e-6 * torch.rand(p.shape, generator=gen)
+                                + 1e-8)
+        states.append(state)
+    step = specs.make_train_step(cfg, ocfg, accum_steps=accum)
+    _, s_card, m_card = step(card, states[0], _train_batch(cfg, cuda))
+    _, s_host, m_host = step(host, states[1],
+                             _train_batch(cfg, torch.device("cpu")))
+    tol = dict(rtol=5e-4, atol=5e-6)
+    for k in ("loss", "grad_norm", "lr", "ce"):
+        torch.testing.assert_close(m_card[k].cpu(), m_host[k], **tol)
+    for n, p in host.named_parameters():
+        torch.testing.assert_close(card.get_parameter(n).detach().cpu(),
+                                   p.detach(), **tol, msg=n)
+        for key in ("m", "v"):
+            torch.testing.assert_close(s_card[key][n].cpu(), s_host[key][n],
+                                       **tol, msg=f"{key} {n}")
+
+
+def test_cuda_restart_is_bit_exact(cuda, tmp_path, monkeypatch):
+    """The smoke smollm-135m trained 12 steps on the card, killed after
+    step 6 and resumed from its step-4 checkpoint, ends bit for bit where
+    the uninterrupted run does. Deterministic algorithms are on for the
+    test: a gradient summed with atomics (the label gather's backward) may
+    differ in its last bits from run to run."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticMarkov
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import run_with_restarts
+
+    cfg = configs.get_smoke_config("smollm-135m")
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=12,
+                             weight_decay=0.0)
+    data = SyntheticMarkov(vocab=cfg.vocab, seq_len=16, global_batch=2,
+                           seed=3)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        clean = str(tmp_path / "clean")
+        train(cfg, ocfg, data, steps=12, ckpt_dir=clean, ckpt_every=4,
+              log_every=0)
+        broken = str(tmp_path / "broken")
+        calls = []
+
+        def run():
+            calls.append(1)
+            return train(cfg, ocfg, data, steps=12, ckpt_dir=broken,
+                         ckpt_every=4, log_every=0,
+                         fail_at=6 if len(calls) == 1 else None).step
+
+        assert run_with_restarts(run, max_restarts=2) == 12
+        assert len(calls) == 2
+    finally:
+        torch.use_deterministic_algorithms(was)
+    named = dict(lm.build_model(cfg, torch.device("cpu"),
+                                None).named_parameters())
+    like = {"params": named, "opt": adamw.init(ocfg, named)}
+    want = CheckpointManager(clean).restore(like)
+    got = CheckpointManager(broken).restore(like)
+    for n in named:
+        np.testing.assert_array_equal(got["params"][n], want["params"][n],
+                                      err_msg=n)

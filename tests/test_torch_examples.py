@@ -21,7 +21,7 @@ def _main(name):
 
 def test_every_example_is_tested():
     tested = {"quickstart", "workloads", "fractal_large", "distributed",
-              "serve_fractals", "telemetry", "serve_lm"}
+              "serve_fractals", "telemetry", "serve_lm", "train_lm"}
     assert {p.stem for p in EXAMPLES.glob("*.py")} == tested
 
 
@@ -74,3 +74,9 @@ def test_serve_lm():
     reqs = _main("serve_lm")(["--device", "cpu"])
     assert [len(r.prompt) for r in reqs] == [24, 17, 31, 8]
     assert all(r.out.shape == (12,) for r in reqs)
+
+
+def test_train_lm():
+    first, last = _main("train_lm")(["--device", "cpu", "--steps", "80",
+                                     "--batch", "4", "--seq", "32"])
+    assert last < first - 0.5

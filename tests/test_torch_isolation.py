@@ -92,7 +92,8 @@ small = {"quickstart": ["--r", "4", "--steps", "4"],
          "fractal_large": ["--r", "4", "--m", "1", "--steps", "2"],
          "distributed": ["--r", "4", "--steps", "2", "--shards", "2"],
          "serve_fractals": ["--r", "3"], "telemetry": ["--r", "4"],
-         "serve_lm": []}
+         "serve_lm": [],
+         "train_lm": ["--steps", "80", "--batch", "4", "--seq", "32"]}
 for name, args in small.items():
     spec = importlib.util.spec_from_file_location(
         name, f"{EXAMPLES}/{name}.py")

@@ -3,8 +3,12 @@
 ``repro_torch.models`` and ``repro_torch.configs`` export every name of
 the matching reference package's ``__all__``, with one stated rename (the
 reference's Pallas engine is the port's kernel engine) and the stated
-absences below, and the ported ``life_rule`` and ``default_runner``
-behave as the reference's."""
+absence below; ``optim.adamw``, ``data.pipeline``, ``launch.train`` and
+``launch.specs`` (modules with no ``__all__``) define every public
+function and class the reference's define; and the ported ``life_rule``
+and ``default_runner`` behave as the reference's."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,9 +34,8 @@ from repro_torch.workloads import runner as trunner
 RENAMES = {"SqueezePallasEngine": "SqueezeKernelEngine"}
 
 #: reference names the port does not have, each for a stated reason:
-#: ``default_interpret`` has no meaning without an interpreter, and
-#: ``train_loss`` waits for the training slice
-ABSENT = {"default_interpret", "train_loss"}
+#: ``default_interpret`` has no meaning without an interpreter
+ABSENT = {"default_interpret"}
 
 
 @pytest.mark.parametrize("ref,port", [(repro.core, repro_torch.core),
@@ -56,6 +59,28 @@ def test_stated_absences_are_reference_names_the_port_lacks():
     ref = set(repro.kernels.__all__) | set(repro.models.__all__)
     port = set(repro_torch.kernels.__all__) | set(repro_torch.models.__all__)
     assert ABSENT <= ref and not ABSENT & port
+
+
+def _defined(module) -> set:
+    """The public functions and classes a module defines itself."""
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and getattr(v, "__module__", None)
+            == module.__name__
+            and (inspect.isfunction(v) or inspect.isclass(v))}
+
+
+@pytest.mark.parametrize("name", ["optim.adamw", "data.pipeline",
+                                  "launch.train", "launch.specs"])
+def test_training_modules_define_every_reference_name(name):
+    import importlib
+    ref = _defined(importlib.import_module(f"repro.{name}"))
+    port = _defined(importlib.import_module(f"repro_torch.{name}"))
+    assert ref and ref <= port, sorted(ref - port)
+
+
+def test_models_export_train_loss():
+    from repro_torch.models.model import train_loss
+    assert repro_torch.models.train_loss is train_loss
 
 
 def test_kernels_export_the_attention_kernel_wrapper():
