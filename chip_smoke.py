@@ -243,7 +243,34 @@ jax or the reference package). Phases, each printing one JSON line:
      trained 12 steps with a checkpoint every 4, killed after step 6 and
      resumed, bit for bit with the uninterrupted run (deterministic
      algorithms on for this part); (d) gemma2-2b and mamba2-780m at full
-     width, 3 steps at B=2, S=1024: finite losses, ms a step, peak memory.
+     width, 3 steps at B=2, S=1024: finite losses, ms a step, peak memory;
+ 21. the language-model path sharded over a local mesh in one process
+     (``mesh=`` on the entry points, ``runtime/spmd.py``; every position
+     on cuda:0; no hand-written kernel is on it, and the phase fails if
+     one launches): (a) the reference's sharded-equality cases
+     (smollm-135m, smollm-135m with ``seq_shard``, mixtral-8x22b with
+     ``dispatch_groups`` = 4) as one step on a (data=4, model=2) mesh from
+     seeded weights and non-zero moments against the unsharded step on the
+     card (loss and grad norm within 1e-5 relative, every parameter within
+     1e-5, every moment within 1e-5 of its leaf's largest entry), and the
+     seven attention-family architectures served on (4, 2) and (2, 4)
+     meshes through ``BatchServer(mesh=)`` on ragged prompts, the tokens
+     equal to the unsharded server's and the logits of prefill and every
+     decode step within 1e-5; (b) tinyllama-1.1b at full width on a (2, 4)
+     mesh: four ragged bf16 requests (prompts 64-256, 32 new tokens)
+     served sharded and unsharded, the tokens equal up to a near tie (a
+     request may part only where the unsharded top-2 logits lie within
+     twice the bf16 logit bar), prefill ms, ms a token on the host's clock
+     and the card's (a profiler trace of the card alone), peak memory and
+     the collectives' elements a token; ``train(mesh=)`` in float32, 5
+     steps at B=8, S=512 from the seed of an unsharded run, the first
+     step's loss and grad norm within 1e-5, every loss within 1e-4 and
+     grad norm within 2e-3, every parameter leaf within 5e-2 of its
+     largest entry,
+     each position's parameter and moment bytes equal to
+     ``launch/dryrun.py``'s plan, ms a step (host and device), peak
+     memory and elements a step; (c) the host's card count, and where
+     there are two or more, the bf16 serve again over a mesh of them.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -428,6 +455,41 @@ LM_RESTART = dict(steps=12, ckpt_every=4, fail_at=6)
 LM_TRAIN_FULL = [("gemma2-2b", 2, 1024, 3), ("mamba2-780m", 2, 1024, 3)]
 #: one H100's dense bf16 peak, for the FLOP share of a training step
 PEAK_BF16_FLOPS = 989e12
+#: phase 21, the language-model path sharded over a local mesh (every
+#: position on cuda:0 on one card): (a) the reference's sharded-equality
+#: cases (arch, seq_shard) as one step on a (data=4, model=2) mesh, and
+#: the attention family served on (4, 2) and (2, 4), each against the
+#: unsharded card run at the bars of tests/test_torch_lm_sharded.py
+LM_SHARD_STEPS = [("smollm-135m", False), ("smollm-135m", True),
+                  ("mixtral-8x22b", False)]
+LM_SHARD_ARCHS = ("smollm-135m", "tinyllama-1.1b", "qwen1.5-110b",
+                  "mixtral-8x22b", "arctic-480b", "gemma2-2b",
+                  "llava-next-34b")
+LM_SHARD_MESHES = ((4, 2), (2, 4))
+LM_SHARD_TOL = dict(loss=1e-5, params=1e-5, moments=1e-5, logits=1e-5)
+LM_SHARD_SMOKE = dict(prompts=(24, 17, 31, 8), new=8, max_len=64)
+#: (b) tinyllama-1.1b at full width on a (2, 4) mesh: bf16 serving of four
+#: ragged requests (32 new tokens each; a timed decode loop of
+#: ``decode_timed`` steps), float32 training (B, S, steps)
+LM_SHARD_FULL = dict(arch="tinyllama-1.1b", mesh=(2, 4),
+                     prompts=(64, 256, 160, 100), new=32, max_len=512,
+                     decode_timed=4, batch=8, seq=512, steps=5)
+#: bf16 serving: the sharded logits within this of the unsharded ones on
+#: the unsharded greedy trajectory (one forward of the prompts and the
+#: generated tokens), and a request's tokens may part from
+#: the unsharded ones only at a step whose two largest unsharded logits
+#: lie within twice it (a near tie: bf16 products and sums rounded in
+#: another order; the rule phase 19 applies to card against CPU)
+LM_SHARD_BF16_LOGITS = 0.1
+#: float32 training at full width, relative: the first step's loss and
+#: grad norm (the same weights and batch), every loss, every grad norm,
+#: and each parameter leaf against its largest entry (the reference
+#: check's bar). From zero moments Adam's first steps move each parameter
+#: by lr times the sign of its gradient, so the gradients that differ in
+#: sign at float32 rounding move apart and later steps drift (an H100
+#: read grad norms 4.2e-4 apart at step 3, 2.7e-7 at the first)
+LM_SHARD_TRAIN_TOL = dict(first=1e-5, loss=1e-4, grad_norm=2e-3,
+                          params=5e-2)
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -2346,15 +2408,18 @@ def _lm_within(torch, what, got, want, rtol, atol) -> float:
     return float(diff.max())
 
 
-def _lm_replay(torch, lm, model, cfg, batch, toks, start, max_len, device):
+def _lm_replay(torch, lm, model, cfg, batch, toks, start, max_len, device,
+               mesh=None):
     """Prefill, then one decode step a column of ``toks`` (B, n): the
-    logits before each fed token and after the last, (B, n + 1, V)."""
-    cache = lm.init_cache(cfg, toks.shape[0], max_len, device)
-    last, cache, extras = lm.prefill(model, batch, cfg, cache)
+    logits before each fed token and after the last, (B, n + 1, V);
+    ``mesh``: the model split over it."""
+    cache = lm.init_cache(cfg, toks.shape[0], max_len, device, mesh=mesh)
+    last, cache, extras = lm.prefill(model, batch, cfg, cache, mesh=mesh)
     out = [last]
     for i in range(toks.shape[1]):
         last, cache = lm.decode_step(model, toks[:, i:i + 1].to(device),
-                                     start + i, cfg, cache, extras=extras)
+                                     start + i, cfg, cache, extras=extras,
+                                     mesh=mesh)
         out.append(last)
     return torch.stack(out, dim=1)
 
@@ -2400,6 +2465,19 @@ def _device_busy_ms(torch, fn):
         wall = 1e3 * (time.perf_counter() - t0)
     busy_us = device_event_us(prof.events())
     return wall, (busy_us / 1e3 if busy_us > 0 else None)
+
+
+def _kernel_ms(torch, fn):
+    """ms of work on the card in ``fn()`` (ending in a synchronize), from
+    a ``torch.profiler`` trace of the card alone: a host trace of the
+    sharded path's ~10^5 operations a step takes longer to read than the
+    step takes to run. None where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us = device_event_us(prof.events())
+    return busy_us / 1e3 if busy_us > 0 else None
 
 
 def phase_lm_serve(torch, build):
@@ -2911,6 +2989,371 @@ def phase_lm_train(torch, build):
          seconds=time.perf_counter() - t_phase)
 
 
+def _padded(np, prompts, vocab, seed):
+    """Ragged prompts from a seed, and the left-padded (B, S) batch
+    ``BatchServer`` makes of them."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, vocab, size=n).astype(np.int32)
+            for n in prompts]
+    batch = np.zeros((len(rows), max(prompts)), np.int32)
+    for i, r in enumerate(rows):
+        batch[i, batch.shape[1] - len(r):] = r
+    return rows, batch
+
+
+def _sharded_bytes(spmd, tree, n):
+    """Each of the n positions' resident bytes of a tree of ``Sharded``."""
+    return [spmd.resident_bytes(tree, p) for p in range(n)]
+
+
+def phase_lm_sharded(torch, build):
+    """Phase 21: the language-model path sharded over a local mesh in one
+    process (module docstring, item 21). No hand-written kernel is on it,
+    and the phase asserts that none launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticMarkov
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import spmd
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    card = nvidia_smi()
+    build.reset_launches()
+    tol = LM_SHARD_TOL
+
+    def mesh_of(shape):
+        return make_local_mesh(shape[1], shape[0])
+
+    def pinned(cfg):
+        if cfg.moe is None:
+            return cfg
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=4))
+
+    def within(what, got, want, bar, scale=1.0):
+        err = float((got.detach().double() - want.double()).abs().max())
+        if not err <= bar * scale:
+            raise AssertionError(f"{what}: {err} > {bar} x {scale}")
+        return err
+
+    # (a) the sharded-equality cases on the card ----------------------------
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4,
+                             weight_decay=0.0)
+    mesh = mesh_of((4, 2))
+    steps = {}
+    for i, (arch, seq_shard) in enumerate(LM_SHARD_STEPS):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(pinned(configs.get_smoke_config(arch)),
+                                  seq_shard=seq_shard)
+        model = lm.init_params(400 + i, cfg, device=cuda)
+        named = dict(model.named_parameters())
+        state = _seeded_moments(torch, adamw.init(ocfg, named), named, i)
+        sharded = lm.shard_model(model, mesh)
+        s_state = specs.place_opt_state(state, sharded.specs, mesh)
+        batch = {k: v.to(cuda) for k, v in _train_batch(
+            torch, np, cfg, 8, 32, i).items()}
+        _, state, m_u = specs.make_train_step(cfg, ocfg)(model, state,
+                                                         batch)
+        spmd.reset_counts()
+        sharded, s_state, m_s = specs.make_train_step(cfg, ocfg, mesh=mesh)(
+            sharded, s_state, batch)
+        moved = spmd.counts()
+        errs = {k: within(f"lm sharded {arch} {k}", m_s[k], m_u[k],
+                          tol["loss"], abs(float(m_u[k])))
+                for k in ("loss", "grad_norm")}
+        worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+        for n, p in sharded.named_parameters():
+            worst["params"] = max(worst["params"], within(
+                f"lm sharded {arch} {n}", p.full(), named[n].detach(),
+                tol["params"]))
+            for key in ("m", "v"):
+                want = state[key][n]
+                worst[key] = max(worst[key], within(
+                    f"lm sharded {arch} {key} {n}", s_state[key][n].full(),
+                    want, tol["moments"], float(want.abs().max())))
+        name = f"{arch}{' seq_shard' if seq_shard else ''}"
+        steps[name] = dict(mesh="4x2", max_abs_err={**errs, **worst},
+                           loss=float(m_s["loss"]), elements_moved=moved,
+                           seconds=time.perf_counter() - t0)
+        emit("lm_sharded_step", arch=arch, seq_shard=seq_shard,
+             **steps[name])
+        del model, named, state, sharded, s_state
+
+    sm = LM_SHARD_SMOKE
+    served = {}
+    with torch.no_grad():
+        for j, arch in enumerate(LM_SHARD_ARCHS):
+            t0 = time.perf_counter()
+            cfg = pinned(configs.get_smoke_config(arch))
+            model = lm.init_params(500 + j, cfg, device=cuda)
+            rows, padded = _padded(np, sm["prompts"], cfg.vocab, j)
+            batch = {"tokens": torch.from_numpy(padded).to(cuda)}
+            start = padded.shape[1]
+            if cfg.n_patches:
+                batch["prefix_embeds"] = torch.randn(
+                    (len(rows), cfg.n_patches, cfg.d_model),
+                    generator=torch.Generator().manual_seed(j)).to(cuda)
+                start += cfg.n_patches
+
+            def requests():
+                return [Request(prompt=r, max_new=sm["new"]) for r in rows]
+
+            want = np.stack([r.out for r in BatchServer(
+                cfg, model, max_len=sm["max_len"]).serve(requests())])
+            fed = torch.from_numpy(want)
+            ref = _lm_replay(torch, lm, model, cfg, batch, fed, start,
+                             sm["max_len"], cuda)
+            row = {}
+            for shape in LM_SHARD_MESHES:
+                m = mesh_of(shape)
+                split = lm.shard_model(model, m)
+                got = np.stack([r.out for r in BatchServer(
+                    cfg, split, max_len=sm["max_len"], mesh=m).serve(
+                        requests())])
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"lm sharded {arch} {shape}: "
+                                         f"tokens {got} against {want}")
+                row["x".join(map(str, shape))] = within(
+                    f"lm sharded {arch} {shape} logits", _lm_replay(
+                        torch, lm, split, cfg, batch, fed, start,
+                        sm["max_len"], cuda, mesh=m), ref, tol["logits"])
+            served[arch] = dict(max_abs_err=row, tokens_equal=True,
+                                seconds=time.perf_counter() - t0)
+            emit("lm_sharded_serve_smoke", arch=arch, **served[arch])
+            del model
+    torch.cuda.empty_cache()
+
+    # (b) tinyllama-1.1b at full width on a (2, 4) mesh ----------------------
+    fw = LM_SHARD_FULL
+    arch, mesh = fw["arch"], mesh_of(fw["mesh"])
+    plan = dryrun.run_cell(arch, "train_4k", mesh)
+    scfg = specs.serve_config(configs.get_config(arch))
+    rows, padded = _padded(np, fw["prompts"], scfg.vocab, 21)
+    batch = {"tokens": torch.from_numpy(padded).to(cuda)}
+    start = padded.shape[1]
+
+    def requests():
+        return [Request(prompt=r, max_new=fw["new"]) for r in rows]
+
+    def decode_figures(params, m):
+        """Prefill ms, then a timed decode loop and the same loop under the
+        profiler: ms a token on the host's clock and on the card's."""
+        n = fw["decode_timed"]
+        with torch.no_grad():
+            cache = lm.init_cache(scfg, len(rows), fw["max_len"], cuda,
+                                  mesh=m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache, _ = lm.prefill(params, batch, scfg, cache, mesh=m)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            box = {"last": last, "cache": cache, "at": start}
+
+            def loop():
+                for _ in range(n):
+                    tok = torch.argmax(box["last"], dim=-1).to(
+                        torch.int32)[:, None]
+                    box["last"], box["cache"] = lm.decode_step(
+                        params, tok, box["at"], scfg, box["cache"], mesh=m)
+                    box["at"] += 1
+
+            spmd.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            token_ms = 1e3 * (time.perf_counter() - t0) / n
+            moved = {k: v / n for k, v in spmd.counts().items()}
+            busy = _kernel_ms(torch, loop)
+        device_ms = busy / n if busy else None
+        return dict(prefill_ms=prefill_ms, ms_per_token=token_ms,
+                    device_ms_per_token=device_ms,
+                    host_ms_per_token=(token_ms - device_ms
+                                       if device_ms else None),
+                    elements_moved_per_token=moved)
+
+    t0 = time.perf_counter()
+    model = lm.init_params(21, scfg, device=cuda)
+    runs = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        params = model if m is None else lm.shard_model(model, m)
+        server = BatchServer(scfg, params, max_len=fw["max_len"], mesh=m)
+        if m is None:   # warms the card's kernels for both runs
+            server.serve(requests())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        out = np.stack([r.out for r in server.serve(requests())])
+        serve_s = time.perf_counter() - t1
+        runs[label] = dict(tokens=out, serve_seconds=serve_s,
+                           tokens_per_s=out.size / serve_s,
+                           peak_bytes=torch.cuda.max_memory_allocated()
+                           - held, **decode_figures(params, m))
+        if m is not None:
+            runs[label]["resident_param_bytes"] = _sharded_bytes(
+                spmd, dict(params.named_parameters()), m.size)
+        runs[label]["params"] = params
+    # the prompts and the unsharded tokens in one forward: the logits
+    # that picked each generated token
+    seq = {"tokens": torch.cat([batch["tokens"], torch.from_numpy(
+        runs["unsharded"]["tokens"]).to(cuda)], dim=1)}
+    with torch.no_grad():
+        ref = lm.forward(model, seq, scfg)[0][:, start - 1:-1]
+        got = lm.forward(runs["sharded"]["params"], seq, scfg,
+                         mesh=mesh)[0][:, start - 1:-1]
+    logit_err = within("lm sharded serve logits", got, ref,
+                       LM_SHARD_BF16_LOGITS)
+    top2 = ref.float().topk(2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    want, have = runs["unsharded"]["tokens"], runs["sharded"]["tokens"]
+    parted = []
+    for r in range(want.shape[0]):
+        diff = np.nonzero(want[r] != have[r])[0]
+        if diff.size:
+            at = int(diff[0])
+            gap = float(gaps[r, at])
+            if gap > 2 * LM_SHARD_BF16_LOGITS:
+                raise AssertionError(f"lm sharded serve: request {r} parts "
+                                     f"at token {at}, top-2 gap {gap}")
+            parted.append(dict(request=r, token=at, top2_gap=gap))
+    for label in runs:
+        runs[label].pop("params")
+        runs[label]["tokens"] = runs[label]["tokens"].tolist()
+    serve = dict(arch=arch, mesh="2x4", dtype=scfg.dtype,
+                 prompts=list(fw["prompts"]), new=fw["new"],
+                 tokens_equal=not parted, parted=parted,
+                 max_logit_err=logit_err,
+                 min_top2_gap=float(gaps.min()), runs=runs, card=card,
+                 seconds=time.perf_counter() - t0)
+    emit("lm_sharded_serve", **serve)
+    del model, ref, got
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(configs.get_config(arch), dtype="float32")
+    tocfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                              total_steps=fw["steps"])
+    data = SyntheticMarkov(vocab=tcfg.vocab, seq_len=fw["seq"],
+                           global_batch=fw["batch"])
+    trains = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        norms = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        spmd.reset_counts()
+        res = train_mod.train(
+            tcfg, tocfg, data, steps=fw["steps"], log_every=0, mesh=m,
+            on_step=lambda _s, met: norms.append(float(met["grad_norm"])))
+        torch.cuda.synchronize()
+        times = sorted(res.step_seconds[2:])
+        trains[label] = dict(
+            losses=res.losses, grad_norms=norms,
+            step_ms=1e3 * times[len(times) // 2],
+            step_ms_runs=[1e3 * t for t in res.step_seconds],
+            peak_bytes=torch.cuda.max_memory_allocated() - held,
+            elements_moved_per_step={k: v / fw["steps"]
+                                     for k, v in spmd.counts().items()},
+            result=res)
+    u, s_ = trains["unsharded"]["result"], trains["sharded"]["result"]
+    tt = LM_SHARD_TRAIN_TOL
+    fails = []
+    for key, got, want in (("loss", s_.losses, u.losses),
+                           ("grad_norm", trains["sharded"]["grad_norms"],
+                            trains["unsharded"]["grad_norms"])):
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        trains[f"{key}_rel_err"] = rel
+        if not (rel[0] <= tt["first"] and max(rel) <= tt[key]):
+            fails.append(f"{key}: {got} against {want}")
+    worst, loose = 0.0, 0
+    with torch.no_grad():
+        for n, p in s_.model.named_parameters():
+            want = u.model.get_parameter(n)
+            diff = (p.full() - want).abs()
+            worst = max(worst, float(diff.max() / want.abs().max()))
+            loose += int((diff > 1e-5).sum())
+    if not worst <= tt["params"]:
+        fails.append(f"a parameter leaf {worst} of its largest entry apart")
+    n_pos = mesh.size
+    resident = dict(
+        params=_sharded_bytes(spmd, dict(s_.model.named_parameters()),
+                              n_pos),
+        opt=_sharded_bytes(spmd, s_.opt_state, n_pos))
+    planned = dict(params=plan["params_bytes"], opt=plan["opt_bytes"])
+    if any(b != planned[k] for k, v in resident.items() for b in v):
+        fails.append(f"resident bytes {resident} against the dry run's "
+                     f"{planned}")
+    # one more step of each under the profiler: its device time, and the
+    # host's the rest of the unprofiled step
+    batch_t = {k: torch.from_numpy(v).to(cuda)
+               for k, v in data.batch(fw["steps"]).items()}
+    for label, res, m in (("unsharded", u, None), ("sharded", s_, mesh)):
+        step = specs.make_train_step(tcfg, tocfg, mesh=m)
+        state = {"s": res.opt_state}
+
+        def one():
+            _, state["s"], met = step(res.model, state["s"], batch_t)
+            float(met["loss"])
+
+        busy = _kernel_ms(torch, one)
+        trains[label].update(
+            device_ms_per_step=busy,
+            host_ms_per_step=(trains[label]["step_ms"] - busy
+                              if busy else None))
+        trains[label].pop("result")
+    del u, s_, res, state
+    train_row = dict(arch=arch, mesh="2x4", dtype=tcfg.dtype,
+                     batch=fw["batch"], seq=fw["seq"], steps=fw["steps"],
+                     params_max_rel_err=worst, params_over_1e5=loose,
+                     resident_bytes=resident, planned_bytes=planned,
+                     runs=trains, card=card,
+                     seconds=time.perf_counter() - t0)
+    emit("lm_sharded_train", **train_row)
+    if fails:
+        raise AssertionError(f"lm sharded train: {fails}")
+    torch.cuda.empty_cache()
+
+    # (c) the cards of this host -----------------------------------------
+    cards = torch.cuda.device_count()
+    multi = dict(device_count=cards)
+    if cards >= 2:
+        t0 = time.perf_counter()
+        model_axis = cards if scfg.n_kv_heads % cards == 0 else 1
+        m = make_local_mesh(model_axis)
+        model = lm.init_params(21, scfg, device=cuda)
+        want = np.stack([r.out for r in BatchServer(
+            scfg, model, max_len=fw["max_len"]).serve(requests())])
+        got = np.stack([r.out for r in BatchServer(
+            scfg, model, max_len=fw["max_len"], mesh=m).serve(requests())])
+        multi.update(mesh="x".join(map(str, m.sizes)),
+                     tokens_equal=bool(np.array_equal(got, want)),
+                     seconds=time.perf_counter() - t0)
+        del model
+    else:
+        multi.update(skipped="one card: the positions of a local mesh all "
+                             "share it")
+    emit("lm_sharded_cards", **multi)
+
+    launches = sum(build.LAUNCHES.values())
+    if launches:
+        raise AssertionError(f"the sharded LM path launched hand-written "
+                             f"kernels: {build.LAUNCHES}")
+    emit("lm_sharded", card=card, steps=steps, serve_smoke=served,
+         serve=serve, train=train_row, cards=multi,
+         lm_kernel_launches=launches, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3362,6 +3805,10 @@ def main() -> int:
 
     # 20. the language-model training path ---------------------------------
     phase_lm_train(torch, build)
+    torch.cuda.empty_cache()
+
+    # 21. the language-model path sharded over a local mesh -----------------
+    phase_lm_sharded(torch, build)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -20,6 +20,11 @@ model parameters:
     AdamW state (``step``, the moments ``m`` and ``v`` -- float32, or int8
     ``q`` with their ``scale`` -- and the residuals ``ef``), so both
     packages can start a step from the same parameters and moments.
+
+With ``mesh=`` (a local ``launch/mesh.Mesh``) the ``*_from_numpy``
+functions split what they build over it by the plans of
+``launch/specs.py`` (``models/model.ShardedModel``, ``runtime/spmd.
+Sharded`` leaves); the ``*_to_numpy`` ones gather sharded state whole.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, sharded_model
+from repro_torch.runtime import spmd
+from repro_torch.utils.sharding import param_specs
 from repro_torch.workloads.rules import GrayScott, HeatDiffusion, TotalisticCA
 
 #: subtrees whose leaves the reference stacks over units (a leading axis)
@@ -48,7 +55,10 @@ def state_from_numpy(arr, device=None) -> torch.Tensor:
         resolve_device(device))
 
 
-def state_to_numpy(state: torch.Tensor) -> np.ndarray:
+def state_to_numpy(state) -> np.ndarray:
+    """A tensor, or a ``Sharded`` gathered whole, as a numpy array."""
+    if isinstance(state, spmd.Sharded):
+        state = state.full()
     return state.detach().cpu().numpy()
 
 
@@ -119,14 +129,25 @@ def _stack_units(cfg: ModelConfig, named) -> dict:
     return tree
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device=None):
+def params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None):
     """The port's model for ``cfg`` on ``device`` (``None`` = the card)
     holding the reference's parameters ``tree``; every leaf goes through
     ``np.asarray``. Leaf ``units.l0.attn.wq`` of shape (n_units, ...) lands
     in ``units.<i>.l0.attn.wq`` for each unit i. Raises KeyError when the
-    names differ and ValueError when a shape does."""
-    device = resolve_device(device)
+    names differ and ValueError when a shape does. With a local ``mesh``
+    the model is split over it (``ShardedModel``): each position gets
+    only its slices."""
     leaves = _split_stacked(tree)
+    if mesh is not None:
+        meta = dict(build_model(cfg, torch.device("meta"),
+                                None).named_parameters())
+        for name, arr in leaves.items():
+            if name in meta and tuple(arr.shape) != tuple(meta[name].shape):
+                raise ValueError(f"{name}: shape {arr.shape} in the tree, "
+                                 f"{tuple(meta[name].shape)} in the port")
+        return sharded_model(cfg, mesh, {n: torch.from_numpy(np.array(a))
+                                         for n, a in leaves.items()})
+    device = resolve_device(device)
     model = build_model(cfg, device, None)
     own = model.state_dict()
     if set(own) != set(leaves):
@@ -154,14 +175,21 @@ def _quantized(sub) -> bool:
     return set(sub) == {"q", "scale"}
 
 
-def opt_state_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
+def opt_state_from_numpy(cfg: ModelConfig, tree, device=None,
+                         mesh=None) -> dict:
     """The port's AdamW state (``repro_torch.optim.adamw``) on ``device``
     (``None`` = the card) from the reference's: its step, and each
     parameter tree of moments or residuals split into port names, copied
     (``adamw.update`` writes the moments in place). Raises KeyError when a
-    tree's names are not ``cfg``'s parameters."""
+    tree's names are not ``cfg``'s parameters. With a local ``mesh`` the
+    state is split over it (``launch/specs.place_opt_state``)."""
+    meta = build_model(cfg, torch.device("meta"), None)
+    names = set(meta.state_dict())
+    if mesh is not None:
+        from repro_torch.launch.specs import place_opt_state
+        whole = opt_state_from_numpy(cfg, tree, "cpu")
+        return place_opt_state(whole, param_specs(meta, mesh), mesh)
     device = resolve_device(device)
-    names = set(build_model(cfg, torch.device("meta"), None).state_dict())
 
     def put(sub):
         leaves = _split_stacked(sub)

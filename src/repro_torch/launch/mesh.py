@@ -1,16 +1,22 @@
-"""Mesh descriptions, the port of the reference's ``launch/mesh.py``.
+"""Meshes, the port of the reference's ``launch/mesh.py``.
 
-A ``Mesh`` names its axes and their sizes, and, where it stands for
-devices of this host, lists them. It is a description for placement
-plans (``utils/sharding.py``, ``launch/specs.py``, ``launch/dryrun.py``):
-the port has no multi-process transport, since one card cannot check one,
-so a production mesh of 256 or 512 chips exists only as a plan.
+A ``Mesh`` names its axes and their sizes and, where it stands for
+positions of this host, lists one ``torch.device`` a position in row-major
+axis order. A mesh without devices is a plan (``utils/sharding.py``,
+``launch/specs.py``, ``launch/dryrun.py``): a production mesh of 256 or
+512 chips exists only as one. A local mesh (``make_local_mesh``) is run:
+one process drives every position, and a position may repeat a device
+(all eight of a (2, 4) mesh on ``cuda:0`` on one card), as the
+distributed stencil engines drive their shards. ``runtime/spmd.py`` holds
+its collectives; ``mesh=`` on the language-model entry points
+(``models/model.py``, ``launch/specs.py``, ``launch/serve.py``,
+``launch/train.py``) runs a model sharded over it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,17 +62,44 @@ def make_production_mesh(*, multi_pod: bool = False, data: int = 16,
     return Mesh(("data", "model"), (data, model))
 
 
-def make_local_mesh(model_axis: int = 1, device=None) -> Mesh:
-    """Mesh over this host's cards (``device=None``; raises without CUDA),
-    or over the one CPU (``device="cpu"``)."""
+def make_local_mesh(model_axis: int = 1, data_axis: Optional[int] = None,
+                    device=None) -> Mesh:
+    """A (data, model) mesh of this host's cards (``device=None``; raises
+    without CUDA) or of the one CPU (``device="cpu"``).
+
+    Without ``data_axis`` there is one position a card (the reference's
+    ``make_local_mesh(model_axis)``: data = cards / model_axis). With it
+    the mesh has ``data_axis * model_axis`` positions spread over the
+    cards in contiguous blocks, so a model group stays on one card where
+    the counts allow; on one card, or on the CPU, every position shares
+    the one device."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        devices = tuple(torch.device("cuda", i)
-                        for i in range(torch.cuda.device_count()))
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
     else:
-        devices = (dev,)
-    n = len(devices)
-    if n % model_axis:
-        raise ValueError(f"{n} devices do not split into a model axis of "
-                         f"{model_axis}")
-    return Mesh(("data", "model"), (n // model_axis, model_axis), devices)
+        cards = [dev]
+    if data_axis is None:
+        n = len(cards)
+        if n % model_axis:
+            raise ValueError(f"{n} devices do not split into a model axis "
+                             f"of {model_axis}")
+        return Mesh(("data", "model"), (n // model_axis, model_axis),
+                    tuple(cards))
+    n = data_axis * model_axis
+    if n <= len(cards):
+        devices = cards[:n]
+    else:
+        devices = [cards[i * len(cards) // n] for i in range(n)]
+    return Mesh(("data", "model"), (data_axis, model_axis), tuple(devices))
+
+
+def parse_mesh(text: str) -> Tuple[int, int]:
+    """``"DATAxMODEL"`` (the CLIs' ``--mesh``) -> (model_axis, data_axis),
+    ``make_local_mesh``'s first two arguments."""
+    try:
+        data, model = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DATAxMODEL, e.g. 2x4, not "
+                         f"{text!r}") from None
+    return model, data

@@ -8,10 +8,13 @@ dominant decode roofline term). The decode loop is a Python loop of
 ``decode_step`` calls, where the reference's is one jitted scan.
 
     python -m repro_torch.launch.serve --arch smollm-135m [--smoke]
-        [--device cpu]
+        [--device cpu] [--mesh DATAxMODEL]
 
 serves on the card unless ``--device cpu`` is given, and raises without
 one. Weights are random, from a seed: nothing is downloaded.
+``--mesh 2x4`` (``BatchServer(..., mesh=)``) serves the model split over a
+local (data=2, model=4) mesh (``launch/mesh.make_local_mesh``: on one
+card all eight positions share it), the attention family only.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import synchronize
+from repro_torch.launch.mesh import make_local_mesh, parse_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
@@ -38,13 +42,18 @@ class Request:
 
 
 class BatchServer:
-    """Serves a list of requests as one batch on the model's device."""
+    """Serves a list of requests as one batch on the model's device, or
+    split over a local ``mesh`` (a module given with one is split once,
+    here)."""
 
-    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 4096):
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 4096,
+                 mesh=None):
         self.cfg = cfg
-        self.params = params
+        self.params = params if mesh is None else \
+            model_lib.on_mesh(params, mesh, cfg)
         self.max_len = max_len
-        self.device = model_lib.device_of(params)
+        self.mesh = mesh
+        self.device = model_lib.device_of(self.params)
 
     def serve(self, requests: List[Request]) -> List[Request]:
         cfg = self.cfg
@@ -67,14 +76,16 @@ class BatchServer:
         out = model_lib.generate(
             self.params, batch, cfg, max_new=max_new,
             max_len=min(self.max_len, s_max + max_new),
-            temperature=temperature, top_k=top_k)
+            temperature=temperature, top_k=top_k, mesh=self.mesh)
         out = out.cpu().numpy()
         dt = time.perf_counter() - t0
         for i, r in enumerate(requests):
             r.out = out[i, :r.max_new]
         tput = b * max_new / dt
+        where = self.device if self.mesh is None else \
+            f"a {'x'.join(map(str, self.mesh.sizes))} mesh"
         print(f"served {b} requests x {max_new} tokens "
-              f"in {dt:.2f}s ({tput:.1f} tok/s) on {self.device}")
+              f"in {dt:.2f}s ({tput:.1f} tok/s) on {where}")
         return requests
 
 
@@ -90,12 +101,18 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve split over a local mesh, e.g. 2x4")
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    mesh = None
+    if args.mesh:
+        mesh = make_local_mesh(*parse_mesh(args.mesh), device=args.device)
     params = model_lib.init_params(0, cfg, device=args.device)
-    server = BatchServer(cfg, params)
+    server = BatchServer(cfg, params, mesh=mesh)
+    del params
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=args.prompt_len
                                         ).astype(np.int32),

@@ -20,7 +20,7 @@ leading (unit-axis) None.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict
 
 import torch
 
@@ -28,9 +28,11 @@ from repro_torch import configs
 from repro_torch.configs.common import SHAPES
 from repro_torch.models import encdec
 from repro_torch.models import model as model_lib
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.utils.sharding import MeshAxes, param_specs
+from repro_torch.runtime import spmd
+from repro_torch.utils.sharding import MeshAxes, batch_axes_for, param_specs
 
 META = torch.device("meta")
 
@@ -62,16 +64,8 @@ def batch_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
     return out
 
 
-def _batch_axes(mesh, dim: int) -> Optional[Tuple[str, ...]]:
-    axes = MeshAxes().present(mesh).batch
-    size = 1
-    for a in axes:
-        size *= mesh.shape[a]
-    return axes if (axes and size > 1 and dim % size == 0) else None
-
-
 def batch_shardings(specs, mesh) -> dict:
-    return {k: (_batch_axes(mesh, v.shape[0]),) + (None,) * (v.ndim - 1)
+    return {k: (batch_axes_for(mesh, v.shape[0]),) + (None,) * (v.ndim - 1)
             for k, v in specs.items()}
 
 
@@ -124,7 +118,7 @@ def cache_shardings(cache, cfg: ModelConfig, mesh):
         name = keys[-1] if keys else ""
         dims: list = [None] * leaf.ndim
         if leaf.shape[0] > 1:
-            dims[0] = _batch_axes(mesh, leaf.shape[0])
+            dims[0] = batch_axes_for(mesh, leaf.shape[0])
         rest = list(range(1, leaf.ndim))
         if name in ("k", "v") and len(rest) == 3:
             # cache layout (KVH, S, hd); memory_kv layout (T, KVH, hd)
@@ -182,14 +176,20 @@ def _grads_of(model, named, batch, cfg):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    accum_steps: int = 1):
+                    mesh=None, accum_steps: int = 1):
     """One optimizer step, ``train_step(model, opt_state, batch) -> (model,
     opt_state, metrics)``: gradients by autograd (the model's parameters
     are turned to ``requires_grad``), then ``adamw.update`` in place.
     ``accum_steps`` > 1 splits the batch along dim 0 into microbatches
     and sums their gradients, loss and metrics, times 1/accum_steps (the
     reference's scan of grad accumulations): the activation working set
-    shrinks ~accum_steps x at equal math."""
+    shrinks ~accum_steps x at equal math.
+
+    With a local ``mesh`` the step runs split over it
+    (``_sharded_train_step``)."""
+    if mesh is not None:
+        return _sharded_train_step(cfg, opt_cfg, mesh, accum_steps)
+
     def train_step(model, opt_state, batch):
         model.requires_grad_(True)
         named = dict(model.named_parameters())
@@ -221,25 +221,103 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_fn(cfg: ModelConfig):
+def _sharded_grads(sm, batch, cfg: ModelConfig):
+    """(loss, metrics, grads: name -> each position's gradient of its
+    slice) of one batch (whole tensors) on ``sm``'s mesh."""
+    placed, rows = model_lib.place_batch(batch, sm.mesh)
+    loss, metrics = transformer.train_loss_sharded(sm, placed, cfg, rows)[0]
+    flat = [(n, t) for n in sm.names for t in sm.shards(n)]
+    got = torch.autograd.grad(loss, [t for _, t in flat], allow_unused=True)
+    grads = {n: [] for n in sm.names}
+    for (n, t), g in zip(flat, got):
+        grads[n].append(torch.zeros_like(t) if g is None else g)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
+                        accum_steps: int):
+    """The train step on a local mesh: the model (``models/model.
+    ShardedModel``; a module is split on the way in), the moments
+    (``opt_state_shardings``) and the batch (``batch_shardings``) are
+    placed by the plans, each position differentiates the loss with
+    respect to its own slices, a leaf that positions hold as copies gets
+    the sum of their gradients (an all-reduce over the axes its placement
+    does not name), and ``adamw.update`` runs on the slices. Microbatch i
+    is rows i B/accum_steps to (i + 1) B/accum_steps of the batch, as in
+    the unsplit step, each split over the batch axes. Returns the sharded
+    model and state; metrics are the first position's."""
+    model_lib.require_attention_family(cfg)
+
+    def train_step(model, opt_state, batch):
+        sm = model_lib.on_mesh(model, mesh, cfg)
+        if not spmd.is_sharded(opt_state):
+            opt_state = place_opt_state(opt_state, sm.specs, mesh)
+        sm.requires_grad_(True)
+        b = batch["tokens"].shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} does not split into {accum_steps} "
+                             f"microbatches")
+        mb = b // accum_steps
+        loss, metrics, grads = 0.0, {}, None
+        for i in range(accum_steps):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            l, m, g = _sharded_grads(sm, micro, cfg)
+            if accum_steps == 1:
+                loss, metrics, grads = l, m, g
+                break
+            if grads is None:
+                grads = {n: [x.float() for x in xs] for n, xs in g.items()}
+            else:
+                for n in grads:
+                    grads[n] = [a + x for a, x in zip(grads[n], g[n])]
+            loss = loss + l
+            metrics = {k: metrics.get(k, 0.0) + v for k, v in m.items()}
+        if accum_steps > 1:
+            scale = 1.0 / accum_steps
+            grads = {n: [x * scale for x in xs] for n, xs in grads.items()}
+            loss = loss * scale
+            metrics = {k: v * scale for k, v in metrics.items()}
+        summed = {}
+        for n, xs in grads.items():
+            spec = sm.specs[n]
+            named = {a for e in spec for a in spmd.axes_of(e)}
+            free = tuple(a for a in mesh.axis_names if a not in named)
+            summed[n] = spmd.Sharded(spmd.all_reduce(xs, mesh, free), spec,
+                                     mesh)
+        _, opt_state, om = adamw.update(opt_cfg, summed, opt_state,
+                                        dict(sm.named_parameters()))
+        return sm, opt_state, {**metrics, **om, "loss": loss}
+    return train_step
+
+
+def make_prefill_fn(cfg: ModelConfig, mesh=None):
     @torch.no_grad()
     def prefill_fn(model, batch):
-        logits, _, _ = model_lib.forward(model, batch, cfg)
+        logits, _, _ = model_lib.forward(model, batch, cfg, mesh=mesh)
         return logits[:, -1]
     return prefill_fn
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, mesh=None):
     @torch.no_grad()
     def decode_fn(model, tokens, pos, cache, extras):
         return model_lib.decode_step(model, tokens, pos, cfg, cache,
-                                     extras=extras)
+                                     extras=extras, mesh=mesh)
     return decode_fn
 
 
 def param_shardings(model, mesh) -> dict:
     """Parameter name -> placement (``utils/sharding.param_specs``)."""
     return param_specs(model, mesh)
+
+
+def place_opt_state(opt_state, p_specs: dict, mesh) -> dict:
+    """An AdamW state of whole tensors split over a local ``mesh`` by
+    ``opt_state_shardings`` (each position's slices in storage of its
+    own)."""
+    return spmd.shard_tree(opt_state, opt_state_shardings(
+        opt_state, p_specs, mesh), mesh)
 
 
 def opt_state_shardings(opt_state, p_specs: dict, mesh) -> dict:
@@ -315,7 +393,7 @@ def build_cell(arch: str, shape_name: str, mesh, seq_shard: bool = False,
     tok = _spec((gbatch, 1), torch.int32)
     pos = _spec((), torch.int32)
     fn = make_decode_fn(scfg)
-    plans = (p_sh, (_batch_axes(mesh, gbatch), None), (),
+    plans = (p_sh, (batch_axes_for(mesh, gbatch), None), (),
              cache_shardings(cache, scfg, mesh),
              cache_shardings(extras, scfg, mesh))
     return (fn, (model, tok, pos, cache, extras), plans, (3,),

@@ -3,10 +3,13 @@ the reference's ``launch/train.py``.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 200
         [--smoke] [--batch 8] [--seq 256] [--lr 3e-4] [--ckpt-dir DIR]
-        [--device cpu]
+        [--device cpu] [--mesh DATAxMODEL]
 
 trains on the card unless ``--device cpu`` is given, and raises without
-one. Weights are random, from a seed; the data is the stateless synthetic
+one. ``--mesh 2x4`` (``train(..., mesh=)``) trains split over a local
+(data=2, model=4) mesh, the attention family only; checkpoints hold the
+gathered tree, so a run saved on one mesh resumes on another or on none.
+Weights are random, from a seed; the data is the stateless synthetic
 Markov corpus: nothing is downloaded.
 
 The loop is structured for fault tolerance:
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -32,6 +35,8 @@ from repro_torch.launch import specs as specs_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.launch.mesh import make_local_mesh, parse_mesh
+from repro_torch.runtime import spmd
 from repro_torch.runtime.fault import (PreemptionHandler, SimulatedFailure,
                                        Watchdog)
 
@@ -44,6 +49,17 @@ class TrainResult:
     restored_from: Optional[int]
     #: wall seconds of each step run (the step and the loss read back)
     step_seconds: List[float] = dataclasses.field(default_factory=list)
+    #: the trained model (a ``ShardedModel`` under a mesh) and its AdamW
+    #: state, as the run left them
+    model: Any = None
+    opt_state: Any = None
+
+
+def _plan(tree):
+    """The placements of a tree of ``Sharded`` leaves."""
+    if isinstance(tree, dict):
+        return {k: _plan(v) for k, v in tree.items()}
+    return tree.spec
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -53,16 +69,23 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 def train(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, data, *,
           steps: int, ckpt_dir: Optional[str] = None,
-          ckpt_every: int = 50, seed: int = 0,
+          ckpt_every: int = 50, mesh=None, seed: int = 0,
           fail_at: Optional[int] = None,
           preemption: Optional[PreemptionHandler] = None,
           log_every: int = 10,
           on_step: Optional[Callable] = None,
           device=None) -> TrainResult:
     """Run (or resume) training to ``steps`` total steps on ``device``
-    (``None`` = the card)."""
+    (``None`` = the card), or split over a local ``mesh``: the weights
+    are drawn on its first device from ``seed``, as an unsplit run draws
+    them, then split."""
+    if mesh is not None:
+        model_lib.require_attention_family(cfg)
+        device = mesh.devices[0]
     device = resolve_device(device)
     model = model_lib.init_params(seed, cfg, device)
+    if mesh is not None:
+        model = model_lib.shard_model(model, mesh)
     params = dict(model.named_parameters())
     opt_state = adamw.init(opt_cfg, params)
     start_step = 0
@@ -71,16 +94,28 @@ def train(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, data, *,
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if manager and manager.latest_step() is not None:
         restored_from = manager.latest_step()
-        state = manager.restore(
-            {"params": params, "opt": opt_state},
-            put=lambda _name, a: torch.from_numpy(a).to(device))
-        with torch.no_grad():
-            for name, p in params.items():
-                p.copy_(state["params"][name])
-        opt_state = state["opt"]
+        if mesh is None:
+            state = manager.restore(
+                {"params": params, "opt": opt_state},
+                put=lambda _name, a: torch.from_numpy(a).to(device))
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(state["params"][name])
+            opt_state = state["opt"]
+        else:
+            state = manager.restore({"params": params, "opt": opt_state})
+            model = model_lib.sharded_model(
+                cfg, mesh, {n: torch.from_numpy(a)
+                            for n, a in state["params"].items()})
+            params = dict(model.named_parameters())
+            opt_state = spmd.shard_tree(state["opt"], _plan(opt_state), mesh)
         start_step = restored_from
 
-    step_fn = specs_lib.make_train_step(cfg, opt_cfg)
+    def save(step):
+        tree = {"params": params, "opt": opt_state}
+        manager.save(step, tree if mesh is None else spmd.gather_tree(tree))
+
+    step_fn = specs_lib.make_train_step(cfg, opt_cfg, mesh=mesh)
     watchdog = Watchdog()
     losses, seconds = [], []
     for step in range(start_step, steps):
@@ -100,16 +135,16 @@ def train(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, data, *,
         want_ckpt = manager and (done % ckpt_every == 0 or done == steps)
         if preemption is not None and preemption.requested:
             if manager:
-                manager.save(done, {"params": params, "opt": opt_state})
+                save(done)
             print(f"preempted at step {done}; checkpointed and exiting")
             return TrainResult(done, losses, watchdog.stragglers,
-                               restored_from, seconds)
+                               restored_from, seconds, model, opt_state)
         if want_ckpt:
-            manager.save(done, {"params": params, "opt": opt_state})
+            save(done)
         if fail_at is not None and done == fail_at:
             raise SimulatedFailure(f"injected failure after step {done}")
     return TrainResult(steps, losses, watchdog.stragglers, restored_from,
-                       seconds)
+                       seconds, model, opt_state)
 
 
 def main(argv=None) -> TrainResult:
@@ -128,7 +163,12 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=None,
                     help="'cpu' to train on the CPU; the card by default")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train split over a local mesh, e.g. 2x4")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        mesh = make_local_mesh(*parse_mesh(args.mesh), device=args.device)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -140,7 +180,7 @@ def main(argv=None) -> TrainResult:
     with PreemptionHandler() as preemption:
         res = train(cfg, opt_cfg, data, steps=args.steps,
                     ckpt_dir=args.ckpt_dir, preemption=preemption,
-                    device=args.device)
+                    device=args.device, mesh=mesh)
     dt = time.time() - t0
     print(f"done: {res.step} steps in {dt:.1f}s; "
           f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}")

@@ -10,6 +10,13 @@ Keys/values are RoPE-rotated *before* caching, so ring overwrites need no
 re-rotation. A cache is a dict of tensors as in the reference; the port
 writes the new positions into it in place and returns it.
 
+On a local mesh (``apply_attn_sharded``) the query heads split over
+``model``, and the key/value heads too where they divide it; where they do
+not (smollm: 9 heads, 3 KV heads) the plan replicates them, and so does
+their compute. Caches split as ``launch/specs.cache_shardings`` places
+them; ``wo`` is row-parallel, its outputs then partial sums over
+``model``.
+
 Scores are float32 (the reference's ``preferred_element_type``): q and k
 are upcast before their product, so bf16 compute does not round them.
 The hand-written ``kernels.attention.flash_attention`` is not called here,
@@ -17,6 +24,7 @@ as the reference's models do not call its Pallas kernel.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +34,7 @@ from torch import nn
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (apply_rope, const, dense_init,
                                        dtype_of, rope_sincos)
+from repro_torch.runtime import spmd
 
 NEG = -1e30
 
@@ -211,16 +220,24 @@ def _linear_write(buf: torch.Tensor, new: torch.Tensor, start: int) -> None:
 
 
 def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-               pos_offset: int, cache=None, causal: bool = True
+               pos_offset: int, cache=None, causal: bool = True,
+               kv_heads: Optional[torch.Tensor] = None,
+               out_dtype: Optional[torch.dtype] = None
                ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention. cache=None: training/prefill-no-cache mode.
     With cache: writes the S new positions then attends over the cache
     (ring semantics for windowed layers). causal=False: encoder
-    (bidirectional, no cache)."""
+    (bidirectional, no cache). ``kv_heads``: the key/value head each
+    query head of ``p`` reads, where the query heads are a slice over
+    ``model`` and the key/value heads are not; ``out_dtype``: the dtype
+    ``wo``'s product computes and returns in (``apply_attn_sharded``)."""
     b, sq, _ = x.shape
     dev = x.device
     qpos = pos_offset + torch.arange(sq, device=dev)     # (Sq,)
     q, k_new, v_new = _qkv(p, x, cfg, qpos[None].expand(b, sq))
+
+    def read(t):
+        return t if kv_heads is None else t.index_select(2, kv_heads)
 
     if not causal:
         mask = torch.ones((1, sq, sq), dtype=torch.bool, device=dev)
@@ -229,8 +246,8 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
 
     if cache is None:
         if sq * sq > _CHUNK_THRESHOLD:
-            out = _sdpa_chunked(q, k_new, v_new, cfg, q0=pos_offset,
-                                k0=pos_offset, causal=True,
+            out = _sdpa_chunked(q, read(k_new), read(v_new), cfg,
+                                q0=pos_offset, k0=pos_offset, causal=True,
                                 window=spec.window)
         else:
             kpos = qpos
@@ -238,7 +255,7 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
             if spec.window is not None:
                 mask &= kpos[None, None, :] > qpos[None, :, None] \
                     - spec.window
-            out = _sdpa(q, k_new, v_new, mask, cfg)
+            out = _sdpa(q, read(k_new), read(v_new), mask, cfg)
         new_cache = None
     else:
         size = cache["k"].shape[2]
@@ -285,10 +302,75 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
         else:
             k_read, v_read = kc, vc
             new_cache = {"k": kc, "v": vc}
-        out = _sdpa(q, k_read.transpose(1, 2), v_read.transpose(1, 2), mask,
-                    cfg)
+        out = _sdpa(q, read(k_read.transpose(1, 2)),
+                    read(v_read.transpose(1, 2)), mask, cfg)
 
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), new_cache
+    od = out_dtype or x.dtype
+    return torch.einsum("bshk,hkd->bsd", out.to(od), p.wo.to(od)), new_cache
+
+
+def _local_heads(p, m: int, hl: Optional[int], kvl: Optional[int]):
+    """``p`` with its replicated biases cut to the heads position ``m``
+    computes (``hl`` query and ``kvl`` key/value heads a position, None
+    where those heads do not split)."""
+    if not _has_bias(p) or hl is None:
+        return p
+    out = SimpleNamespace(**vars(p))
+    out.bq = p.bq.narrow(0, m * hl, hl)
+    if kvl is not None:
+        out.bk = p.bk.narrow(0, m * kvl, kvl)
+        out.bv = p.bv.narrow(0, m * kvl, kvl)
+    return out
+
+
+def apply_attn_sharded(ps, hs, cfg: ModelConfig, ctx, spec: LayerSpec,
+                       pos_offset: int, caches=None, plan=None):
+    """``apply_attn`` on each position of a local mesh -> (outputs,
+    partial, caches). ``ps``: the positions' parameters (fsdp gathered),
+    ``hs``: their inputs over the whole sequence, ``caches``: their layer
+    caches, ``plan``: the layer cache's placement. Query heads split over
+    ``model`` where they divide it (then ``wo``'s outputs are partial
+    sums), key/value heads where theirs do; a position whose query heads
+    split while the key/value heads do not reads the key/value heads its
+    query heads use; ``wo``'s partial sums stay float32 until reduced. A
+    cache whose sequence splits over ``model`` (split-K placement) is
+    gathered for the step, and each position keeps its slice."""
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    q_split = ctx.tp(h)
+    kv_split = ctx.tp(kvh)
+    seq_split = plan is not None and ctx.model is not None and \
+        ctx.model in spmd.axes_of(plan["k"][2])
+    hl = h // ctx.m if q_split else None
+    kvl = kvh // ctx.m if kv_split else None
+    whole = None
+    if seq_split:
+        whole = [{} for _ in ps]
+        for key in caches[0]:
+            got = spmd.all_gather([c[key] for c in caches], ctx.mesh,
+                                  ctx.model, 2)
+            for w, t in zip(whole, got):
+                w[key] = t
+    outs, new = [], []
+    for i, (p, x) in enumerate(zip(ps, hs)):
+        m = ctx.m_index(i)
+        kv_index = None
+        if q_split and not kv_split:
+            kv_index = (m * hl + torch.arange(hl, device=x.device)) \
+                // (h // kvh)
+        cache = None if caches is None else \
+            (whole[i] if seq_split else caches[i])
+        o, c = apply_attn(_local_heads(p, m, hl, kvl), x, cfg, spec,
+                          pos_offset, cache, kv_heads=kv_index,
+                          out_dtype=torch.float32 if q_split else None)
+        if seq_split:
+            for key, t in c.items():
+                mine = caches[i][key]
+                n = mine.shape[2]
+                mine.copy_(t.narrow(2, m * n, n))
+            c = caches[i]
+        outs.append(o)
+        new.append(c)
+    return outs, q_split, (new if caches is not None else None)
 
 
 # ---------------------------------------------------------- cross-attention

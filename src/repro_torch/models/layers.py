@@ -10,17 +10,29 @@ device (truncated normal: scale/sqrt(fan_in) for output projections,
 left empty for ``interop.params_from_numpy`` to fill. Parameters are built
 without ``requires_grad``, so serving records no graph; the train step
 turns gradients on for the model it trains.
+
+On a local mesh (``runtime/spmd.py``) each layer kind has a ``*_sharded``
+form over lists of position tensors: ``gather_fsdp`` gathers each
+weight's fsdp dimension over ``data`` before use (ZeRO-3), the embedding
+is a vocabulary-parallel lookup (a masked local gather, then a sum over
+``model``), ``unembed_sharded`` leaves the logits split over the
+vocabulary as the reference pins them, and the MLP is column- then
+row-parallel over its hidden dimension. ``MeshCtx`` says how a forward
+sees the mesh.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from types import SimpleNamespace
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import spmd
+from repro_torch.utils.sharding import MeshAxes, batch_axes_for
 
 #: the standard normal's CDF at the truncation points -2 and 2
 _CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -190,7 +202,10 @@ def init_mlp(gen, cfg: ModelConfig, device,
     return MLP(cfg, device, gen, d_ff)
 
 
-def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``out_dtype``: the dtype the output projection computes and returns
+    in (a row-parallel partial sum keeps float32 until it is reduced)."""
     dt = x.dtype
     up = torch.matmul(x, p.w_up.to(dt))
     if cfg.mlp_kind == "swiglu":
@@ -200,4 +215,137 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                    approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return torch.matmul(h, p.w_down.to(dt))
+    od = out_dtype or dt
+    return torch.matmul(h.to(od), p.w_down.to(od))
+
+
+# ================================================================ sharded
+class MeshCtx:
+    """How a sharded forward sees a local mesh: its model axis (None when
+    absent or of size 1), the batch axes its ``batch`` rows split over
+    (None: the batch replicates, as ``launch/specs.batch_shardings``
+    places it), and whether the sequence of ``seq`` positions splits over
+    ``model`` between layers (``cfg.seq_shard``, Megatron sequence
+    parallelism, where ``seq`` divides)."""
+
+    def __init__(self, mesh, cfg: ModelConfig, batch: int, seq: int):
+        axes = MeshAxes().present(mesh)
+        self.mesh = mesh
+        self.model = axes.model if spmd.size(mesh, axes.model) > 1 else None
+        self.m = spmd.size(mesh, self.model)
+        self.batch = batch_axes_for(mesh, batch)
+        self.seq = bool(cfg.seq_shard and self.model and seq % self.m == 0)
+
+    def tp(self, dim: int) -> bool:
+        """Whether a dimension of ``dim`` splits over ``model``."""
+        return self.model is not None and dim % self.m == 0
+
+    def m_index(self, p: int) -> int:
+        return spmd.coord(self.mesh, p, self.model) if self.model else 0
+
+    def gather_seq(self, xs):
+        """Sequence shards -> the whole sequence, before a block."""
+        if not self.seq:
+            return list(xs)
+        return spmd.all_gather(xs, self.mesh, self.model, 1)
+
+    def slice_seq(self, xs):
+        if not self.seq:
+            return list(xs)
+        return spmd.slice_along(xs, self.mesh, self.model, 1)
+
+    def finish(self, xs, partial: bool):
+        """A block's outputs back to the activation layout: partial sums
+        over ``model`` are reduced (scattered over the sequence under
+        ``seq_shard``); whole outputs keep their own sequence slice."""
+        if partial:
+            if self.seq:
+                return spmd.reduce_scatter(xs, self.mesh, self.model, 1)
+            return spmd.all_reduce(xs, self.mesh, self.model)
+        return self.slice_seq(xs)
+
+
+def _ns_set(ns, path: str, value) -> None:
+    *parents, leaf = path.split(".")
+    for key in parents:
+        if not hasattr(ns, key):
+            setattr(ns, key, SimpleNamespace())
+        ns = getattr(ns, key)
+    setattr(ns, leaf, value)
+
+
+def gather_fsdp(sm, prefix: str) -> List:
+    """Each position's parameters under ``prefix`` of a sharded model,
+    as nested namespaces (``p.attn.wq``), each weight's fsdp dimension
+    gathered over ``data``; ``model`` splits stay."""
+    fsdp = (MeshAxes().present(sm.mesh).fsdp,)
+    out = [SimpleNamespace() for _ in range(sm.mesh.size)]
+    for name in sm.names:
+        if not name.startswith(prefix):
+            continue
+        xs, spec = sm.shards(name), sm.specs[name]
+        for dim, entry in enumerate(spec):
+            axes = spmd.axes_of(entry)
+            if axes == fsdp:
+                xs = spmd.all_gather(xs, sm.mesh, axes, dim)
+        for p, x in enumerate(xs):
+            _ns_set(out[p], name[len(prefix):], x)
+    return out
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor, split: bool,
+            m_index: int) -> torch.Tensor:
+    """Rows ``ids`` of a table, or of this position's slice of a table
+    split over ``model`` by rows (zero where another position holds the
+    row)."""
+    if not split:
+        return F.embedding(ids, table)
+    rows = table.shape[0]
+    local = ids.long() - m_index * rows
+    here = (local >= 0) & (local < rows)
+    got = F.embedding(local.clamp(0, rows - 1), table)
+    return torch.where(here[..., None], got, torch.zeros(
+        (), dtype=got.dtype, device=got.device))
+
+
+def embed_tokens_sharded(ps, tokens, cfg: ModelConfig, ctx: MeshCtx,
+                         pos_offset: int = 0):
+    """``embed_tokens`` on each position: the vocabulary-parallel lookup
+    (a masked local gather, then a sum over ``model``)."""
+    split = ctx.tp(cfg.vocab_padded)
+    xs = [_lookup(p.tok_embed, t, split, ctx.m_index(i))
+          for i, (p, t) in enumerate(zip(ps, tokens))]
+    if split:
+        xs = spmd.all_reduce(xs, ctx.mesh, ctx.model)
+    xs = [x.to(dtype_of(cfg.dtype)) for x in xs]
+    if cfg.emb_scale:
+        xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                               device=x.device) for x in xs]
+    return xs
+
+
+def unembed_sharded(ps_embed, ps_head, xs, cfg: ModelConfig, ctx: MeshCtx):
+    """``unembed`` on each position -> (logits, split): float32 logits of
+    each position's vocabulary slice where ``vocab_padded`` splits over
+    ``model`` (the reference pins them so), else whole."""
+    out = []
+    for i, x in enumerate(xs):
+        table = ps_embed[i].tok_embed if cfg.tie_embeddings \
+            else ps_head[i].lm_head
+        logits = torch.matmul(x.float(), table.float().t())
+        if cfg.logit_softcap is not None:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        out.append(logits)
+    return out, ctx.tp(cfg.vocab_padded)
+
+
+def apply_mlp_sharded(ps, hs, cfg: ModelConfig, ctx: MeshCtx, d_ff: int):
+    """``apply_mlp`` on each position -> (outputs, partial): column- then
+    row-parallel where the hidden dimension ``d_ff`` splits over
+    ``model``, the outputs then float32 partial sums over it (a bf16
+    output is rounded once, after the sum, as the unsplit product rounds
+    it)."""
+    partial = ctx.tp(d_ff)
+    od = torch.float32 if partial else None
+    return [apply_mlp(p, h, cfg, od) for p, h in zip(ps, hs)], partial

@@ -2,8 +2,8 @@
 the port of the reference's ``models/model.py``.
 
   init_params(gen, cfg, device)         -> the model (an ``nn.Module``)
-  train_loss(params, batch, cfg)        -> (loss, metrics)
-  init_cache(cfg, batch, max_len, device)
+  train_loss(params, batch, cfg, mesh)  -> (loss, metrics)
+  init_cache(cfg, batch, max_len, device, mesh)
   forward / prefill / decode_step       -> serving
   generate / greedy_generate            -> the KV-cached decoding loop
 
@@ -11,16 +11,30 @@ The train step (optimizer in the loop) is assembled in
 ``launch/specs.py::make_train_step``.
 Entry points run on the card unless the caller passes ``device="cpu"``;
 ``gen`` is a ``torch.Generator`` or an int seed of one on that device.
+
+``mesh=`` (a local ``launch/mesh.Mesh``) runs the attention family
+sharded over the mesh's positions in one process: the parameters split by
+``utils/sharding.param_specs`` (``shard_model`` -> ``ShardedModel``; an
+``nn.Module`` passed with a mesh is split on the way in), the batch by
+``launch/specs.batch_shardings``, the cache by ``cache_shardings``
+(``init_cache(..., mesh=)`` -> ``ShardedCache``). Logits come back whole
+on the mesh's first device. The ``rec``, ``ssm`` and ``encdec`` families
+raise ``NotImplementedError`` under a mesh (ROADMAP.md queue A14 (b)).
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import copy
+import dataclasses
+from typing import Dict, List, Optional, Union
 
 import torch
+from torch import nn
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import spmd
+from repro_torch.utils.sharding import batch_axes_for, param_specs
 
 Gen = Union[int, torch.Generator]
 
@@ -45,35 +59,206 @@ def init_params(gen: Gen, cfg: ModelConfig, device=None):
     return build_model(cfg, device, generator(gen, device))
 
 
-def train_loss(params, batch, cfg: ModelConfig):
+# ====================================================================== mesh
+META = torch.device("meta")
+
+
+def require_attention_family(cfg: ModelConfig) -> None:
+    """Under a mesh only decoders of ``attn`` units (dense or MoE) run;
+    the rest raise rather than run replicated unsaid."""
+    kinds = {s.kind for s in cfg.unit + cfg.tail}
+    if cfg.family != "decoder" or kinds != {"attn"} or cfg.tail \
+            or cfg.pos_embed != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: a mesh runs the attention family only (decoders "
+            f"of 'attn' units, rope, no tail); the rec, ssm and encdec "
+            f"families under a mesh are ROADMAP.md queue A14 (b)")
+
+
+class ShardedModel:
+    """A family module split over a local mesh: ``local[p]`` is a module
+    of the family whose every parameter is position p's slice under
+    ``specs`` (``utils/sharding.param_specs``), on ``mesh.devices[p]``."""
+
+    def __init__(self, cfg: ModelConfig, mesh, local: List[nn.Module],
+                 specs: Dict[str, tuple]):
+        self.cfg, self.mesh, self.local, self.specs = cfg, mesh, local, specs
+        self.names = list(specs)
+        self._named = [dict(m.named_parameters()) for m in local]
+
+    def shards(self, name: str) -> List[torch.Tensor]:
+        return [named[name] for named in self._named]
+
+    def named_parameters(self):
+        for name in self.names:
+            yield name, spmd.Sharded(self.shards(name), self.specs[name],
+                                     self.mesh)
+
+    def requires_grad_(self, flag: bool = True) -> "ShardedModel":
+        for m in self.local:
+            m.requires_grad_(flag)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+
+def _set_param(module: nn.Module, name: str, t: torch.Tensor) -> None:
+    owner, _, leaf = name.rpartition(".")
+    sub = module.get_submodule(owner) if owner else module
+    sub._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+
+
+def sharded_model(cfg: ModelConfig, mesh, tensors) -> ShardedModel:
+    """The model of ``cfg`` split over ``mesh`` from its whole parameters
+    ``tensors`` (name -> tensor, on any device), each position's slice
+    copied to its device in the config's parameter dtype."""
+    require_attention_family(cfg)
+    meta = build_model(cfg, META, None)
+    specs = param_specs(meta, mesh)
+    if set(tensors) != set(specs):
+        raise KeyError(f"parameter names differ: "
+                       f"{sorted(set(tensors) ^ set(specs))[:4]}")
+    local = [copy.deepcopy(meta) for _ in range(mesh.size)]
+    named = dict(meta.named_parameters())
+    for name, spec in specs.items():
+        pieces = spmd.shard(tensors[name], spec, mesh,
+                            dtype=named[name].dtype)
+        for module, t in zip(local, pieces):
+            _set_param(module, name, t)
+    return ShardedModel(cfg, mesh, local, specs)
+
+
+def shard_model(model, mesh) -> ShardedModel:
+    """``model`` split over ``mesh`` (``jax.device_put`` of a tree with
+    ``param_shardings``)."""
+    return sharded_model(model.cfg, mesh, dict(model.named_parameters()))
+
+
+def on_mesh(params, mesh, cfg: ModelConfig) -> ShardedModel:
+    """``params`` on ``mesh``: a ``ShardedModel`` of that mesh as it is,
+    a module split."""
+    require_attention_family(cfg)
+    if isinstance(params, ShardedModel):
+        if params.mesh != mesh:
+            raise ValueError("the model is split over another mesh")
+        return params
+    return shard_model(params, mesh)
+
+
+def place_batch(batch, mesh):
+    """-> (name -> each position's rows, the batch's rows): each input
+    split over the batch axes where its rows divide them, else whole on
+    every position (``launch/specs.batch_shardings``)."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            continue
+        spec = (batch_axes_for(mesh, v.shape[0]),) + (None,) * (v.ndim - 1)
+        out[k] = spmd.shard(v, spec, mesh)
+    return out, batch["tokens"].shape[0]
+
+
+@dataclasses.dataclass
+class ShardedCache:
+    """A decode cache split over a local mesh: ``positions[p]`` is
+    position p's cache tree, ``plan`` the placement of each leaf
+    (``launch/specs.cache_shardings``)."""
+    positions: list
+    plan: dict
+    mesh: object
+
+
+def _zeros_local(tree, plan, mesh, p):
+    if isinstance(tree, dict):
+        return {k: _zeros_local(v, plan[k], mesh, p) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_local(v, s, mesh, p) for v, s in zip(tree, plan)]
+    return torch.zeros(spmd.local_shape(tree.shape, plan, mesh),
+                       dtype=tree.dtype, device=mesh.devices[p])
+
+
+def _logits_spec(ctx, split: bool, ndim: int) -> tuple:
+    return (ctx.batch,) + (None,) * (ndim - 2) + \
+        (ctx.model if split else None,)
+
+
+def _last_whole(logits, ctx, split):
+    """The last position's logits (B, V), whole on the first device."""
+    last = [l[:, -1] for l in logits]
+    return spmd.gather(last, _logits_spec(ctx, split, 2), ctx.mesh)
+
+
+# ================================================================ entries
+def train_loss(params, batch, cfg: ModelConfig, mesh=None):
+    if mesh is not None:
+        sm = on_mesh(params, mesh, cfg)
+        placed, rows = place_batch(batch, mesh)
+        return transformer.train_loss_sharded(sm, placed, cfg, rows)[0]
     if cfg.family == "encdec":
         return encdec.train_loss(params, batch, cfg)
     return transformer.train_loss(params, batch, cfg)
 
 
 def device_of(params) -> torch.device:
+    if isinstance(params, ShardedModel):
+        return params.device
     return params.embed.tok_embed.device
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               mesh=None):
+    if mesh is not None:
+        from repro_torch.launch.specs import cache_shardings
+        require_attention_family(cfg)
+        meta = transformer.init_cache(cfg, batch, max_len, META)
+        plan = cache_shardings(meta, cfg, mesh)
+        return ShardedCache([_zeros_local(meta, plan, mesh, p)
+                             for p in range(mesh.size)], plan, mesh)
     device = resolve_device(device)
     if cfg.family == "encdec":
         return encdec.init_cache(cfg, batch, max_len, device)
     return transformer.init_cache(cfg, batch, max_len, device)
 
 
-def forward(params, batch, cfg: ModelConfig):
+def forward(params, batch, cfg: ModelConfig, *, mesh=None):
     """Training/prefill-style forward for any family."""
+    if mesh is not None:
+        sm = on_mesh(params, mesh, cfg)
+        placed, rows = place_batch(batch, mesh)
+        logits, _, aux, ctx, split = transformer.forward_sharded(
+            sm, placed["tokens"], cfg, n_rows=rows,
+            prefix=placed.get("prefix_embeds"))
+        return (spmd.gather(logits, _logits_spec(ctx, split, 3), mesh),
+                None, aux[0])
     if cfg.family == "encdec":
         return encdec.forward(params, batch["frames"], batch["tokens"], cfg)
     return transformer.forward(params, batch["tokens"], cfg,
                                prefix_embeds=batch.get("prefix_embeds"))
 
 
-def prefill(params, batch, cfg: ModelConfig, cache):
+def _step_sharded(params, batch, cfg, cache, mesh, pos_offset):
+    if not isinstance(cache, ShardedCache) or cache.mesh != mesh:
+        raise ValueError("under a mesh the cache is init_cache(..., "
+                         "mesh=mesh)'s")
+    sm = on_mesh(params, mesh, cfg)
+    placed, rows = place_batch(batch, mesh)
+    logits, new, _, ctx, split = transformer.forward_sharded(
+        sm, placed["tokens"], cfg, n_rows=rows, pos_offset=pos_offset,
+        caches=cache.positions, plans=cache.plan,
+        prefix=placed.get("prefix_embeds"))
+    cache = ShardedCache(new, cache.plan, mesh)
+    return _last_whole(logits, ctx, split), cache
+
+
+def prefill(params, batch, cfg: ModelConfig, cache, *, mesh=None):
     """Fill the KV cache from a prompt; returns (last_logits, cache, extras).
 
     For enc-dec, also returns the per-layer cross K/V under extras."""
+    if mesh is not None:
+        last, cache = _step_sharded(params, batch, cfg, cache, mesh, 0)
+        return last, cache, {}
     if cfg.family == "encdec":
         memory = encdec.encode(params, batch["frames"], cfg)
         memory_kv = encdec.encode_memory_kv(params, memory, cfg)
@@ -88,9 +273,12 @@ def prefill(params, batch, cfg: ModelConfig, cache):
 
 
 def decode_step(params, tokens: torch.Tensor, pos_offset: int,
-                cfg: ModelConfig, cache, *, extras=None):
+                cfg: ModelConfig, cache, *, extras=None, mesh=None):
     """One decode step: tokens (B, 1) at absolute position ``pos_offset``.
     Returns (logits (B, V), new_cache)."""
+    if mesh is not None:
+        return _step_sharded(params, {"tokens": tokens}, cfg, cache, mesh,
+                             pos_offset)
     if cfg.family == "encdec":
         logits, cache, _ = encdec.forward(
             params, None, tokens, cfg, pos_offset=pos_offset, cache=cache,
@@ -119,27 +307,32 @@ def _select_token(logits: torch.Tensor, gen: Optional[torch.Generator],
 @torch.no_grad()
 def generate(params, batch, cfg: ModelConfig, *, max_new: int,
              max_len: int, temperature: float = 0.0, top_k: int = 0,
-             seed: Gen = 0):
+             seed: Gen = 0, mesh=None):
     """KV-cached decoding loop: greedy by default, top-k temperature
     sampling when temperature > 0 (draws from ``seed``, a generator or an
-    int seed of one). Returns int32 tokens (B, max_new)."""
+    int seed of one). Returns int32 tokens (B, max_new). Under a mesh the
+    model runs split over it and the tokens are picked from the whole
+    logits on its first device, so a sampled run draws as an unsplit
+    one does."""
+    if mesh is not None:
+        params = on_mesh(params, mesh, cfg)
     b = batch["tokens"].shape[0]
     device = device_of(params)
-    cache = init_cache(cfg, b, max_len, device)
-    last, cache, extras = prefill(params, batch, cfg, cache)
+    cache = init_cache(cfg, b, max_len, device, mesh=mesh)
+    last, cache, extras = prefill(params, batch, cfg, cache, mesh=mesh)
     start = batch["tokens"].shape[1]
     gen = generator(seed, device) if temperature > 0.0 else None
     toks = []
     for i in range(max_new):
         tok = _select_token(last, gen, temperature, top_k)[:, None]
         last, cache = decode_step(params, tok, start + i, cfg, cache,
-                                  extras=extras)
+                                  extras=extras, mesh=mesh)
         toks.append(tok[:, 0])
     return torch.stack(toks, dim=1)
 
 
 def greedy_generate(params, batch, cfg: ModelConfig, *, max_new: int,
-                    max_len: int):
+                    max_len: int, mesh=None):
     """Greedy decoding loop (serving example path)."""
     return generate(params, batch, cfg, max_new=max_new, max_len=max_len,
-                    temperature=0.0)
+                    temperature=0.0, mesh=mesh)

@@ -12,6 +12,15 @@ prefix stub). The decode cache is ``{"units": [unit cache, ...], "tail":
 With ``cfg.remat == "full"`` and gradients on, each unit runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
 body): its activations are recomputed in the backward pass, not kept.
+
+``forward_sharded`` and ``train_loss_sharded`` run the attention family
+on a local mesh (``runtime/spmd.py``): a model whose parameters are split
+by ``utils/sharding.param_specs`` (``models/model.ShardedModel``),
+activations split over the batch axes (and over ``model`` along the
+sequence between layers under ``cfg.seq_shard``: ``activation_spec``),
+the logits split over the vocabulary, a unit's fsdp gathers inside it, and
+under remat a whole sharded unit, collectives included, recomputed in the
+backward pass.
 """
 from __future__ import annotations
 
@@ -26,9 +35,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import (Head, apply_mlp, apply_norm,
-                                       embed_tokens, init_embed, init_mlp,
-                                       init_norm, unembed)
+from repro_torch.models.layers import (Head, MeshCtx, apply_mlp,
+                                       apply_mlp_sharded, apply_norm,
+                                       embed_tokens, embed_tokens_sharded,
+                                       gather_fsdp, init_embed, init_mlp,
+                                       init_norm, unembed, unembed_sharded)
+from repro_torch.runtime import spmd
 
 
 # ======================================================================
@@ -259,3 +271,162 @@ def train_loss(params, batch, cfg: ModelConfig
     if cfg.moe is not None:
         total = total + cfg.moe.aux_loss_weight * aux
     return total, {"ce": ce, "z_loss": zl, "moe_aux": aux}
+
+
+# ======================================================================
+# on a local mesh
+# ======================================================================
+def activation_spec(cfg: ModelConfig, mesh, x) -> tuple:
+    """Inter-layer activation placement of a (B, S, d) ``x``: the batch
+    over the batch axes (replicated where it does not divide them), plus
+    the sequence over ``model`` when ``cfg.seq_shard`` is on and S
+    divides (Megatron SP); ``MeshCtx``'s layout."""
+    ctx = MeshCtx(mesh, cfg, x.shape[0], x.shape[1])
+    return (ctx.batch, ctx.model if ctx.seq else None, None)
+
+
+def _layer_sharded(ps, xs, cfg: ModelConfig, ctx: MeshCtx, spec: LayerSpec,
+                   pos_offset: int, n_rows: int, caches=None, plan=None):
+    """``apply_layer`` on each position -> (xs, caches, aux)."""
+    hs = ctx.gather_seq([apply_norm(p.pre_norm, x, cfg)
+                         for p, x in zip(ps, xs)])
+    mixed, partial, new = attn_mod.apply_attn_sharded(
+        [p.attn for p in ps], hs, cfg, ctx, spec, pos_offset, caches, plan)
+    mixed = [m.to(x.dtype) for m, x in zip(ctx.finish(mixed, partial), xs)]
+    if cfg.post_norms:
+        mixed = [apply_norm(p.post_norm, m, cfg) for p, m in zip(ps, mixed)]
+    xs = [x + m for x, m in zip(xs, mixed)]
+    hs = ctx.gather_seq([apply_norm(p.mlp_norm, x, cfg)
+                         for p, x in zip(ps, xs)])
+    if cfg.moe is not None:
+        out, partial, aux = moe_mod.apply_moe_sharded(
+            [p.moe for p in ps], hs, cfg, ctx, n_rows)
+    else:
+        out, partial = apply_mlp_sharded([p.mlp for p in ps], hs, cfg, ctx,
+                                         cfg.d_ff)
+        aux = [torch.zeros((), device=x.device) for x in xs]
+    out = [m.to(x.dtype) for m, x in zip(ctx.finish(out, partial), xs)]
+    if cfg.post_norms:
+        out = [apply_norm(p.mlp_post_norm, m, cfg) for p, m in zip(ps, out)]
+    return [x + m for x, m in zip(xs, out)], new, aux
+
+
+def _unit_sharded(sm, i: int, xs, cfg: ModelConfig, ctx: MeshCtx,
+                  pos_offset: int, n_rows: int, caches=None, plans=None):
+    """Unit i on each position, its weights' fsdp gathers inside it (the
+    reference pins each scan slice so the gather stays per unit)."""
+    ps = gather_fsdp(sm, f"units.{i}.")
+    aux = [torch.zeros((), device=x.device) for x in xs]
+    new = None if caches is None else [{} for _ in xs]
+    for li, spec in enumerate(cfg.unit):
+        key = f"l{li}"
+        xs, nc, a = _layer_sharded(
+            [getattr(p, key) for p in ps], xs, cfg, ctx, spec, pos_offset,
+            n_rows, None if caches is None else [c[key] for c in caches],
+            None if plans is None else plans[key])
+        aux = [u + v for u, v in zip(aux, a)]
+        if caches is not None:
+            for n, c in zip(new, nc):
+                n[key] = c
+    return xs, aux, new
+
+
+def forward_sharded(sm, tokens, cfg: ModelConfig, *, n_rows: int,
+                    pos_offset: int = 0, caches=None, plans=None,
+                    prefix=None):
+    """``forward`` on a local mesh. ``tokens`` (and ``prefix``): each
+    position's rows of the batch of ``n_rows``, placed by
+    ``launch/specs.batch_shardings``; ``caches``: each position's cache
+    tree, ``plans`` their placement. -> (logits, caches, aux, ctx,
+    split): each position's float32 logits over its whole sequence, of
+    its vocabulary slice where ``split``."""
+    s_total = tokens[0].shape[1] + (0 if prefix is None
+                                    else prefix[0].shape[1])
+    ctx = MeshCtx(sm.mesh, cfg, n_rows, s_total)
+    pe = gather_fsdp(sm, "embed.")
+    xs = embed_tokens_sharded(pe, tokens, cfg, ctx, pos_offset)
+    if prefix is not None:
+        xs = [torch.cat([q.to(x.dtype), x], dim=1)
+              for q, x in zip(prefix, xs)]
+    xs = ctx.slice_seq(xs)
+    aux = [torch.zeros((), device=x.device) for x in xs]
+    has_cache = caches is not None
+    new_units = [] if has_cache else None
+    for i in range(cfg.n_units):
+        c_unit = [c["units"][i] for c in caches] if has_cache else None
+        p_unit = plans["units"][i] if has_cache else None
+        if not has_cache and remat(cfg):
+            xs, a, nc = checkpoint(_unit_sharded, sm, i, xs, cfg, ctx,
+                                   pos_offset, n_rows, use_reentrant=False)
+        else:
+            xs, a, nc = _unit_sharded(sm, i, xs, cfg, ctx, pos_offset,
+                                      n_rows, c_unit, p_unit)
+        aux = [u + v for u, v in zip(aux, a)]
+        if has_cache:
+            new_units.append(nc)
+    new = [{"units": [u[p] for u in new_units]} for p in range(len(xs))] \
+        if has_cache else None
+    pf = gather_fsdp(sm, "final_norm.")
+    xs = ctx.gather_seq([apply_norm(p, x, cfg) for p, x in zip(pf, xs)])
+    logits, split = unembed_sharded(
+        pe, None if cfg.tie_embeddings else gather_fsdp(sm, "head."), xs,
+        cfg, ctx)
+    return logits, new, aux, ctx, split
+
+
+def _ce_terms(logits, labels, split: bool, ctx: MeshCtx):
+    """Each position's (logsumexp, label logit) over the vocabulary; over
+    vocabulary slices a max, a sum of exponentials and the label's logit
+    (zero where another position holds the label) reduce over
+    ``model``."""
+    if not split:
+        lse = [torch.logsumexp(l, dim=-1) for l in logits]
+        picked = [torch.gather(l, -1, y.clamp_min(0).long()[..., None])
+                  [..., 0] for l, y in zip(logits, labels)]
+        return lse, picked
+    mesh, model = ctx.mesh, ctx.model
+    mx = spmd.all_reduce([l.detach().amax(dim=-1) for l in logits], mesh,
+                         model, op="max")
+    se = spmd.all_reduce([torch.exp(l - m[..., None]).sum(dim=-1)
+                          for l, m in zip(logits, mx)], mesh, model)
+    lse = [torch.log(s) + m for s, m in zip(se, mx)]
+    vl = logits[0].shape[-1]
+    picked = []
+    for i, (l, y) in enumerate(zip(logits, labels)):
+        local = y.long() - ctx.m_index(i) * vl
+        here = (local >= 0) & (local < vl)
+        got = torch.gather(l, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        picked.append(torch.where(here, got, torch.zeros(
+            (), dtype=got.dtype, device=got.device)))
+    return lse, spmd.all_reduce(picked, mesh, model)
+
+
+def train_loss_sharded(sm, batch, cfg: ModelConfig, n_rows: int):
+    """``train_loss`` on a local mesh -> each position's (loss, metrics),
+    equal on every position. ``batch``: name -> each position's rows.
+    The cross entropy runs over vocabulary slices (``_ce_terms``); the
+    sums over tokens reduce over the batch axes."""
+    prefix = batch.get("prefix_embeds")
+    logits, _, aux, ctx, split = forward_sharded(
+        sm, batch["tokens"], cfg, n_rows=n_rows, prefix=prefix)
+    if prefix is not None:
+        logits = [l[:, prefix[0].shape[1]:] for l in logits]
+    labels = batch["labels"]
+    lse, picked = _ce_terms(logits, labels, split, ctx)
+    sums = []
+    for y, s_, p_ in zip(labels, lse, picked):
+        mask = (y >= 0).float()
+        sums.append(torch.stack([((s_ - p_) * mask).sum(), mask.sum(),
+                                 torch.square(s_).sum()]))
+    if ctx.batch:
+        sums = spmd.all_reduce(sums, ctx.mesh, ctx.batch)
+    n_tok = n_rows * labels[0].shape[1]
+    out = []
+    for t, a in zip(sums, aux):
+        ce = t[0] / t[1].clamp_min(1.0)
+        zl = 1e-4 * (t[2] / n_tok)
+        total = ce + zl
+        if cfg.moe is not None:
+            total = total + cfg.moe.aux_loss_weight * a
+        out.append((total, {"ce": ce, "z_loss": zl, "moe_aux": a}))
+    return out

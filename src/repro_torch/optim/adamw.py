@@ -19,6 +19,17 @@ and the float32 moments in place.
 
 This is not ``torch.optim.AdamW``, which decays every tensor and has no
 int8 moments and no error feedback.
+
+On a local mesh (``runtime/spmd.Sharded`` parameters, gradients and
+state) ``init`` and ``update`` run on each position's slices. The global
+gradient norm counts each element once (one position for each distinct
+slice), and the int8 quantization of the moments and of the compressed
+gradients keeps its 128-wide blocks of the whole leaf: where a slice of
+the last dimension is a whole number of blocks each position quantizes its
+own and the scales are gathered, else the leaf is gathered along that
+dimension and quantized whole. ``q`` then takes the parameter's placement
+and ``scale`` holds every block of the last dimension
+(``launch/specs.opt_state_shardings``).
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.runtime import spmd
 
 Named = Mapping[str, torch.Tensor]
 
@@ -105,6 +118,9 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 def init(cfg: AdamWConfig, params: Named) -> dict:
     """Zero moments (and residuals) on each parameter's device; distinct
     tensors a leaf."""
+    if spmd.is_sharded(params):
+        return _init_sharded(cfg, params)
+
     def zeros():
         return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for n, p in params.items()}
@@ -146,6 +162,8 @@ def update(cfg: AdamWConfig, grads: Named, state: dict, params: Named):
     parameters, gradients and moments and one parameter's temporaries:
     ``params`` and float32 moments are updated in place (int8 moments
     are replaced) and returned."""
+    if spmd.is_sharded(params):
+        return _update_sharded(cfg, grads, state, params)
     step = state["step"]
     metrics = {}
 
@@ -196,6 +214,174 @@ def update(cfg: AdamWConfig, grads: Named, state: dict, params: Named):
         p.copy_(pf - lr * (delta + wd * pf))
 
     new_state = {"step": step + 1, "m": new_m, "v": new_v}
+    if new_ef is not None:
+        new_state["ef"] = new_ef
+    return params, new_state, metrics
+
+
+# ------------------------------------------------------------- on a mesh
+def _scale_spec(spec) -> tuple:
+    return tuple(spec[:-1]) + (None,) if len(spec) else ()
+
+
+def _split_last(spec, ndim: int, mesh):
+    """(axes, ways) the last dimension of a leaf splits over."""
+    axes = spmd.axes_of(spec[ndim - 1]) if ndim and len(spec) >= ndim else ()
+    return axes, spmd.size(mesh, axes)
+
+
+def _quantize_shards(xs, spec, shape, mesh):
+    """``_quantize`` of a leaf of whole ``shape`` from its slices ``xs``
+    -> (each position's q slice, each position's scales of every block
+    of the last dimension)."""
+    nd = len(shape)
+    axes, n = _split_last(spec, nd, mesh)
+    if n == 1:
+        pairs = [_quantize(x) for x in xs]
+        return [q for q, _ in pairs], [s for _, s in pairs]
+    if (shape[-1] // n) % _QBLOCK == 0:
+        pairs = [_quantize(x) for x in xs]
+        scales = spmd.all_gather([s for _, s in pairs], mesh, axes, nd - 1)
+        return [q for q, _ in pairs], [s.clone() for s in scales]
+    whole = spmd.all_gather(xs, mesh, axes, nd - 1)
+    done, qs, ss = {}, [], []
+    for p, x in enumerate(whole):
+        if id(x) not in done:
+            done[id(x)] = _quantize(x)
+        q, s = done[id(x)]
+        c = q.shape[-1] // n
+        qs.append(q.narrow(nd - 1, spmd.coord(mesh, p, axes) * c, c).clone())
+        ss.append(s.clone())
+    return qs, ss
+
+
+def _dequantize_shards(qs, scales, spec, shape, mesh):
+    """Each position's float32 slice of a leaf of whole ``shape`` from its
+    q slices and whole-row scales."""
+    nd = len(shape)
+    local = spmd.local_shape(shape, spec, mesh)
+    axes, n = _split_last(spec, nd, mesh)
+    if n == 1:
+        return [_dequantize(q, s, local) for q, s in zip(qs, scales)]
+    last = shape[-1] // n
+    if last % _QBLOCK == 0:
+        nb = last // _QBLOCK
+        return [_dequantize(q, s.narrow(-1, spmd.coord(mesh, p, axes) * nb,
+                                        nb), local)
+                for p, (q, s) in enumerate(zip(qs, scales))]
+    whole = spmd.all_gather(qs, mesh, axes, nd - 1)
+    rows = local[:-1] + (shape[-1],)
+    return [_dequantize(q, s, rows).narrow(
+        nd - 1, spmd.coord(mesh, p, axes) * last, last)
+        for p, (q, s) in enumerate(zip(whole, scales))]
+
+
+def _q_tree_sharded(tree: dict) -> dict:
+    out = {"q": {}, "scale": {}}
+    for n, x in tree.items():
+        q, s = _quantize_shards(x.shards, x.spec, tuple(x.shape), x.mesh)
+        out["q"][n] = spmd.Sharded(q, x.spec, x.mesh)
+        out["scale"][n] = spmd.Sharded(s, _scale_spec(x.spec), x.mesh)
+    return out
+
+
+def _init_sharded(cfg: AdamWConfig, params) -> dict:
+    mesh = next(iter(params.values())).mesh
+
+    def zeros():
+        return {n: spmd.Sharded([torch.zeros(t.shape, dtype=torch.float32,
+                                             device=t.device)
+                                 for t in p.shards], p.spec, mesh)
+                for n, p in params.items()}
+
+    state = {"step": spmd.Sharded(
+        [torch.zeros((), dtype=torch.int32, device=d)
+         for d in spmd.devices(mesh)], (), mesh)}
+    if cfg.quantize_moments:
+        state["m"] = _q_tree_sharded(zeros())
+        state["v"] = _q_tree_sharded(zeros())
+    else:
+        state["m"] = zeros()
+        state["v"] = zeros()
+    if cfg.compress_grads:
+        state["ef"] = zeros()
+    return state
+
+
+def _update_sharded(cfg: AdamWConfig, grads, state: dict, params):
+    """``update`` on a local mesh: ``grads`` hold each position's
+    gradient of its slices, summed over the positions holding copies."""
+    mesh = next(iter(params.values())).mesh
+    devs = spmd.devices(mesh)
+    gs = {n: list(g.shards) for n, g in grads.items()}
+    metrics = {}
+
+    new_ef = None
+    if cfg.compress_grads:
+        new_ef = {}
+        for n, p in params.items():
+            shape = tuple(p.shape)
+            fixed = [g + r for g, r in zip(gs[n], state["ef"][n].shards)]
+            q, sc = _quantize_shards(fixed, p.spec, shape, mesh)
+            gs[n] = _dequantize_shards(q, sc, p.spec, shape, mesh)
+            new_ef[n] = spmd.Sharded([c - h for c, h in zip(fixed, gs[n])],
+                                     p.spec, mesh)
+
+    total = 0.0
+    for n, p in params.items():
+        for i in spmd.representatives(mesh, p.spec):
+            total = total + torch.sum(torch.square(
+                gs[n][i].to(torch.float32))).to(devs[0])
+    gnorm = torch.sqrt(total)
+    metrics["grad_norm"] = gnorm
+    step = state["step"].shards[0]
+    t = (step + 1).to(torch.float32)
+    lr = lr_schedule(cfg, step)
+    metrics["lr"] = lr
+    scalars = [1 - torch.pow(cfg.b1, t), 1 - torch.pow(cfg.b2, t), lr]
+    if cfg.clip_norm is not None:
+        scalars.append(torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-12),
+                                   max=1.0))
+    on = {d: [x.to(d) for x in scalars] for d in set(devs)}
+
+    quant = cfg.quantize_moments
+    new_m = {"q": {}, "scale": {}} if quant else state["m"]
+    new_v = {"q": {}, "scale": {}} if quant else state["v"]
+    for n, p in params.items():
+        shape = tuple(p.shape)
+        if quant:
+            mms = _dequantize_shards(state["m"]["q"][n].shards,
+                                     state["m"]["scale"][n].shards, p.spec,
+                                     shape, mesh)
+            vvs = _dequantize_shards(state["v"]["q"][n].shards,
+                                     state["v"]["scale"][n].shards, p.spec,
+                                     shape, mesh)
+        wd = cfg.weight_decay if decays(n, p.shards[0]) else 0.0
+        for i, w in enumerate(p.shards):
+            bc1, bc2, lr_d, *clip = on[w.device]
+            g = gs[n][i].to(torch.float32)
+            if clip:
+                g = g * clip[0]
+            if quant:
+                mm = cfg.b1 * mms[i] + (1 - cfg.b1) * g
+                vv = cfg.b2 * vvs[i] + (1 - cfg.b2) * torch.square(g)
+                mms[i], vvs[i] = mm, vv
+            else:
+                mm = new_m[n].shards[i].mul_(cfg.b1).add_((1 - cfg.b1) * g)
+                vv = new_v[n].shards[i].mul_(cfg.b2).add_(
+                    (1 - cfg.b2) * torch.square(g))
+            delta = (mm / bc1) / (torch.sqrt(vv / bc2) + cfg.eps)
+            wf = w.to(torch.float32)
+            w.copy_(wf - lr_d * (delta + wd * wf))
+        if quant:
+            for tree, xs in ((new_m, mms), (new_v, vvs)):
+                q, sc = _quantize_shards(xs, p.spec, shape, mesh)
+                tree["q"][n] = spmd.Sharded(q, p.spec, mesh)
+                tree["scale"][n] = spmd.Sharded(sc, _scale_spec(p.spec), mesh)
+
+    new_state = {"step": spmd.Sharded([s + 1 for s in state["step"].shards],
+                                      (), mesh),
+                 "m": new_m, "v": new_v}
     if new_ef is not None:
         new_state["ef"] = new_ef
     return params, new_state, metrics

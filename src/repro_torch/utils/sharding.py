@@ -4,9 +4,9 @@ placements for a mesh, the port of the reference's ``utils/sharding.py``.
 A placement is a plain tuple with one entry a dimension: a mesh axis name,
 a tuple of axis names, or None (that dimension is replicated); ``()``
 places a scalar. A mesh is anything with ``axis_names`` and ``shape``
-(axis name -> size), such as ``launch/mesh.py``'s ``Mesh``. These are
-plans: nothing here creates a process group or moves a tensor (one card
-cannot check a multi-process transport).
+(axis name -> size), such as ``launch/mesh.py``'s ``Mesh``. The rules
+are plans; ``shard``, ``gather`` and ``constraint`` carry them out on a
+local mesh (one with devices) through ``runtime/spmd.py``, in one process.
 
 Philosophy (MaxText-style, divisibility-safe):
   * batch shards over ("pod", "data") -- DP across pods, DP/FSDP within;
@@ -22,6 +22,10 @@ from __future__ import annotations
 import dataclasses
 import re
 from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.runtime import spmd
 
 Spec = Tuple
 
@@ -157,6 +161,16 @@ def batch_spec(mesh, axes: Optional[MeshAxes] = None, *,
     return (lead,) + (None,) * extra_dims
 
 
+def batch_axes_for(mesh, dim: int) -> Optional[Tuple[str, ...]]:
+    """The batch axes a batch of ``dim`` rows splits over, or None where
+    it does not divide them (it then replicates)."""
+    axes = MeshAxes().present(mesh).batch
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+    return axes if (axes and size > 1 and dim % size == 0) else None
+
+
 def shard_factor(spec: Spec, mesh) -> int:
     """How many ways a tensor under ``spec`` is split on ``mesh``: the
     product of the sizes of the axes it names."""
@@ -165,3 +179,44 @@ def shard_factor(spec: Spec, mesh) -> int:
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             n *= axis_size(mesh, a)
     return n
+
+
+# ------------------------------------------------------------- placement
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A placement on a mesh, the counterpart of ``jax.sharding.
+    NamedSharding``."""
+    mesh: object
+    spec: Spec
+
+
+def named(mesh, spec: Spec) -> NamedSharding:
+    return NamedSharding(mesh, tuple(spec))
+
+
+def shard(tensor: torch.Tensor, spec: Spec, mesh) -> spmd.Sharded:
+    """``tensor`` placed on a local ``mesh``: each position's slice under
+    ``spec``, on its device, in storage of its own (``jax.device_put``
+    with a ``NamedSharding``)."""
+    return spmd.Sharded.place(tensor, spec, mesh)
+
+
+def gather(shards, spec: Optional[Spec] = None, mesh=None,
+           device=None) -> torch.Tensor:
+    """The whole tensor from a ``Sharded`` (or from a list of position
+    slices, its ``spec`` and ``mesh``), bit for bit."""
+    if isinstance(shards, spmd.Sharded):
+        return shards.full(device)
+    return spmd.gather(shards, spec, mesh, device)
+
+
+def constraint(x, mesh, spec: Spec):
+    """The reference's ``with_sharding_constraint`` that is the identity
+    without a mesh: a ``Sharded`` moved to ``spec`` on its mesh."""
+    if mesh is None:
+        return x
+    if x.mesh != mesh:
+        raise ValueError("the tensor lies on another mesh")
+    spec = tuple(spec)
+    return spmd.Sharded(spmd.relayout(x.shards, mesh, x.spec, spec), spec,
+                        mesh)

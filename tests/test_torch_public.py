@@ -123,3 +123,34 @@ def test_default_runner_is_one_runner_on_the_card(monkeypatch):
             trunner.default_runner()
         assert trunner._DEFAULT is None
     assert repro_torch.workloads.default_runner is trunner.default_runner
+
+
+#: (module, name) of every reference function or class that takes a mesh
+MESH_TAKERS = [("models.model", n) for n in (
+    "train_loss", "forward", "prefill", "decode_step", "generate",
+    "greedy_generate")] + [("launch.specs", n) for n in (
+        "make_train_step", "make_prefill_fn", "make_decode_fn")] + [
+    ("launch.serve", "BatchServer"), ("launch.train", "train"),
+    ("models.moe", "n_token_groups")]
+
+
+@pytest.mark.parametrize("module,name", MESH_TAKERS,
+                         ids=[f"{m}.{n}" for m, n in MESH_TAKERS])
+def test_port_takes_mesh_where_the_reference_does(module, name):
+    """The port's function takes ``mesh`` as the reference's does: the
+    same kind of parameter with the same default, at the same place
+    among the others; ``n_token_groups`` (``(cfg, n_tokens, mesh=None)``
+    in the port, ``(cfg, mesh, n_tokens)`` in the reference) only takes
+    one."""
+    import importlib
+    ref = inspect.signature(getattr(importlib.import_module(
+        f"repro.{module}"), name))
+    port = inspect.signature(getattr(importlib.import_module(
+        f"repro_torch.{module}"), name))
+    want, got = ref.parameters["mesh"], port.parameters["mesh"]
+    if name == "n_token_groups":
+        assert got.default is None
+        return
+    assert (got.kind, got.default) == (want.kind, want.default)
+    assert list(port.parameters).index("mesh") == \
+        list(ref.parameters).index("mesh")
