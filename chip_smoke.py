@@ -262,7 +262,7 @@ jax or the reference package). Phases, each printing one JSON line:
      request may part only where the unsharded top-2 logits lie within
      twice the bf16 logit bar), prefill ms, ms a token on the host's clock
      and the card's (a profiler trace of the card alone), peak memory and
-     the collectives' elements a token; ``train(mesh=)`` in float32, 5
+     the collectives' elements a token; ``train(mesh=)`` in float32, 3
      steps at B=8, S=512 from the seed of an unsharded run, the first
      step's loss and grad norm within 1e-5, every loss within 1e-4 and
      grad norm within 2e-3, every parameter leaf within 5e-2 of its
@@ -270,7 +270,29 @@ jax or the reference package). Phases, each printing one JSON line:
      each position's parameter and moment bytes equal to
      ``launch/dryrun.py``'s plan, ms a step (host and device), peak
      memory and elements a step; (c) the host's card count, and where
-     there are two or more, the bf16 serve again over a mesh of them.
+     there are two or more, the bf16 serve again over a mesh of them;
+ 22. the ``rec``, ``ssm`` and ``encdec`` families sharded over a local
+     mesh (recurrentgemma-9b: RG-LRU units and a tail, mamba2-780m: SSD
+     units, whisper-small: an encoder, learned positions and
+     cross-attention; every position on cuda:0; no hand-written kernel is
+     on it, and the phase fails if one launches): (a) their smoke configs
+     as one ``make_train_step`` step on (4, 2) and (2, 4) meshes (and on
+     (4, 2) with ``seq_shard`` for recurrentgemma and mamba2) and served
+     through ``BatchServer(mesh=)`` on phase 21's ragged prompts, against
+     the unsharded card run at phase 21's bars; (b) each at full width on
+     a (2, 4) mesh beside its unsharded run: greedy bf16 ``generate`` of
+     four requests (whisper's with seeded stub frames), the tokens equal
+     up to a near tie as in phase 21, the bar on the logits the larger of
+     phase 21's and twice the unsharded bf16 logits' distance from a
+     float32 run of the same (bf16-valued) weights, prefill ms and ms a
+     token on the
+     host's clock and the card's, elements moved a token, peak memory,
+     each position's parameter and cache bytes equal to the dry run's
+     plan; mamba2-780m and whisper-small also in float32 training (3
+     ``make_train_step`` steps from the same weights and seeded non-zero
+     moments, the last under a card-only profiler trace) within
+     ``LM_SHARD_TRAIN_TOL``, ms a step (host and card), elements a step,
+     peak memory, parameter and moment bytes equal to the plan.
 
 It ends with the card's name and power limit, the ``kernels`` line and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -470,10 +492,11 @@ LM_SHARD_TOL = dict(loss=1e-5, params=1e-5, moments=1e-5, logits=1e-5)
 LM_SHARD_SMOKE = dict(prompts=(24, 17, 31, 8), new=8, max_len=64)
 #: (b) tinyllama-1.1b at full width on a (2, 4) mesh: bf16 serving of four
 #: ragged requests (32 new tokens each; a timed decode loop of
-#: ``decode_timed`` steps), float32 training (B, S, steps)
+#: ``decode_timed`` steps), float32 training (B, S, steps; 3 since phase
+#: 22 came: 5 before)
 LM_SHARD_FULL = dict(arch="tinyllama-1.1b", mesh=(2, 4),
                      prompts=(64, 256, 160, 100), new=32, max_len=512,
-                     decode_timed=4, batch=8, seq=512, steps=5)
+                     decode_timed=4, batch=8, seq=512, steps=3)
 #: bf16 serving: the sharded logits within this of the unsharded ones on
 #: the unsharded greedy trajectory (one forward of the prompts and the
 #: generated tokens), and a request's tokens may part from
@@ -490,6 +513,25 @@ LM_SHARD_BF16_LOGITS = 0.1
 #: read grad norms 4.2e-4 apart at step 3, 2.7e-7 at the first)
 LM_SHARD_TRAIN_TOL = dict(first=1e-5, loss=1e-4, grad_norm=2e-3,
                           params=5e-2)
+#: phase 22, the rec, ssm and encdec families sharded over a local mesh:
+#: (a) their smoke configs, one step on each of ``LM_SHARD_MESHES`` (and
+#: with ``seq_shard`` on (4, 2) for the two recurrent ones) and greedy
+#: serving of ``LM_SHARD_SMOKE``'s prompts, against the unsharded card run
+LM_FAMILIES = ("recurrentgemma-9b", "mamba2-780m", "whisper-small")
+LM_FAMILIES_SEQ = ("recurrentgemma-9b", "mamba2-780m")
+#: (b) each at full width on a (2, 4) mesh beside its unsharded run:
+#: greedy bf16 ``generate`` of four requests (prompts, new tokens; whisper
+#: with seeded stub frames), and float32 ``make_train_step`` steps
+#: (B, S, steps) where the card holds the state (recurrentgemma-9b's
+#: float32 parameters, gradients and moments take 153 GB: serving only)
+LM_FAMILIES_FULL = {
+    "recurrentgemma-9b": dict(prompts=(64, 48, 32, 16), new=8),
+    "mamba2-780m": dict(prompts=(16, 16, 16, 16), new=8,
+                        train=(2, 1024, 3)),
+    "whisper-small": dict(prompts=(8, 8, 8, 8), new=16, train=(8, 256, 3)),
+}
+LM_FAMILIES_MESH = (2, 4)
+LM_FAMILIES_DECODE_TIMED = 4
 #: the 3D main path: the Menger sponge F^{20,3} at r=6, m=2 (rho=9, 20^4 =
 #: 160,000 blocks, 64,000,000 cells in a 729^3 volume)
 MAIN3D = ("menger", 6, 2)
@@ -3006,6 +3048,150 @@ def _sharded_bytes(spmd, tree, n):
     return [spmd.resident_bytes(tree, p) for p in range(n)]
 
 
+def _tensor_bytes(tree) -> int:
+    """Bytes of the tensors of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def _parted(np, want, have, gaps, bar):
+    """The requests whose sharded tokens part from the unsharded ones, each
+    where its unsharded top-2 logits lie within twice ``bar`` (a near
+    tie), else raise."""
+    parted = []
+    for r in range(want.shape[0]):
+        diff = np.nonzero(want[r] != have[r])[0]
+        if diff.size:
+            at = int(diff[0])
+            gap = float(gaps[r, at])
+            if gap > 2 * bar:
+                raise AssertionError(f"request {r} parts at token {at}, "
+                                     f"top-2 gap {gap}")
+            parted.append(dict(request=r, token=at, top2_gap=gap))
+    return parted
+
+
+def _mesh_of(shape):
+    """A local (data, model) mesh of ``shape`` on the card."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(shape[1], shape[0])
+
+
+def _within(what, got, want, bar, scale=1.0) -> float:
+    """max |got - want|, raising where it passes ``bar`` x ``scale``."""
+    err = float((got.detach().double() - want.double()).abs().max())
+    if not err <= bar * scale:
+        raise AssertionError(f"{what}: {err} > {bar} x {scale}")
+    return err
+
+
+def _smoke_step(torch, cfg, shape, model_seed: int, seed: int,
+                what: str) -> dict:
+    """One ``make_train_step`` step of a smoke config on the card, split
+    over a (data, model) mesh of ``shape`` and unsplit, from the same
+    seeded weights, non-zero moments and (8, 32) batch: the loss and grad
+    norm within ``LM_SHARD_TOL`` relative, every parameter absolute, every
+    moment against its leaf's largest entry (else raise) -> the errors,
+    the loss, the collectives' elements and the seconds."""
+    import numpy as np
+
+    from repro_torch.launch import specs
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import spmd
+
+    t0 = time.perf_counter()
+    tol = LM_SHARD_TOL
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4,
+                             weight_decay=0.0)
+    cuda = torch.device("cuda")
+    mesh = _mesh_of(shape)
+    model = lm.init_params(model_seed, cfg, device=cuda)
+    named = dict(model.named_parameters())
+    state = _seeded_moments(torch, adamw.init(ocfg, named), named, seed)
+    sharded = lm.shard_model(model, mesh)
+    s_state = specs.place_opt_state(state, sharded.specs, mesh)
+    batch = {k: v.to(cuda) for k, v in _train_batch(
+        torch, np, cfg, 8, 32, seed).items()}
+    _, state, m_u = specs.make_train_step(cfg, ocfg)(model, state, batch)
+    spmd.reset_counts()
+    sharded, s_state, m_s = specs.make_train_step(cfg, ocfg, mesh=mesh)(
+        sharded, s_state, batch)
+    moved = spmd.counts()
+    errs = {k: _within(f"{what} {k}", m_s[k], m_u[k], tol["loss"],
+                       abs(float(m_u[k])))
+            for k in ("loss", "grad_norm")}
+    worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for n, p in sharded.named_parameters():
+        worst["params"] = max(worst["params"], _within(
+            f"{what} {n}", p.full(), named[n].detach(), tol["params"]))
+        for key in ("m", "v"):
+            want = state[key][n]
+            worst[key] = max(worst[key], _within(
+                f"{what} {key} {n}", s_state[key][n].full(), want,
+                tol["moments"], float(want.abs().max())))
+    return dict(max_abs_err={**errs, **worst}, loss=float(m_s["loss"]),
+                elements_moved=moved, seconds=time.perf_counter() - t0)
+
+
+def _smoke_serve(torch, cfg, model_seed: int, seed: int, what: str) -> dict:
+    """A smoke config served through ``BatchServer`` on the card on
+    ``LM_SHARD_SMOKE``'s ragged prompts, unsplit and split over each of
+    ``LM_SHARD_MESHES``: the tokens equal, and the logits of prefill and of
+    each decode step fed the unsplit tokens within ``LM_SHARD_TOL``'s
+    (else raise) -> the errors by mesh and the seconds."""
+    import numpy as np
+
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import model as lm
+
+    t0 = time.perf_counter()
+    sm = LM_SHARD_SMOKE
+    cuda = torch.device("cuda")
+    with torch.no_grad():
+        model = lm.init_params(model_seed, cfg, device=cuda)
+        rows, padded = _padded(np, sm["prompts"], cfg.vocab, seed)
+        batch = {"tokens": torch.from_numpy(padded).to(cuda)}
+        start = padded.shape[1]
+        if cfg.n_patches:
+            batch["prefix_embeds"] = torch.randn(
+                (len(rows), cfg.n_patches, cfg.d_model),
+                generator=torch.Generator().manual_seed(seed)).to(cuda)
+            start += cfg.n_patches
+        if cfg.family == "encdec":   # the frames BatchServer sends
+            batch["frames"] = torch.zeros(
+                (len(rows), cfg.enc_seq, cfg.d_model), device=cuda)
+
+        def requests():
+            return [Request(prompt=r, max_new=sm["new"]) for r in rows]
+
+        want = np.stack([r.out for r in BatchServer(
+            cfg, model, max_len=sm["max_len"]).serve(requests())])
+        fed = torch.from_numpy(want)
+        ref = _lm_replay(torch, lm, model, cfg, batch, fed, start,
+                         sm["max_len"], cuda)
+        row = {}
+        for shape in LM_SHARD_MESHES:
+            m = _mesh_of(shape)
+            split = lm.shard_model(model, m)
+            got = np.stack([r.out for r in BatchServer(
+                cfg, split, max_len=sm["max_len"], mesh=m).serve(
+                    requests())])
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{what} {shape}: tokens {got} "
+                                     f"against {want}")
+            row["x".join(map(str, shape))] = _within(
+                f"{what} {shape} logits", _lm_replay(
+                    torch, lm, split, cfg, batch, fed, start,
+                    sm["max_len"], cuda, mesh=m), ref,
+                LM_SHARD_TOL["logits"])
+    return dict(max_abs_err=row, tokens_equal=True,
+                seconds=time.perf_counter() - t0)
+
+
 def phase_lm_sharded(torch, build):
     """Phase 21: the language-model path sharded over a local mesh in one
     process (module docstring, item 21). No hand-written kernel is on it,
@@ -3028,10 +3214,6 @@ def phase_lm_sharded(torch, build):
     cuda = torch.device("cuda")
     card = nvidia_smi()
     build.reset_launches()
-    tol = LM_SHARD_TOL
-
-    def mesh_of(shape):
-        return make_local_mesh(shape[1], shape[0])
 
     def pinned(cfg):
         if cfg.moe is None:
@@ -3039,102 +3221,28 @@ def phase_lm_sharded(torch, build):
         return dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch_groups=4))
 
-    def within(what, got, want, bar, scale=1.0):
-        err = float((got.detach().double() - want.double()).abs().max())
-        if not err <= bar * scale:
-            raise AssertionError(f"{what}: {err} > {bar} x {scale}")
-        return err
-
     # (a) the sharded-equality cases on the card ----------------------------
-    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4,
-                             weight_decay=0.0)
-    mesh = mesh_of((4, 2))
     steps = {}
     for i, (arch, seq_shard) in enumerate(LM_SHARD_STEPS):
-        t0 = time.perf_counter()
         cfg = dataclasses.replace(pinned(configs.get_smoke_config(arch)),
                                   seq_shard=seq_shard)
-        model = lm.init_params(400 + i, cfg, device=cuda)
-        named = dict(model.named_parameters())
-        state = _seeded_moments(torch, adamw.init(ocfg, named), named, i)
-        sharded = lm.shard_model(model, mesh)
-        s_state = specs.place_opt_state(state, sharded.specs, mesh)
-        batch = {k: v.to(cuda) for k, v in _train_batch(
-            torch, np, cfg, 8, 32, i).items()}
-        _, state, m_u = specs.make_train_step(cfg, ocfg)(model, state,
-                                                         batch)
-        spmd.reset_counts()
-        sharded, s_state, m_s = specs.make_train_step(cfg, ocfg, mesh=mesh)(
-            sharded, s_state, batch)
-        moved = spmd.counts()
-        errs = {k: within(f"lm sharded {arch} {k}", m_s[k], m_u[k],
-                          tol["loss"], abs(float(m_u[k])))
-                for k in ("loss", "grad_norm")}
-        worst = {"params": 0.0, "m": 0.0, "v": 0.0}
-        for n, p in sharded.named_parameters():
-            worst["params"] = max(worst["params"], within(
-                f"lm sharded {arch} {n}", p.full(), named[n].detach(),
-                tol["params"]))
-            for key in ("m", "v"):
-                want = state[key][n]
-                worst[key] = max(worst[key], within(
-                    f"lm sharded {arch} {key} {n}", s_state[key][n].full(),
-                    want, tol["moments"], float(want.abs().max())))
         name = f"{arch}{' seq_shard' if seq_shard else ''}"
-        steps[name] = dict(mesh="4x2", max_abs_err={**errs, **worst},
-                           loss=float(m_s["loss"]), elements_moved=moved,
-                           seconds=time.perf_counter() - t0)
+        steps[name] = dict(mesh="4x2", **_smoke_step(
+            torch, cfg, (4, 2), 400 + i, i, f"lm sharded {arch}"))
         emit("lm_sharded_step", arch=arch, seq_shard=seq_shard,
              **steps[name])
-        del model, named, state, sharded, s_state
 
-    sm = LM_SHARD_SMOKE
     served = {}
-    with torch.no_grad():
-        for j, arch in enumerate(LM_SHARD_ARCHS):
-            t0 = time.perf_counter()
-            cfg = pinned(configs.get_smoke_config(arch))
-            model = lm.init_params(500 + j, cfg, device=cuda)
-            rows, padded = _padded(np, sm["prompts"], cfg.vocab, j)
-            batch = {"tokens": torch.from_numpy(padded).to(cuda)}
-            start = padded.shape[1]
-            if cfg.n_patches:
-                batch["prefix_embeds"] = torch.randn(
-                    (len(rows), cfg.n_patches, cfg.d_model),
-                    generator=torch.Generator().manual_seed(j)).to(cuda)
-                start += cfg.n_patches
-
-            def requests():
-                return [Request(prompt=r, max_new=sm["new"]) for r in rows]
-
-            want = np.stack([r.out for r in BatchServer(
-                cfg, model, max_len=sm["max_len"]).serve(requests())])
-            fed = torch.from_numpy(want)
-            ref = _lm_replay(torch, lm, model, cfg, batch, fed, start,
-                             sm["max_len"], cuda)
-            row = {}
-            for shape in LM_SHARD_MESHES:
-                m = mesh_of(shape)
-                split = lm.shard_model(model, m)
-                got = np.stack([r.out for r in BatchServer(
-                    cfg, split, max_len=sm["max_len"], mesh=m).serve(
-                        requests())])
-                if not np.array_equal(got, want):
-                    raise AssertionError(f"lm sharded {arch} {shape}: "
-                                         f"tokens {got} against {want}")
-                row["x".join(map(str, shape))] = within(
-                    f"lm sharded {arch} {shape} logits", _lm_replay(
-                        torch, lm, split, cfg, batch, fed, start,
-                        sm["max_len"], cuda, mesh=m), ref, tol["logits"])
-            served[arch] = dict(max_abs_err=row, tokens_equal=True,
-                                seconds=time.perf_counter() - t0)
-            emit("lm_sharded_serve_smoke", arch=arch, **served[arch])
-            del model
+    for j, arch in enumerate(LM_SHARD_ARCHS):
+        cfg = pinned(configs.get_smoke_config(arch))
+        served[arch] = _smoke_serve(torch, cfg, 500 + j, j,
+                                    f"lm sharded {arch}")
+        emit("lm_sharded_serve_smoke", arch=arch, **served[arch])
     torch.cuda.empty_cache()
 
     # (b) tinyllama-1.1b at full width on a (2, 4) mesh ----------------------
     fw = LM_SHARD_FULL
-    arch, mesh = fw["arch"], mesh_of(fw["mesh"])
+    arch, mesh = fw["arch"], _mesh_of(fw["mesh"])
     plan = dryrun.run_cell(arch, "train_4k", mesh)
     scfg = specs.serve_config(configs.get_config(arch))
     rows, padded = _padded(np, fw["prompts"], scfg.vocab, 21)
@@ -3212,21 +3320,12 @@ def phase_lm_sharded(torch, build):
         ref = lm.forward(model, seq, scfg)[0][:, start - 1:-1]
         got = lm.forward(runs["sharded"]["params"], seq, scfg,
                          mesh=mesh)[0][:, start - 1:-1]
-    logit_err = within("lm sharded serve logits", got, ref,
+    logit_err = _within("lm sharded serve logits", got, ref,
                        LM_SHARD_BF16_LOGITS)
     top2 = ref.float().topk(2, dim=-1).values
     gaps = top2[..., 0] - top2[..., 1]
-    want, have = runs["unsharded"]["tokens"], runs["sharded"]["tokens"]
-    parted = []
-    for r in range(want.shape[0]):
-        diff = np.nonzero(want[r] != have[r])[0]
-        if diff.size:
-            at = int(diff[0])
-            gap = float(gaps[r, at])
-            if gap > 2 * LM_SHARD_BF16_LOGITS:
-                raise AssertionError(f"lm sharded serve: request {r} parts "
-                                     f"at token {at}, top-2 gap {gap}")
-            parted.append(dict(request=r, token=at, top2_gap=gap))
+    parted = _parted(np, runs["unsharded"]["tokens"],
+                     runs["sharded"]["tokens"], gaps, LM_SHARD_BF16_LOGITS)
     for label in runs:
         runs[label].pop("params")
         runs[label]["tokens"] = runs[label]["tokens"].tolist()
@@ -3351,6 +3450,330 @@ def phase_lm_sharded(torch, build):
                              f"kernels: {build.LAUNCHES}")
     emit("lm_sharded", card=card, steps=steps, serve_smoke=served,
          serve=serve, train=train_row, cards=multi,
+         lm_kernel_launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+def phase_lm_sharded_families(torch, build):
+    """Phase 22: the rec, ssm and encdec families sharded over a local
+    mesh in one process (module docstring, item 22). No hand-written
+    kernel is on it, and the phase asserts that none launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import spmd
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    card = nvidia_smi()
+    build.reset_launches()
+
+    def frames_of(cfg, rows, seed):
+        return torch.randn((rows, cfg.enc_seq, cfg.d_model),
+                           generator=torch.Generator().manual_seed(seed))
+
+    # (a) the smoke configs against the unsharded card run -----------------
+    cases = [(a, shape, False) for a in LM_FAMILIES
+             for shape in LM_SHARD_MESHES]
+    cases += [(a, (4, 2), True) for a in LM_FAMILIES_SEQ]
+    steps = {}
+    for i, (arch, shape, seq_shard) in enumerate(cases):
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  seq_shard=seq_shard)
+        label = "x".join(map(str, shape))
+        name = f"{arch} {label}{' seq_shard' if seq_shard else ''}"
+        steps[name] = _smoke_step(torch, cfg, shape, 600 + i, i,
+                                  f"lm families {arch}")
+        emit("lm_families_step", arch=arch, mesh=label, seq_shard=seq_shard,
+             **steps[name])
+
+    served = {}
+    for j, arch in enumerate(LM_FAMILIES):
+        served[arch] = _smoke_serve(torch, configs.get_smoke_config(arch),
+                                    700 + j, 20 + j, f"lm families {arch}")
+        emit("lm_families_serve_smoke", arch=arch, **served[arch])
+    torch.cuda.empty_cache()
+
+    # (b) full width on a (2, 4) mesh beside the unsharded run --------------
+    mesh = _mesh_of(LM_FAMILIES_MESH)
+    n_pos = mesh.size
+    full = {}
+    for k, (arch, fw) in enumerate(LM_FAMILIES_FULL.items()):
+        t_arch = time.perf_counter()
+        scfg = specs.serve_config(configs.get_config(arch))
+        rows, padded = _padded(np, fw["prompts"], scfg.vocab, 22 + k)
+        batch = {"tokens": torch.from_numpy(padded).to(cuda)}
+        if scfg.family == "encdec":
+            batch["frames"] = frames_of(scfg, len(rows), 22 + k).to(
+                cuda, getattr(torch, scfg.dtype))
+        start = padded.shape[1]
+        max_len = start + fw["new"]
+
+        def figures(params, m):
+            """Prefill ms, then a timed greedy decode loop and the same
+            loop under a card-only profiler trace: ms a token on the host's
+            clock and on the card's; the collectives' elements a token;
+            each position's cache bytes."""
+            n = LM_FAMILIES_DECODE_TIMED
+            with torch.no_grad():
+                cache = lm.init_cache(scfg, len(rows), max_len, cuda,
+                                      mesh=m)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last, cache, extras = lm.prefill(params, batch, scfg, cache,
+                                                 mesh=m)
+                torch.cuda.synchronize()
+                prefill_ms = 1e3 * (time.perf_counter() - t0)
+                box = {"last": last, "cache": cache, "at": start}
+
+                def loop(count):
+                    for _ in range(count):
+                        tok = torch.argmax(box["last"], dim=-1).to(
+                            torch.int32)[:, None]
+                        box["last"], box["cache"] = lm.decode_step(
+                            params, tok, box["at"], scfg, box["cache"],
+                            extras=extras, mesh=m)
+                        box["at"] += 1
+
+                spmd.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop(n)
+                torch.cuda.synchronize()
+                token_ms = 1e3 * (time.perf_counter() - t0) / n
+                moved = {key: v / n for key, v in spmd.counts().items()}
+                # one token under the trace: a sharded token launches
+                # ~10^4 kernels, and reading their events costs seconds
+                busy = _kernel_ms(torch, lambda: loop(1))
+            out = dict(prefill_ms=prefill_ms, ms_per_token=token_ms,
+                       device_ms_per_token=busy,
+                       host_ms_per_token=token_ms - busy if busy else None,
+                       elements_moved_per_token=moved)
+            if m is not None:
+                out["cache_bytes"] = [_tensor_bytes(c)
+                                      for c in box["cache"].positions]
+                mem = extras.get("memory_kv")
+                if mem is not None:
+                    out["memory_kv_bytes"] = [_tensor_bytes(c)
+                                              for c in mem.positions]
+            return out
+
+        def serve(params, m):
+            with torch.no_grad():
+                return lm.generate(params, batch, scfg, max_new=fw["new"],
+                                   max_len=max_len, mesh=m).cpu().numpy()
+
+        t0 = time.perf_counter()
+        model = lm.init_params(22 + k, scfg, device=cuda)
+        runs = {}
+        for label, m in (("unsharded", None), ("sharded", mesh)):
+            if m is not None:
+                # the unsharded model's logits on its own greedy
+                # trajectory, then its place on the card to the split
+                seq = {"tokens": torch.cat([batch["tokens"], torch.from_numpy(
+                    runs["unsharded"]["tokens"]).to(cuda)], dim=1)}
+                if "frames" in batch:
+                    seq["frames"] = batch["frames"]
+                with torch.no_grad():
+                    ref = lm.forward(model, seq, scfg)[0][:, start - 1:-1]
+                params = lm.shard_model(model, m)
+                del model
+            else:
+                params = model
+                serve(params, m)   # warms the card's kernels for both runs
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            out = serve(params, m)
+            serve_s = time.perf_counter() - t1
+            runs[label] = dict(tokens=out, serve_seconds=serve_s,
+                               tokens_per_s=out.size / serve_s,
+                               peak_bytes=torch.cuda.max_memory_allocated()
+                               - held, **figures(params, m))
+            if m is not None:
+                runs[label]["resident_param_bytes"] = _sharded_bytes(
+                    spmd, dict(params.named_parameters()), n_pos)
+        with torch.no_grad():
+            got = lm.forward(params, seq, scfg, mesh=mesh)[0][:, start - 1:-1]
+        del params
+        torch.cuda.empty_cache()
+        # the same weights (their bf16 values) computing in float32: how
+        # far each bf16 run's rounding takes its logits; the two bf16 runs
+        # round in different places, so they may lie twice the unsharded
+        # run's own distance apart
+        fcfg = dataclasses.replace(scfg, param_dtype="float32",
+                                   dtype="float32")
+        exact = lm.init_params(22 + k, fcfg, device=cuda)
+        with torch.no_grad():
+            for p in exact.parameters():
+                p.copy_(p.to(torch.bfloat16))
+            f32 = lm.forward(exact, seq, fcfg)[0][:, start - 1:-1]
+        del exact
+        torch.cuda.empty_cache()
+        rounding = dict(unsharded=float((ref - f32).abs().max()),
+                        sharded=float((got - f32).abs().max()))
+        bar = max(LM_SHARD_BF16_LOGITS, 2 * rounding["unsharded"])
+        logit_err = _within(f"lm families {arch} serve logits", got, ref,
+                            bar)
+        top2 = ref.float().topk(2, dim=-1).values
+        gaps = top2[..., 0] - top2[..., 1]
+        parted = _parted(np, runs["unsharded"]["tokens"],
+                         runs["sharded"]["tokens"], gaps, bar)
+        # each position's bytes against the dry run's plan
+        plan = dryrun.run_cell(arch, "decode_32k", mesh)
+        meta = lm.init_cache(scfg, len(rows), max_len, lm.META)
+        planned = dict(params=plan["params_bytes"],
+                       cache=dryrun.planned_bytes(
+                           meta, specs.cache_shardings(meta, scfg, mesh),
+                           mesh))
+        resident = dict(params=runs["sharded"].pop("resident_param_bytes"),
+                        cache=runs["sharded"].pop("cache_bytes"))
+        if scfg.family == "encdec":
+            shape = (len(rows), scfg.enc_seq, scfg.n_kv_heads,
+                     scfg.head_dim_)
+            meta_kv = {"memory_kv": [
+                {key: torch.empty(shape, dtype=getattr(torch, scfg.dtype),
+                                  device=lm.META) for key in ("k", "v")}
+                for _ in range(scfg.n_units)]}
+            planned["memory_kv"] = dryrun.planned_bytes(
+                meta_kv, specs.cache_shardings(meta_kv, scfg, mesh), mesh)
+            resident["memory_kv"] = runs["sharded"].pop("memory_kv_bytes")
+        if any(b != planned[key] for key, v in resident.items() for b in v):
+            raise AssertionError(f"lm families {arch}: resident bytes "
+                                 f"{resident} against the plan {planned}")
+        for label in runs:
+            runs[label]["tokens"] = runs[label]["tokens"].tolist()
+        row = dict(arch=arch, mesh="x".join(map(str, LM_FAMILIES_MESH)),
+                   dtype=scfg.dtype, prompts=list(fw["prompts"]),
+                   new=fw["new"], tokens_equal=not parted, parted=parted,
+                   max_logit_err=logit_err, logit_bar=bar,
+                   bf16_rounding=rounding,
+                   min_top2_gap=float(gaps.min()), runs=runs,
+                   resident_bytes=resident, planned_bytes=planned,
+                   card=card, seconds=time.perf_counter() - t0)
+        emit("lm_families_serve", **row)
+        full[arch] = {"serve": row}
+        del ref, got, seq, f32
+        torch.cuda.empty_cache()
+
+        if "train" not in fw:
+            full[arch]["seconds"] = time.perf_counter() - t_arch
+            continue
+        t0 = time.perf_counter()
+        b, s, n_steps = fw["train"]
+        tcfg = dataclasses.replace(configs.get_config(arch),
+                                   dtype="float32")
+        tocfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                  total_steps=n_steps)
+        model = lm.init_params(32 + k, tcfg, device=cuda)
+        named = dict(model.named_parameters())
+        # seeded non-zero moments, as in (a): from zero moments Adam's
+        # first steps move each parameter by lr times the sign of its
+        # gradient, and an entry whose gradient is rounding noise moves
+        # apart by 2 lr (mamba2's out_proj entries are ~lr in size)
+        state = adamw.init(tocfg, named)
+        gen = torch.Generator(device=cuda).manual_seed(50 + k)
+        for n in named:
+            state["m"][n].normal_(0.0, 1e-3, generator=gen)
+            state["v"][n].uniform_(1e-8, 1e-6 + 1e-8, generator=gen)
+        split = lm.shard_model(model, mesh)
+        s_state = specs.place_opt_state(state, split.specs, mesh)
+        batches = [{key: v.to(cuda) for key, v in _train_batch(
+            torch, np, tcfg, b, s, 40 + k + i).items()}
+            for i in range(n_steps)]
+        trains = {}
+        for label, m, params, st in (("unsharded", None, model, state),
+                                     ("sharded", mesh, split, s_state)):
+            step = specs.make_train_step(tcfg, tocfg, mesh=m)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            spmd.reset_counts()
+            box = {"state": st, "losses": [], "norms": []}
+
+            def one(i):
+                _, box["state"], met = step(params, box["state"], batches[i])
+                box["losses"].append(float(met["loss"]))
+                box["norms"].append(float(met["grad_norm"]))
+
+            secs = []
+            for i in range(n_steps - 1):
+                t1 = time.perf_counter()
+                one(i)
+                secs.append(time.perf_counter() - t1)
+            # the last step under a card-only trace: its device time
+            busy = _kernel_ms(torch, lambda: one(n_steps - 1))
+            moved = {key: v / n_steps for key, v in spmd.counts().items()}
+            peak = torch.cuda.max_memory_allocated() - held
+            times = sorted(secs[1:] or secs)   # past the first step
+            step_ms = 1e3 * times[len(times) // 2]
+            trains[label] = dict(
+                losses=box["losses"], grad_norms=box["norms"],
+                step_ms=step_ms, step_ms_runs=[1e3 * t for t in secs],
+                device_ms_per_step=busy,
+                host_ms_per_step=step_ms - busy if busy else None,
+                peak_bytes=peak, elements_moved_per_step=moved)
+            if m is not None:
+                trains[label]["bytes"] = dict(
+                    params=_sharded_bytes(
+                        spmd, dict(params.named_parameters()), n_pos),
+                    opt=_sharded_bytes(spmd, box["state"], n_pos))
+            box.clear()
+        del state, s_state, st
+        tt = LM_SHARD_TRAIN_TOL
+        fails = []
+        u, sh = trains["unsharded"], trains["sharded"]
+        for key in ("losses", "grad_norms"):
+            rel = [abs(x - y) / abs(y) for x, y in zip(sh[key], u[key])]
+            trains[f"{key}_rel_err"] = rel
+            bar = tt["loss" if key == "losses" else "grad_norm"]
+            if not (rel[0] <= tt["first"] and max(rel) <= bar):
+                fails.append(f"{key}: {sh[key]} against {u[key]}")
+        worst, worst_leaf = 0.0, None
+        with torch.no_grad():
+            for n, p in split.named_parameters():
+                want = model.get_parameter(n)
+                err = float((p.full() - want).abs().max()
+                            / want.abs().max().clamp_min(1e-30))
+                if err > worst:
+                    worst, worst_leaf = err, n
+        if not worst <= tt["params"]:
+            fails.append(f"parameter leaf {worst_leaf} {worst} of its "
+                         f"largest entry apart")
+        plan = dryrun.run_cell(arch, "train_4k", mesh)
+        planned = dict(params=plan["params_bytes"], opt=plan["opt_bytes"])
+        resident = sh.pop("bytes")
+        if any(v != planned[key] for key, vs in resident.items()
+               for v in vs):
+            fails.append(f"resident bytes {resident} against the dry run's "
+                         f"{planned}")
+        train_row = dict(arch=arch, mesh="x".join(map(str, LM_FAMILIES_MESH)),
+                         dtype=tcfg.dtype, batch=b, seq=s, steps=n_steps,
+                         params_max_rel_err=worst, params_worst=worst_leaf,
+                         resident_bytes=resident,
+                         planned_bytes=planned, runs=trains, card=card,
+                         seconds=time.perf_counter() - t0)
+        emit("lm_families_train", **train_row)
+        if fails:
+            raise AssertionError(f"lm families {arch} train: {fails}")
+        full[arch]["train"] = train_row
+        full[arch]["seconds"] = time.perf_counter() - t_arch
+        del model, split, batches
+        torch.cuda.empty_cache()
+
+    launches = sum(build.LAUNCHES.values())
+    if launches:
+        raise AssertionError(f"the sharded LM families launched hand-written "
+                             f"kernels: {build.LAUNCHES}")
+    emit("lm_families", card=card, steps=steps, serve_smoke=served,
+         full={a: {"seconds": v["seconds"]} for a, v in full.items()},
          lm_kernel_launches=launches, seconds=time.perf_counter() - t_phase)
 
 
@@ -3809,6 +4232,10 @@ def main() -> int:
 
     # 21. the language-model path sharded over a local mesh -----------------
     phase_lm_sharded(torch, build)
+    torch.cuda.empty_cache()
+
+    # 22. the rec, ssm and encdec families sharded over a local mesh --------
+    phase_lm_sharded_families(torch, build)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,7 +14,7 @@ serves on the card unless ``--device cpu`` is given, and raises without
 one. Weights are random, from a seed: nothing is downloaded.
 ``--mesh 2x4`` (``BatchServer(..., mesh=)``) serves the model split over a
 local (data=2, model=4) mesh (``launch/mesh.make_local_mesh``: on one
-card all eight positions share it), the attention family only.
+card all eight positions share it), any family.
 """
 from __future__ import annotations
 

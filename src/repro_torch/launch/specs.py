@@ -28,7 +28,6 @@ from repro_torch import configs
 from repro_torch.configs.common import SHAPES
 from repro_torch.models import encdec
 from repro_torch.models import model as model_lib
-from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.runtime import spmd
@@ -225,7 +224,7 @@ def _sharded_grads(sm, batch, cfg: ModelConfig):
     """(loss, metrics, grads: name -> each position's gradient of its
     slice) of one batch (whole tensors) on ``sm``'s mesh."""
     placed, rows = model_lib.place_batch(batch, sm.mesh)
-    loss, metrics = transformer.train_loss_sharded(sm, placed, cfg, rows)[0]
+    loss, metrics = model_lib.sharded_loss(sm, placed, cfg, rows)[0]
     flat = [(n, t) for n in sm.names for t in sm.shards(n)]
     got = torch.autograd.grad(loss, [t for _, t in flat], allow_unused=True)
     grads = {n: [] for n in sm.names}
@@ -247,7 +246,6 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
     is rows i B/accum_steps to (i + 1) B/accum_steps of the batch, as in
     the unsplit step, each split over the batch axes. Returns the sharded
     model and state; metrics are the first position's."""
-    model_lib.require_attention_family(cfg)
 
     def train_step(model, opt_state, batch):
         sm = model_lib.on_mesh(model, mesh, cfg)

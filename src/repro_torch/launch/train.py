@@ -7,8 +7,8 @@ the reference's ``launch/train.py``.
 
 trains on the card unless ``--device cpu`` is given, and raises without
 one. ``--mesh 2x4`` (``train(..., mesh=)``) trains split over a local
-(data=2, model=4) mesh, the attention family only; checkpoints hold the
-gathered tree, so a run saved on one mesh resumes on another or on none.
+(data=2, model=4) mesh, any family; checkpoints hold the gathered tree,
+so a run saved on one mesh resumes on another or on none.
 Weights are random, from a seed; the data is the stateless synthetic
 Markov corpus: nothing is downloaded.
 
@@ -80,7 +80,6 @@ def train(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, data, *,
     are drawn on its first device from ``seed``, as an unsplit run draws
     them, then split."""
     if mesh is not None:
-        model_lib.require_attention_family(cfg)
         device = mesh.devices[0]
     device = resolve_device(device)
     model = model_lib.init_params(seed, cfg, device)

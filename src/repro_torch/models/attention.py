@@ -241,10 +241,9 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
 
     if not causal:
         mask = torch.ones((1, sq, sq), dtype=torch.bool, device=dev)
-        out = _sdpa(q, k_new, v_new, mask, cfg)
-        return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), None
-
-    if cache is None:
+        out = _sdpa(q, read(k_new), read(v_new), mask, cfg)
+        new_cache = None
+    elif cache is None:
         if sq * sq > _CHUNK_THRESHOLD:
             out = _sdpa_chunked(q, read(k_new), read(v_new), cfg,
                                 q0=pos_offset, k0=pos_offset, causal=True,
@@ -324,7 +323,8 @@ def _local_heads(p, m: int, hl: Optional[int], kvl: Optional[int]):
 
 
 def apply_attn_sharded(ps, hs, cfg: ModelConfig, ctx, spec: LayerSpec,
-                       pos_offset: int, caches=None, plan=None):
+                       pos_offset: int, caches=None, plan=None,
+                       causal: bool = True):
     """``apply_attn`` on each position of a local mesh -> (outputs,
     partial, caches). ``ps``: the positions' parameters (fsdp gathered),
     ``hs``: their inputs over the whole sequence, ``caches``: their layer
@@ -334,7 +334,8 @@ def apply_attn_sharded(ps, hs, cfg: ModelConfig, ctx, spec: LayerSpec,
     split while the key/value heads do not reads the key/value heads its
     query heads use; ``wo``'s partial sums stay float32 until reduced. A
     cache whose sequence splits over ``model`` (split-K placement) is
-    gathered for the step, and each position keeps its slice."""
+    gathered for the step, and each position keeps its slice.
+    ``causal=False``: the encoder's bidirectional attention (no cache)."""
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     q_split = ctx.tp(h)
     kv_split = ctx.tp(kvh)
@@ -360,7 +361,7 @@ def apply_attn_sharded(ps, hs, cfg: ModelConfig, ctx, spec: LayerSpec,
         cache = None if caches is None else \
             (whole[i] if seq_split else caches[i])
         o, c = apply_attn(_local_heads(p, m, hl, kvl), x, cfg, spec,
-                          pos_offset, cache, kv_heads=kv_index,
+                          pos_offset, cache, causal, kv_heads=kv_index,
                           out_dtype=torch.float32 if q_split else None)
         if seq_split:
             for key, t in c.items():
@@ -401,3 +402,74 @@ def encode_memory_kv(p, mem: torch.Tensor, cfg: ModelConfig):
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
     return {"k": k, "v": v}
+
+
+def memory_kv_spec(cfg: ModelConfig, ctx) -> tuple:
+    """The placement of a (B, T, KVH, hd) cross K/V that no cache plan
+    gives (a training or cacheless forward): the batch over its axes, the
+    key/value heads over ``model`` where they divide it."""
+    return (ctx.batch, None, ctx.model if ctx.tp(cfg.n_kv_heads) else None,
+            None)
+
+
+def encode_memory_kv_sharded(ps, mems, cfg: ModelConfig, ctx, spec):
+    """``encode_memory_kv`` on each position -> its slice under ``spec``
+    of the (B, T, KVH, hd) K/V: from the batch rows of the encoder output
+    it holds, the key/value heads and frames ``spec`` gives it, each from
+    those heads' columns of the replicated ``wk`` / ``wv`` (no data
+    moves)."""
+    out = []
+    for i, (p, mem) in enumerate(zip(ps, mems)):
+        heads = (spec[2], None)
+        dt = mem.dtype
+        mem = spmd.local_slice(mem, (None, spec[1]), ctx.mesh, i)
+        kv = {}
+        for name in ("k", "v"):
+            w = spmd.local_slice(getattr(p, f"w{name}"), (None,) + heads,
+                                 ctx.mesh, i)
+            t = torch.einsum("bsd,dhk->bshk", mem, w.to(dt))
+            if _has_bias(p):
+                t = t + spmd.local_slice(getattr(p, f"b{name}"), heads,
+                                         ctx.mesh, i).to(dt)
+            kv[name] = t
+        out.append(kv)
+    return out
+
+
+def apply_cross_attn_sharded(ps, hs, mems, spec, cfg: ModelConfig, ctx):
+    """``apply_cross_attn`` on each position -> (outputs, partial). The
+    cross weights are replicated (no rule of the plan names them); the
+    K/V ``mems`` are each position's slices under ``spec``. Where the
+    query heads split over ``model`` each position takes its heads'
+    columns of ``wq`` and rows of ``wo`` (the outputs then float32 partial
+    sums over ``model``) and reads its own K/V heads, or where those do
+    not split the heads its query heads use; K/V split over the frames
+    (the split-K placement) are gathered first."""
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    q_split = ctx.tp(h)
+    model = (ctx.model,) if ctx.model else ()
+    kv_split = bool(model) and spmd.axes_of(spec[2]) == model
+    if model and spmd.axes_of(spec[1]) == model:
+        mems = [dict(zip(("k", "v"), kv)) for kv in zip(*(
+            spmd.all_gather([m[n] for m in mems], ctx.mesh, ctx.model, 1)
+            for n in ("k", "v")))]
+    hl = h // ctx.m if q_split else h
+    outs = []
+    for i, (p, x, mem) in enumerate(zip(ps, hs, mems)):
+        dt = x.dtype
+        m = ctx.m_index(i) if q_split else 0
+        wq = p.wq.narrow(1, m * hl, hl)
+        q = torch.einsum("bsd,dhk->bshk", x, wq.to(dt))
+        if _has_bias(p):
+            q = q + p.bq.narrow(0, m * hl, hl).to(dt)
+        k, v = mem["k"], mem["v"]
+        if q_split and not kv_split:
+            idx = (m * hl + torch.arange(hl, device=x.device)) // (h // kvh)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        mask = torch.ones((1, x.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+        od = torch.float32 if q_split else dt
+        outs.append(torch.einsum("bshk,hkd->bsd", out.to(od),
+                                 p.wo.narrow(0, m * hl, hl).to(od)))
+    return outs, q_split

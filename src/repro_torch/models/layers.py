@@ -15,7 +15,9 @@ On a local mesh (``runtime/spmd.py``) each layer kind has a ``*_sharded``
 form over lists of position tensors: ``gather_fsdp`` gathers each
 weight's fsdp dimension over ``data`` before use (ZeRO-3), the embedding
 is a vocabulary-parallel lookup (a masked local gather, then a sum over
-``model``), ``unembed_sharded`` leaves the logits split over the
+``model``; a learned position table the same by its rows),
+``gather_unstacked`` moves the ``tail`` layers' leaves to a unit's
+layout, ``unembed_sharded`` leaves the logits split over the
 vocabulary as the reference pins them, and the MLP is column- then
 row-parallel over its hidden dimension. ``MeshCtx`` says how a forward
 sees the mesh.
@@ -32,7 +34,8 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import spmd
-from repro_torch.utils.sharding import MeshAxes, batch_axes_for
+from repro_torch.utils.sharding import (MeshAxes, batch_axes_for,
+                                       spec_for_param)
 
 #: the standard normal's CDF at the truncation points -2 and 2
 _CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -140,8 +143,12 @@ class Embed(nn.Module):
             gen, (cfg.vocab_padded, cfg.d_model), cfg.init_scale, pd, device))
         if cfg.pos_embed == "learned":
             self.pos_embed = param(trunc_normal(
-                gen, (min(cfg.max_seq, 65536), cfg.d_model), 0.02, pd,
-                device))
+                gen, (pos_table_rows(cfg), cfg.d_model), 0.02, pd, device))
+
+
+def pos_table_rows(cfg: ModelConfig) -> int:
+    """Rows of the learned position table."""
+    return min(cfg.max_seq, 65536)
 
 
 def init_embed(gen, cfg: ModelConfig, device) -> Embed:
@@ -293,6 +300,30 @@ def gather_fsdp(sm, prefix: str) -> List:
     return out
 
 
+def gather_unstacked(sm, prefix: str) -> List:
+    """``gather_fsdp`` for the ``tail`` layers: the reference places a
+    tail leaf as if it were stacked (its first dimension whole, each rule
+    moved one dimension on: ``w_x`` (None, 'data'), ``w_out`` (None,
+    'model')), which no tensor-parallel pattern uses, so each leaf is
+    moved (``spmd.relayout``, its all-gathers counted) to the placement a
+    unit's leaf of its name has once ``gather_fsdp`` has gathered it."""
+    mesh = sm.mesh
+    axes = MeshAxes().present(mesh)
+    out = [SimpleNamespace() for _ in range(mesh.size)]
+    for name in sm.names:
+        if not name.startswith(prefix):
+            continue
+        xs, spec = sm.shards(name), sm.specs[name]
+        shape = spmd.full_shape(xs[0].shape, spec, mesh)
+        unit = spec_for_param(name.replace(".", "/"), shape, mesh, axes)
+        unit = tuple(None if spmd.axes_of(e) == (axes.fsdp,) else e
+                     for e in unit)
+        xs = spmd.relayout(xs, mesh, spec, unit)
+        for p, x in enumerate(xs):
+            _ns_set(out[p], name[len(prefix):], x)
+    return out
+
+
 def _lookup(table: torch.Tensor, ids: torch.Tensor, split: bool,
             m_index: int) -> torch.Tensor:
     """Rows ``ids`` of a table, or of this position's slice of a table
@@ -308,19 +339,41 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor, split: bool,
         (), dtype=got.dtype, device=got.device))
 
 
+def lookup_sharded(tables, ids, ctx: MeshCtx, rows: int):
+    """Rows ``ids`` (each position's) of a table of ``rows`` rows that
+    splits over ``model`` by rows where they divide it: a masked local
+    gather, then a sum over ``model``."""
+    split = ctx.tp(rows)
+    xs = [_lookup(t, i, split, ctx.m_index(p))
+          for p, (t, i) in enumerate(zip(tables, ids))]
+    return spmd.all_reduce(xs, ctx.mesh, ctx.model) if split else xs
+
+
+def positions_sharded(tables, rows: int, start: int, n: int, ctx: MeshCtx):
+    """Rows ``start`` to ``start + n`` (clamped to the last) of a learned
+    position table of ``rows`` rows on each position, split over
+    ``model`` by rows."""
+    idx = [(start + torch.arange(n, device=t.device)).clamp(0, rows - 1)
+           for t in tables]
+    return lookup_sharded(tables, idx, ctx, rows)
+
+
 def embed_tokens_sharded(ps, tokens, cfg: ModelConfig, ctx: MeshCtx,
                          pos_offset: int = 0):
     """``embed_tokens`` on each position: the vocabulary-parallel lookup
-    (a masked local gather, then a sum over ``model``)."""
-    split = ctx.tp(cfg.vocab_padded)
-    xs = [_lookup(p.tok_embed, t, split, ctx.m_index(i))
-          for i, (p, t) in enumerate(zip(ps, tokens))]
-    if split:
-        xs = spmd.all_reduce(xs, ctx.mesh, ctx.model)
+    (a masked local gather, then a sum over ``model``), and the learned
+    position table's rows looked up the same way."""
+    xs = lookup_sharded([p.tok_embed for p in ps], tokens, ctx,
+                        cfg.vocab_padded)
     xs = [x.to(dtype_of(cfg.dtype)) for x in xs]
     if cfg.emb_scale:
         xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                device=x.device) for x in xs]
+    if cfg.pos_embed == "learned":
+        pos = positions_sharded([p.pos_embed for p in ps],
+                                pos_table_rows(cfg), pos_offset,
+                                tokens[0].shape[-1], ctx)
+        xs = [x + q.to(x.dtype) for x, q in zip(xs, pos)]
     return xs
 
 

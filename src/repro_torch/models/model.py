@@ -12,14 +12,15 @@ The train step (optimizer in the loop) is assembled in
 Entry points run on the card unless the caller passes ``device="cpu"``;
 ``gen`` is a ``torch.Generator`` or an int seed of one on that device.
 
-``mesh=`` (a local ``launch/mesh.Mesh``) runs the attention family
-sharded over the mesh's positions in one process: the parameters split by
+``mesh=`` (a local ``launch/mesh.Mesh``) runs every family sharded over
+the mesh's positions in one process: the parameters split by
 ``utils/sharding.param_specs`` (``shard_model`` -> ``ShardedModel``; an
-``nn.Module`` passed with a mesh is split on the way in), the batch by
-``launch/specs.batch_shardings``, the cache by ``cache_shardings``
-(``init_cache(..., mesh=)`` -> ``ShardedCache``). Logits come back whole
-on the mesh's first device. The ``rec``, ``ssm`` and ``encdec`` families
-raise ``NotImplementedError`` under a mesh (ROADMAP.md queue A14 (b)).
+``nn.Module`` passed with a mesh is split on the way in), the batch
+(``frames`` too) by ``launch/specs.batch_shardings``, the cache by
+``cache_shardings`` (``init_cache(..., mesh=)`` -> ``ShardedCache``), and
+an enc-dec prefill's ``extras["memory_kv"]`` by the same plan (a
+``ShardedCache`` that ``decode_step`` reads). Logits come back whole on
+the mesh's first device.
 """
 from __future__ import annotations
 
@@ -47,11 +48,14 @@ def generator(seed: Gen, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def _family(cfg: ModelConfig):
+    return encdec if cfg.family == "encdec" else transformer
+
+
 def build_model(cfg: ModelConfig, device, gen: Optional[torch.Generator]):
     """The family's module on ``device``; parameters drawn from ``gen``,
     or left as empty storage when ``gen`` is None."""
-    family = encdec if cfg.family == "encdec" else transformer
-    return family.init_params(gen, cfg, device)
+    return _family(cfg).init_params(gen, cfg, device)
 
 
 def init_params(gen: Gen, cfg: ModelConfig, device=None):
@@ -61,18 +65,6 @@ def init_params(gen: Gen, cfg: ModelConfig, device=None):
 
 # ====================================================================== mesh
 META = torch.device("meta")
-
-
-def require_attention_family(cfg: ModelConfig) -> None:
-    """Under a mesh only decoders of ``attn`` units (dense or MoE) run;
-    the rest raise rather than run replicated unsaid."""
-    kinds = {s.kind for s in cfg.unit + cfg.tail}
-    if cfg.family != "decoder" or kinds != {"attn"} or cfg.tail \
-            or cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: a mesh runs the attention family only (decoders "
-            f"of 'attn' units, rope, no tail); the rec, ssm and encdec "
-            f"families under a mesh are ROADMAP.md queue A14 (b)")
 
 
 class ShardedModel:
@@ -114,7 +106,6 @@ def sharded_model(cfg: ModelConfig, mesh, tensors) -> ShardedModel:
     """The model of ``cfg`` split over ``mesh`` from its whole parameters
     ``tensors`` (name -> tensor, on any device), each position's slice
     copied to its device in the config's parameter dtype."""
-    require_attention_family(cfg)
     meta = build_model(cfg, META, None)
     specs = param_specs(meta, mesh)
     if set(tensors) != set(specs):
@@ -139,7 +130,6 @@ def shard_model(model, mesh) -> ShardedModel:
 def on_mesh(params, mesh, cfg: ModelConfig) -> ShardedModel:
     """``params`` on ``mesh``: a ``ShardedModel`` of that mesh as it is,
     a module split."""
-    require_attention_family(cfg)
     if isinstance(params, ShardedModel):
         if params.mesh != mesh:
             raise ValueError("the model is split over another mesh")
@@ -190,15 +180,41 @@ def _last_whole(logits, ctx, split):
     return spmd.gather(last, _logits_spec(ctx, split, 2), ctx.mesh)
 
 
+def _memory_plan(cfg: ModelConfig, mesh, batch: int, frames: int) -> list:
+    """The placement of each decoder layer's cross K/V (B, T, KVH, hd):
+    ``launch/specs.cache_shardings``' of ``memory_kv``."""
+    from repro_torch.launch.specs import cache_shardings
+    shape = (batch, frames, cfg.n_kv_heads, cfg.head_dim_)
+    meta = [{"k": torch.empty(shape, device=META),
+             "v": torch.empty(shape, device=META)}
+            for _ in range(cfg.n_units)]
+    return cache_shardings({"memory_kv": meta}, cfg, mesh)["memory_kv"]
+
+
+def sharded_loss(sm: ShardedModel, placed, cfg: ModelConfig, rows: int):
+    """Each position's (loss, metrics) of a placed batch on ``sm``'s
+    mesh."""
+    return _family(cfg).train_loss_sharded(sm, placed, cfg, rows)
+
+
+def _forward_placed(sm, placed, cfg, rows, **kw):
+    if cfg.family == "encdec":
+        return encdec.forward_sharded(sm, placed.get("frames"),
+                                      placed["tokens"], cfg, n_rows=rows,
+                                      **kw)
+    return transformer.forward_sharded(sm, placed["tokens"], cfg,
+                                       n_rows=rows,
+                                       prefix=placed.get("prefix_embeds"),
+                                       **kw)
+
+
 # ================================================================ entries
 def train_loss(params, batch, cfg: ModelConfig, mesh=None):
     if mesh is not None:
         sm = on_mesh(params, mesh, cfg)
         placed, rows = place_batch(batch, mesh)
-        return transformer.train_loss_sharded(sm, placed, cfg, rows)[0]
-    if cfg.family == "encdec":
-        return encdec.train_loss(params, batch, cfg)
-    return transformer.train_loss(params, batch, cfg)
+        return sharded_loss(sm, placed, cfg, rows)[0]
+    return _family(cfg).train_loss(params, batch, cfg)
 
 
 def device_of(params) -> torch.device:
@@ -211,15 +227,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                mesh=None):
     if mesh is not None:
         from repro_torch.launch.specs import cache_shardings
-        require_attention_family(cfg)
-        meta = transformer.init_cache(cfg, batch, max_len, META)
+        meta = _family(cfg).init_cache(cfg, batch, max_len, META)
         plan = cache_shardings(meta, cfg, mesh)
         return ShardedCache([_zeros_local(meta, plan, mesh, p)
                              for p in range(mesh.size)], plan, mesh)
-    device = resolve_device(device)
-    if cfg.family == "encdec":
-        return encdec.init_cache(cfg, batch, max_len, device)
-    return transformer.init_cache(cfg, batch, max_len, device)
+    return _family(cfg).init_cache(cfg, batch, max_len,
+                                   resolve_device(device))
 
 
 def forward(params, batch, cfg: ModelConfig, *, mesh=None):
@@ -227,9 +240,7 @@ def forward(params, batch, cfg: ModelConfig, *, mesh=None):
     if mesh is not None:
         sm = on_mesh(params, mesh, cfg)
         placed, rows = place_batch(batch, mesh)
-        logits, _, aux, ctx, split = transformer.forward_sharded(
-            sm, placed["tokens"], cfg, n_rows=rows,
-            prefix=placed.get("prefix_embeds"))
+        logits, _, aux, ctx, split = _forward_placed(sm, placed, cfg, rows)
         return (spmd.gather(logits, _logits_spec(ctx, split, 3), mesh),
                 None, aux[0])
     if cfg.family == "encdec":
@@ -238,18 +249,35 @@ def forward(params, batch, cfg: ModelConfig, *, mesh=None):
                                prefix_embeds=batch.get("prefix_embeds"))
 
 
-def _step_sharded(params, batch, cfg, cache, mesh, pos_offset):
+def _step_sharded(params, batch, cfg, cache, mesh, pos_offset, memory=None):
+    """A prefill (``pos_offset`` 0, the batch's frames encoded into the
+    cross K/V) or decode step on a mesh -> (last logits, cache, the cross
+    K/V as a ``ShardedCache`` or None)."""
     if not isinstance(cache, ShardedCache) or cache.mesh != mesh:
         raise ValueError("under a mesh the cache is init_cache(..., "
                          "mesh=mesh)'s")
     sm = on_mesh(params, mesh, cfg)
     placed, rows = place_batch(batch, mesh)
-    logits, new, _, ctx, split = transformer.forward_sharded(
-        sm, placed["tokens"], cfg, n_rows=rows, pos_offset=pos_offset,
-        caches=cache.positions, plans=cache.plan,
-        prefix=placed.get("prefix_embeds"))
+    kw = {}
+    if cfg.family == "encdec":
+        if memory is None:
+            ctx = encdec.mesh_ctx(mesh, cfg, rows, 1)
+            mems = encdec.encode_sharded(sm, placed["frames"], cfg, ctx)
+            plan = _memory_plan(cfg, mesh, rows, mems[0].shape[1])
+            kvs, _ = encdec.encode_memory_kv_sharded(sm, mems, cfg, ctx,
+                                                     plan)
+            memory = ShardedCache([[layer[p] for layer in kvs]
+                                   for p in range(mesh.size)], plan, mesh)
+        elif not isinstance(memory, ShardedCache) or memory.mesh != mesh:
+            raise ValueError("under a mesh memory_kv is a mesh prefill's")
+        kw["memory"] = ([[pos[i] for pos in memory.positions]
+                         for i in range(cfg.n_units)],
+                        [s["k"] for s in memory.plan])
+    logits, new, _, ctx, split = _forward_placed(
+        sm, placed, cfg, rows, pos_offset=pos_offset, caches=cache.positions,
+        plans=cache.plan, **kw)
     cache = ShardedCache(new, cache.plan, mesh)
-    return _last_whole(logits, ctx, split), cache
+    return _last_whole(logits, ctx, split), cache, memory
 
 
 def prefill(params, batch, cfg: ModelConfig, cache, *, mesh=None):
@@ -257,8 +285,10 @@ def prefill(params, batch, cfg: ModelConfig, cache, *, mesh=None):
 
     For enc-dec, also returns the per-layer cross K/V under extras."""
     if mesh is not None:
-        last, cache = _step_sharded(params, batch, cfg, cache, mesh, 0)
-        return last, cache, {}
+        last, cache, memory = _step_sharded(params, batch, cfg, cache, mesh,
+                                            0)
+        return last, cache, ({} if memory is None
+                             else {"memory_kv": memory})
     if cfg.family == "encdec":
         memory = encdec.encode(params, batch["frames"], cfg)
         memory_kv = encdec.encode_memory_kv(params, memory, cfg)
@@ -277,8 +307,12 @@ def decode_step(params, tokens: torch.Tensor, pos_offset: int,
     """One decode step: tokens (B, 1) at absolute position ``pos_offset``.
     Returns (logits (B, V), new_cache)."""
     if mesh is not None:
+        memory = (extras or {}).get("memory_kv")
+        if cfg.family == "encdec" and memory is None:
+            raise ValueError("an enc-dec decode step needs the prefill's "
+                             "extras['memory_kv']")
         return _step_sharded(params, {"tokens": tokens}, cfg, cache, mesh,
-                             pos_offset)
+                             pos_offset, memory)[:2]
     if cfg.family == "encdec":
         logits, cache, _ = encdec.forward(
             params, None, tokens, cfg, pos_offset=pos_offset, cache=cache,

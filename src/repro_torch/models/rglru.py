@@ -7,6 +7,8 @@ h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t u_t). The linear recurrence runs
 as a doubling scan (log2 S vector steps of the reference's combine, where
 the reference runs ``lax.associative_scan``: the same sums in another
 order); decode carries (h, conv window) -- O(1)/token.
+``apply_rec_sharded`` runs the block split over a local mesh's ``model``
+axis by channel.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import const, dense_init, dtype_of
 from repro_torch.models.ssm import _causal_conv, _conv_window
+from repro_torch.runtime import spmd
 
 C_RGLRU = 8.0
 
@@ -75,14 +78,20 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rglru(p, u: torch.Tensor, h0: Optional[torch.Tensor]
+def _rglru(p, u: torch.Tensor, h0: Optional[torch.Tensor],
+           u_all: Optional[torch.Tensor] = None, cols=slice(None)
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u (B,S,dr) post-conv branch input; h0 (B,dr) or None.
-    Returns (h (B,S,dr) fp32, h_last)."""
+    Returns (h (B,S,dr) fp32, h_last). On a mesh ``u`` holds the channels
+    ``cols`` of the whole ``u_all``, which the gates' products reduce
+    over, and the gates are computed for those channels."""
     uf = u.float()
-    r = torch.sigmoid(torch.matmul(uf, p.w_rg.float()) + p.b_rg.float())
-    i = torch.sigmoid(torch.matmul(uf, p.w_ig.float()) + p.b_ig.float())
-    log_a = -C_RGLRU * r * F.softplus(p.lambda_p.float())
+    ua = uf if u_all is None else u_all.float()
+    r = torch.sigmoid(torch.matmul(ua, p.w_rg[:, cols].float())
+                      + p.b_rg[cols].float())
+    i = torch.sigmoid(torch.matmul(ua, p.w_ig[:, cols].float())
+                      + p.b_ig[cols].float())
+    log_a = -C_RGLRU * r * F.softplus(p.lambda_p[cols].float())
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * uf)
@@ -110,3 +119,47 @@ def apply_rec(p, x: torch.Tensor, cfg: ModelConfig, cache=None
 
     y = h.to(dt_) * gate
     return torch.matmul(y, p.w_out.to(dt_)), new_cache
+
+
+def apply_rec_sharded(ps, hs, cfg: ModelConfig, ctx, caches=None):
+    """``apply_rec`` on each position of a local mesh -> (outputs,
+    partial, caches). Where ``d_rec`` splits over ``model`` (the plan
+    splits ``w_x`` / ``w_gate`` by columns, ``w_out`` by rows and the
+    ``h`` / ``conv`` caches by channel, and replicates the rest) each
+    position computes its channels of the branch and the gate, convolves
+    and scans them (both per channel), and gathers the whole branch input
+    over ``model`` for the gates' products, which reduce over every
+    channel; ``w_out``'s outputs are float32 partial sums over ``model``.
+    Otherwise every position runs the whole block."""
+    dr = _d_rec(cfg)
+    if not ctx.tp(dr):
+        done = [apply_rec(p, h, cfg, None if caches is None else c)
+                for p, h, c in zip(ps, hs, caches or [None] * len(ps))]
+        return ([o for o, _ in done], False,
+                None if caches is None else [c for _, c in done])
+    n = dr // ctx.m
+    us, gates, convs = [], [], []
+    for i, (p, x) in enumerate(zip(ps, hs)):
+        cols = slice(ctx.m_index(i) * n, (ctx.m_index(i) + 1) * n)
+        dt_ = x.dtype
+        u = torch.matmul(x, p.w_x.to(dt_))
+        gates.append(F.gelu(torch.matmul(x, p.w_gate.to(dt_)),
+                            approximate="tanh"))
+        if caches is None:
+            u = _causal_conv(u, p.conv_w[:, cols], p.conv_b[cols])
+        else:
+            u, conv = _conv_window(caches[i]["conv"], u, p.conv_w[:, cols],
+                                   p.conv_b[cols])
+            convs.append(conv)
+        us.append(u)
+    whole = spmd.all_gather(us, ctx.mesh, ctx.model, 2)
+    outs, new = [], []
+    for i, (p, u) in enumerate(zip(ps, us)):
+        cols = slice(ctx.m_index(i) * n, (ctx.m_index(i) + 1) * n)
+        h, h_last = _rglru(p, u, None if caches is None else caches[i]["h"],
+                           whole[i], cols)
+        y = h.to(gates[i].dtype) * gates[i]
+        outs.append(torch.matmul(y.float(), p.w_out.float()))
+        if caches is not None:
+            new.append({"h": h_last, "conv": convs[i]})
+    return outs, True, (new if caches is not None else None)

@@ -12,6 +12,9 @@ the mixer does not call that kernel, as the reference's does not call its
 Pallas kernel. The causal conv is the reference's sum of shifted products
 (no ``conv1d``, whose TF32 mode would change its float32 products on the
 card).
+
+``apply_ssm_sharded`` runs the mixer split over a local mesh's ``model``
+axis by heads.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import const, dense_init, dtype_of
+from repro_torch.runtime import spmd
 
 
 def _dims(cfg: ModelConfig):
@@ -150,6 +154,28 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y[:, :s]
 
 
+def _scan(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+          bm: torch.Tensor, cm: torch.Tensor, cfg: ModelConfig,
+          state: Optional[torch.Tensor]):
+    """The SSD mixer's scan of heads xs (B,S,H,P) -> (y (B,S,H,P) fp32,
+    the new state): the chunked scan without a state, else the
+    recurrence from ``state`` (B,H,P,N) one token at a time."""
+    if state is None:
+        return _ssd_chunked(xs, dt, a, bm, cm, cfg.ssm.chunk), None
+    s = xs.shape[1]
+    hpg = xs.shape[2] // bm.shape[2]
+    bh = bm.repeat_interleave(hpg, dim=2).float()       # (b,s,h,n)
+    chh = cm.repeat_interleave(hpg, dim=2).float()
+    ys = []
+    for i in range(s):  # s == 1 in decode
+        da = torch.exp(dt[:, i] * a[None])                # (b,h)
+        upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, i],
+                           xs[:, i].float(), bh[:, i])
+        state = state * da[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, chh[:, i]))
+    return torch.stack(ys, dim=1), state
+
+
 def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, cache=None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x (B,S,d) -> (out (B,S,d), new_cache)."""
@@ -178,24 +204,8 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, cache=None
     dt = F.softplus(dt_raw.float() + p.dt_bias.float())
     a = -torch.exp(p.A_log.float())
 
-    if cache is None:
-        y = _ssd_chunked(xs, dt, a, bm, cm, s_cfg.chunk)
-        new_state = None
-    else:
-        # recurrent: state (b,h,p,n), one token at a time
-        hpg = nh // g
-        bh = bm.repeat_interleave(hpg, dim=2).float()       # (b,s,h,n)
-        chh = cm.repeat_interleave(hpg, dim=2).float()
-        state = cache["state"]
-        ys = []
-        for i in range(s):  # s == 1 in decode
-            da = torch.exp(dt[:, i] * a[None])                # (b,h)
-            upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, i],
-                               xs[:, i].float(), bh[:, i])
-            state = state * da[..., None, None] + upd
-            ys.append(torch.einsum("bhpn,bhn->bhp", state, chh[:, i]))
-        y = torch.stack(ys, dim=1)
-        new_state = state
+    y, new_state = _scan(xs, dt, a, bm, cm, cfg,
+                         None if cache is None else cache["state"])
 
     y = y + xs.float() * p.D.float()[None, None, :, None]
     y = y.reshape(b, s, d_in)
@@ -207,3 +217,82 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, cache=None
     new_cache = None if cache is None else {"state": new_state,
                                             "conv": new_conv}
     return out, new_cache
+
+
+def apply_ssm_sharded(ps, hs, cfg: ModelConfig, ctx, caches=None):
+    """``apply_ssm`` on each position of a local mesh -> (outputs,
+    partial, caches). The plan splits ``in_proj`` over ``model`` by
+    columns, across the z | xBC | dt boundaries, and the ``conv`` cache by
+    channel, which is not a whole number of heads; ``state`` and
+    ``out_proj``'s rows split by heads. So ``in_proj``'s output is
+    gathered over ``model`` and each position takes its heads of z, x and
+    dt and all of B and C; a decode step gathers the conv window, steps it
+    and keeps its own slice; the gated RMSNorm's mean of squares over
+    ``d_in`` sums each position's over ``model``; ``out_proj``'s outputs
+    are float32 partial sums. Where the heads do not split every position
+    mixes them all."""
+    s_cfg = cfg.ssm
+    d_in, nh, conv_dim = _dims(cfg)
+    g, n, hd = s_cfg.n_groups, s_cfg.d_state, s_cfg.head_dim
+    heads = ctx.tp(nh)
+    hl = nh // ctx.m if heads else nh
+    zx = [torch.matmul(x, p.in_proj.to(x.dtype)) for p, x in zip(ps, hs)]
+    if ctx.tp(d_in + conv_dim + nh):
+        zx = spmd.all_gather(zx, ctx.mesh, ctx.model, 2)
+    windows = None if caches is None else [c["conv"] for c in caches]
+    if caches is not None and ctx.tp(conv_dim):
+        windows = spmd.all_gather(windows, ctx.mesh, ctx.model, 2)
+    ys, sqs, new = [], [], []
+    for i, (p, zxi) in enumerate(zip(ps, zx)):
+        b, s, _ = zxi.shape
+        h0 = ctx.m_index(i) * hl if heads else 0
+        ch = slice(h0 * hd, (h0 + hl) * hd)
+        xbc = zxi[..., d_in:d_in + conv_dim]
+        if caches is None:
+            # this position's x channels, then all of B and C
+            xbc = _causal_conv(
+                torch.cat([xbc[..., ch], xbc[..., d_in:]], dim=-1),
+                torch.cat([p.conv_w[:, ch], p.conv_w[:, d_in:]], dim=-1),
+                torch.cat([p.conv_b[ch], p.conv_b[d_in:]]))
+        else:
+            xbc, window = _conv_window(windows[i], xbc, p.conv_w, p.conv_b)
+            xbc = torch.cat([xbc[..., ch], xbc[..., d_in:]], dim=-1)
+            if ctx.tp(conv_dim):
+                c = conv_dim // ctx.m
+                window = window[..., ctx.m_index(i) * c:
+                                (ctx.m_index(i) + 1) * c].contiguous()
+        xbc = F.silu(xbc)
+        xs = xbc[..., :hl * hd].reshape(b, s, hl, hd)
+        bm = xbc[..., hl * hd:hl * hd + g * n].reshape(b, s, g, n)
+        cm = xbc[..., hl * hd + g * n:].reshape(b, s, g, n)
+        if g > 1 and heads:   # this position's heads' groups, one a head
+            bm = bm.repeat_interleave(nh // g, dim=2)[:, :, h0:h0 + hl]
+            cm = cm.repeat_interleave(nh // g, dim=2)[:, :, h0:h0 + hl]
+        dt_raw = zxi[..., d_in + conv_dim + h0:d_in + conv_dim + h0 + hl]
+        dt = F.softplus(dt_raw.float() + p.dt_bias.float()[h0:h0 + hl])
+        a = -torch.exp(p.A_log.float()[h0:h0 + hl])
+        y, state = _scan(xs, dt, a, bm, cm, cfg,
+                         None if caches is None else caches[i]["state"])
+        y = y + xs.float() * p.D.float()[h0:h0 + hl][None, None, :, None]
+        y = y.reshape(b, s, hl * hd) * F.silu(zxi[..., ch].float())
+        ys.append(y)
+        sqs.append(y.square().sum(dim=-1, keepdim=True))
+        if caches is not None:
+            new.append({"state": state, "conv": window})
+    if heads:
+        sqs = spmd.all_reduce(sqs, ctx.mesh, ctx.model)
+    partial = ctx.tp(d_in)
+    outs = []
+    for i, (p, y, sq, x) in enumerate(zip(ps, ys, sqs, hs)):
+        h0 = ctx.m_index(i) * hl if heads else 0
+        y = y * torch.rsqrt(sq / d_in + 1e-6) \
+            * (1.0 + p.norm_scale.float()[h0 * hd:(h0 + hl) * hd])
+        y = y.to(x.dtype)
+        if not partial:
+            outs.append(torch.matmul(y, p.out_proj.to(x.dtype)))
+            continue
+        if not heads:   # every head here; this position's rows of out_proj
+            r = d_in // ctx.m
+            y = y[..., ctx.m_index(i) * r:(ctx.m_index(i) + 1) * r]
+        outs.append(torch.matmul(y.float(), p.out_proj.float()))
+    return outs, partial, (new if caches is not None else None)

@@ -13,14 +13,17 @@ With ``cfg.remat == "full"`` and gradients on, each unit runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
 body): its activations are recomputed in the backward pass, not kept.
 
-``forward_sharded`` and ``train_loss_sharded`` run the attention family
-on a local mesh (``runtime/spmd.py``): a model whose parameters are split
-by ``utils/sharding.param_specs`` (``models/model.ShardedModel``),
+``forward_sharded`` and ``train_loss_sharded`` run a decoder on a local
+mesh (``runtime/spmd.py``): a model whose parameters are split by
+``utils/sharding.param_specs`` (``models/model.ShardedModel``),
 activations split over the batch axes (and over ``model`` along the
 sequence between layers under ``cfg.seq_shard``: ``activation_spec``),
-the logits split over the vocabulary, a unit's fsdp gathers inside it, and
-under remat a whole sharded unit, collectives included, recomputed in the
-backward pass.
+each layer's mixer (``apply_attn_sharded``, ``apply_rec_sharded``,
+``apply_ssm_sharded``) and MLP split over ``model``, the ``tail`` layers'
+leaves moved to a unit's layout (``gather_unstacked``), the logits split
+over the vocabulary, a unit's fsdp gathers inside it, and under remat a
+whole sharded unit, collectives included, recomputed in the backward
+pass.
 """
 from __future__ import annotations
 
@@ -38,8 +41,9 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (Head, MeshCtx, apply_mlp,
                                        apply_mlp_sharded, apply_norm,
                                        embed_tokens, embed_tokens_sharded,
-                                       gather_fsdp, init_embed, init_mlp,
-                                       init_norm, unembed, unembed_sharded)
+                                       gather_fsdp, gather_unstacked,
+                                       init_embed, init_mlp, init_norm,
+                                       unembed, unembed_sharded)
 from repro_torch.runtime import spmd
 
 
@@ -285,30 +289,63 @@ def activation_spec(cfg: ModelConfig, mesh, x) -> tuple:
     return (ctx.batch, ctx.model if ctx.seq else None, None)
 
 
+def residual_sharded(xs, norms, cfg: ModelConfig, ctx: MeshCtx, block,
+                     post_norms=None):
+    """x + block(norm(x)) on each position: the normed inputs gathered
+    over the sequence where it splits, ``block(hs) -> (outputs,
+    partial)``, its outputs reduced or sliced back to the activation
+    layout (``MeshCtx.finish``) in the activations' dtype, and
+    ``post_norms`` (gemma2) applied before the sum."""
+    hs = ctx.gather_seq([apply_norm(p, x, cfg) for p, x in zip(norms, xs)])
+    out, partial = block(hs)
+    out = [m.to(x.dtype) for m, x in zip(ctx.finish(out, partial), xs)]
+    if post_norms is not None:
+        out = [apply_norm(p, m, cfg) for p, m in zip(post_norms, out)]
+    return [x + m for x, m in zip(xs, out)]
+
+
 def _layer_sharded(ps, xs, cfg: ModelConfig, ctx: MeshCtx, spec: LayerSpec,
                    pos_offset: int, n_rows: int, caches=None, plan=None):
-    """``apply_layer`` on each position -> (xs, caches, aux)."""
-    hs = ctx.gather_seq([apply_norm(p.pre_norm, x, cfg)
-                         for p, x in zip(ps, xs)])
-    mixed, partial, new = attn_mod.apply_attn_sharded(
-        [p.attn for p in ps], hs, cfg, ctx, spec, pos_offset, caches, plan)
-    mixed = [m.to(x.dtype) for m, x in zip(ctx.finish(mixed, partial), xs)]
-    if cfg.post_norms:
-        mixed = [apply_norm(p.post_norm, m, cfg) for p, m in zip(ps, mixed)]
-    xs = [x + m for x, m in zip(xs, mixed)]
-    hs = ctx.gather_seq([apply_norm(p.mlp_norm, x, cfg)
-                         for p, x in zip(ps, xs)])
-    if cfg.moe is not None:
-        out, partial, aux = moe_mod.apply_moe_sharded(
-            [p.moe for p in ps], hs, cfg, ctx, n_rows)
-    else:
-        out, partial = apply_mlp_sharded([p.mlp for p in ps], hs, cfg, ctx,
-                                         cfg.d_ff)
-        aux = [torch.zeros((), device=x.device) for x in xs]
-    out = [m.to(x.dtype) for m, x in zip(ctx.finish(out, partial), xs)]
-    if cfg.post_norms:
-        out = [apply_norm(p.mlp_post_norm, m, cfg) for p, m in zip(ps, out)]
-    return [x + m for x, m in zip(xs, out)], new, aux
+    """``apply_layer`` on each position -> (xs, caches, aux): the mixer
+    its ``spec.kind`` names, then, unless it is an SSM (mixer-only), the
+    MLP or MoE block."""
+    def post(name):
+        return [getattr(p, name) for p in ps] if cfg.post_norms else None
+
+    new = None
+
+    def mixer(hs):
+        nonlocal new
+        if spec.kind == "attn":
+            out, partial, new = attn_mod.apply_attn_sharded(
+                [p.attn for p in ps], hs, cfg, ctx, spec, pos_offset, caches,
+                plan)
+        elif spec.kind == "rec":
+            out, partial, new = rec_mod.apply_rec_sharded(
+                [p.rec for p in ps], hs, cfg, ctx, caches)
+        else:
+            out, partial, new = ssm_mod.apply_ssm_sharded(
+                [p.ssm for p in ps], hs, cfg, ctx, caches)
+        return out, partial
+
+    xs = residual_sharded(xs, [p.pre_norm for p in ps], cfg, ctx, mixer,
+                          post("post_norm"))
+    aux = [torch.zeros((), device=x.device) for x in xs]
+    if spec.kind == "ssm":
+        return xs, new, aux
+
+    def mlp(hs):
+        nonlocal aux
+        if cfg.moe is not None:
+            out, partial, aux = moe_mod.apply_moe_sharded(
+                [p.moe for p in ps], hs, cfg, ctx, n_rows)
+            return out, partial
+        return apply_mlp_sharded([p.mlp for p in ps], hs, cfg, ctx,
+                                 cfg.d_ff)
+
+    xs = residual_sharded(xs, [p.mlp_norm for p in ps], cfg, ctx, mlp,
+                          post("mlp_post_norm"))
+    return xs, new, aux
 
 
 def _unit_sharded(sm, i: int, xs, cfg: ModelConfig, ctx: MeshCtx,
@@ -366,6 +403,16 @@ def forward_sharded(sm, tokens, cfg: ModelConfig, *, n_rows: int,
             new_units.append(nc)
     new = [{"units": [u[p] for u in new_units]} for p in range(len(xs))] \
         if has_cache else None
+    for ti, spec in ((f"t{i}", s) for i, s in enumerate(cfg.tail)):
+        xs, nc, a = _layer_sharded(
+            gather_unstacked(sm, f"tail.{ti}."), xs, cfg, ctx, spec,
+            pos_offset, n_rows,
+            [c["tail"][ti] for c in caches] if has_cache else None,
+            plans["tail"][ti] if has_cache else None)
+        aux = [u + v for u, v in zip(aux, a)]
+        if has_cache:
+            for n, c in zip(new, nc):
+                n.setdefault("tail", {})[ti] = c
     pf = gather_fsdp(sm, "final_norm.")
     xs = ctx.gather_seq([apply_norm(p, x, cfg) for p, x in zip(pf, xs)])
     logits, split = unembed_sharded(
@@ -401,6 +448,23 @@ def _ce_terms(logits, labels, split: bool, ctx: MeshCtx):
     return lse, spmd.all_reduce(picked, mesh, model)
 
 
+def loss_terms_sharded(logits, labels, split: bool, ctx: MeshCtx,
+                       n_rows: int):
+    """Each position's (mean CE over labels >= 0, z-loss) of its logits
+    (``_ce_terms``); the sums over tokens reduce over the batch axes."""
+    lse, picked = _ce_terms(logits, labels, split, ctx)
+    sums = []
+    for y, s_, p_ in zip(labels, lse, picked):
+        mask = (y >= 0).float()
+        sums.append(torch.stack([((s_ - p_) * mask).sum(), mask.sum(),
+                                 torch.square(s_).sum()]))
+    if ctx.batch:
+        sums = spmd.all_reduce(sums, ctx.mesh, ctx.batch)
+    n_tok = n_rows * labels[0].shape[1]
+    return [(t[0] / t[1].clamp_min(1.0), 1e-4 * (t[2] / n_tok))
+            for t in sums]
+
+
 def train_loss_sharded(sm, batch, cfg: ModelConfig, n_rows: int):
     """``train_loss`` on a local mesh -> each position's (loss, metrics),
     equal on every position. ``batch``: name -> each position's rows.
@@ -411,20 +475,9 @@ def train_loss_sharded(sm, batch, cfg: ModelConfig, n_rows: int):
         sm, batch["tokens"], cfg, n_rows=n_rows, prefix=prefix)
     if prefix is not None:
         logits = [l[:, prefix[0].shape[1]:] for l in logits]
-    labels = batch["labels"]
-    lse, picked = _ce_terms(logits, labels, split, ctx)
-    sums = []
-    for y, s_, p_ in zip(labels, lse, picked):
-        mask = (y >= 0).float()
-        sums.append(torch.stack([((s_ - p_) * mask).sum(), mask.sum(),
-                                 torch.square(s_).sum()]))
-    if ctx.batch:
-        sums = spmd.all_reduce(sums, ctx.mesh, ctx.batch)
-    n_tok = n_rows * labels[0].shape[1]
     out = []
-    for t, a in zip(sums, aux):
-        ce = t[0] / t[1].clamp_min(1.0)
-        zl = 1e-4 * (t[2] / n_tok)
+    for (ce, zl), a in zip(loss_terms_sharded(logits, batch["labels"], split,
+                                              ctx, n_rows), aux):
         total = ce + zl
         if cfg.moe is not None:
             total = total + cfg.moe.aux_loss_weight * a

@@ -374,19 +374,22 @@ def slice_along(xs: Sequence[torch.Tensor], mesh, axes,
 def relayout(xs: Sequence[torch.Tensor], mesh, from_spec: Spec,
              to_spec: Spec) -> List[torch.Tensor]:
     """The reference's ``constraint``: the same tensor moved from one
-    placement to another, dimension by dimension (an all-gather where a
-    dimension loses its axes, a local slice where it gains some)."""
+    placement to another (an all-gather for each dimension that loses its
+    axes, then a local slice for each that gains some: a slice taken
+    first would hand the gather of an axis that moves from one dimension
+    to another the positions' different slices)."""
     nd = xs[0].ndim
     a_spec = tuple(from_spec) + (None,) * (nd - len(from_spec))
     b_spec = tuple(to_spec) + (None,) * (nd - len(to_spec))
+    moved = [dim for dim, (a, b) in enumerate(zip(a_spec, b_spec))
+             if axes_of(a) != axes_of(b)]
     out = list(xs)
-    for dim, (a, b) in enumerate(zip(a_spec, b_spec)):
-        if axes_of(a) == axes_of(b):
-            continue
-        if axes_of(a):
-            out = all_gather(out, mesh, axes_of(a), dim)
-        if axes_of(b):
-            out = slice_along(out, mesh, axes_of(b), dim)
+    for dim in moved:
+        if axes_of(a_spec[dim]):
+            out = all_gather(out, mesh, axes_of(a_spec[dim]), dim)
+    for dim in moved:
+        if axes_of(b_spec[dim]):
+            out = slice_along(out, mesh, axes_of(b_spec[dim]), dim)
     return out
 
 
